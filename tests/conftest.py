@@ -26,6 +26,9 @@ def pytest_configure(config):
     """tests/data/pacbio/.gitignore excludes *.bai, so a fresh checkout has
     no indexes for the pacbio fixtures; regenerate any missing ones here so
     tests do not depend on untracked leftovers from earlier runs."""
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips inside the test where there is none)"
+    )
     import glob
 
     from whatshap_tpu.io.sam import build_minimal_index
