@@ -95,13 +95,135 @@ def test_route_on_cuda_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_route_on_cuda_refuses_what_it_cannot_solve(cuda_device):
-    """A pedigree, or K above the kernels' envelope, raises on CUDA instead
-    of leaving the card."""
+    """A pedigree beyond the kernels' envelope (three trios, T = 64), or K
+    above it, raises on CUDA instead of leaving the card."""
     rs, positions = _chromosome(1, 12, 3, seed=1)
-    ped = _pedigree(len(positions), n_ind=3, trios=((0, 1, 2),))
-    with pytest.raises(NotImplementedError, match="pedigree"):
+    ped = _pedigree(len(positions), n_ind=5, trios=((0, 1, 2), (0, 1, 3), (0, 1, 4)))
+    with pytest.raises(NotImplementedError, match="segmented"):
         core.PedigreeDPTable(rs, [1] * len(positions), ped, False, positions)
     k = wmec_cuda.MAX_K + 1
     rs, positions = _chromosome(1, 40, k, seed=2)
     with pytest.raises(NotImplementedError, match="segmented"):
         core.PedigreeDPTable(rs, [1] * len(positions), _pedigree(len(positions)), False, positions)
+
+
+TRIO = (3, ((0, 1, 2),))
+QUARTET = (4, ((0, 1, 2), (0, 1, 3)))
+
+
+def _pedigree_chromosome(n_blocks, n_cols, coverage, pedigree, seed):
+    """A chromosome of `n_blocks` read-connected blocks whose reads come
+    from every individual of `pedigree` at `coverage` each (synthetic
+    haplotypes per individual: enough for parity, not for phasing quality).
+    Returns (readset, positions, Pedigree)."""
+    n_ind, trios = pedigree
+    rs = core.ReadSet()
+    for b in range(n_blocks):
+        for ind in range(n_ind):
+            sub, _pos, _hap = blocks.make_synthetic_readset(
+                n_cols, coverage, read_len=6, seed=seed + 97 * b + ind
+            )
+            for read in sub:
+                r = core.Read(f"b{b}_i{ind}_{read.name}", 50, 0, ind)
+                for v in read:
+                    r.add_variant(v.position + b * 10 * (n_cols + 10), v.allele, v.quality)
+                rs.add(r)
+    rs.sort()
+    positions = rs.get_positions()
+    return rs, positions, _pedigree(len(positions), n_ind, trios)
+
+
+def _pedigree_bucket(K, T, n_blocks=3, n_cols=64, seed=0):
+    """Stacked arrays of `n_blocks` single-range pedigree instances padded
+    to K slots; block 0 has weights times 41."""
+    pedigree = TRIO if T == 4 else QUARTET
+    padded = []
+    for b in range(n_blocks):
+        rs, positions, ped = _pedigree_chromosome(1, n_cols - 8, max(1, K // pedigree[0]), pedigree, seed + b)
+        p = wmec.pack_problem(rs, [3] * len(positions), ped, False, positions)
+        padded.append(blocks.pad_block(p, n_cols, k_pad=max(K, p.K)))
+    arrays = list(blocks.stack_blocks(padded))
+    arrays[0][0] *= 41
+    arrays[1][0] *= 41
+    return arrays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K", [(4, 7), (4, 12), (4, 13), (4, 15), (16, 7), (16, 10), (16, 11), (16, 13)])
+def test_pedigree_kernels_match_plain(cuda_device, T, K):
+    """The general-T forward kernel (tables unseeded and seeded, m-only) and
+    backtrace kernel (M = 1 and M = T + 1) against their plain versions,
+    on both sides of the shared-memory limit of the state."""
+    P = 4
+    arrays = _pedigree_bucket(K, T, seed=7 * K + T)
+    K = arrays[0].shape[2]
+    ta = blocks.to_device(arrays, cuda_device)
+    B = arrays[0].shape[0]
+    rng = np.random.RandomState(K)
+    dp0_np = rng.randint(0, 300, size=(B, T)).astype(np.int32)
+    dp0_np[rng.rand(B, T) < 0.3] = wmec.INF
+    dp0 = torch.from_numpy(dp0_np).to(cuda_device)
+    for seed in (None, dp0):
+        kern = wmec_cuda.forward_t(K, T, P, *ta, seed)
+        plain = wmec_cuda.forward_t_plain(K, T, P, *ta, seed)
+        torch.cuda.synchronize()
+        for x, y in zip(kern, plain):
+            assert torch.equal(x, y)
+    m = wmec_cuda.forward_m_t(K, T, P, *ta, dp0)
+    assert torch.equal(m, wmec_cuda.forward_m_t_plain(K, T, P, *ta, dp0))
+    pidx, pjmin, dp_last, jmin_last, key_last = kern
+    _m, head = wmec_cuda._head_init(K, T, dp_last, jmin_last, key_last)
+    S = 1 << K
+    rand = torch.from_numpy(np.stack(
+        [rng.randint(0, S, (B, T + 1)), rng.randint(0, T, (B, T + 1)), rng.randint(0, T, (B, T + 1))], axis=2
+    ).astype(np.int32)).to(cuda_device)
+    for init in (head[:, None].contiguous(), rand):
+        out = wmec_cuda.backtrace_t(init, pidx, pjmin)
+        ref = wmec_cuda.backtrace_t_plain(init, pidx, pjmin)
+        torch.cuda.synchronize()
+        for x, y in zip(out, ref):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pedigree", [TRIO, QUARTET])
+def test_pedigree_route_on_cuda_matches_cpu(cuda_device, pedigree):
+    """A trio and a quartet through PedigreeDPTable on the card, through the
+    three general-T kernels, equal the CPU run: multi-range and one range."""
+    for n_blocks in (4, 1):
+        rs, positions, ped = _pedigree_chromosome(n_blocks, 40, 3, pedigree, seed=n_blocks)
+        rc = [5] * len(positions)
+        counters = [wmec_cuda.forward_t, wmec_cuda.forward_m_t, wmec_cuda.backtrace_t]
+        before = [f.launches for f in counters]
+        gpu = core.PedigreeDPTable(rs, rc, ped, False, positions)
+        after = [f.launches for f in counters]
+        assert gpu.device.type == "cuda"
+        assert after[0] > before[0] and after[2] > before[2]
+        assert (after[1] > before[1]) == (n_blocks > 1)
+        cpu = core.PedigreeDPTable(rs, rc, ped, False, positions, device="cpu")
+        assert gpu.get_optimal_cost() == cpu.get_optimal_cost()
+        assert gpu.get_optimal_partitioning() == cpu.get_optimal_partitioning()
+        assert np.array_equal(gpu._result.index_path, cpu._result.index_path)
+        assert np.array_equal(gpu._result.trans_path, cpu._result.trans_path)
+
+
+@pytest.mark.cuda
+def test_pedigree_route_on_cuda_never_runs_the_plain_versions(cuda_device, monkeypatch):
+    """With every plain version made to raise, a trio still phases on the
+    card: nothing on the CUDA route falls back to them."""
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a plain version ran on the CUDA route")
+
+    for mod, name in [
+        (wmec, "forward_scan"), (wmec, "solve_batched"), (wmec, "forward_m_batched"),
+        (wmec, "solve_seeded_batched"), (wmec, "_backtrace_from"),
+        (wmec_cuda, "forward_t_plain"), (wmec_cuda, "forward_m_t_plain"),
+        (wmec_cuda, "backtrace_t_plain"), (wmec_cuda, "forward_t1_plain"),
+        (wmec_cuda, "backtrace_t1_plain"),
+    ]:
+        monkeypatch.setattr(mod, name, refuse)
+    for n_blocks in (3, 1):
+        rs, positions, ped = _pedigree_chromosome(n_blocks, 40, 3, TRIO, seed=11)
+        table = core.PedigreeDPTable(rs, [5] * len(positions), ped, False, positions)
+        assert len(table.get_super_reads()[1]) == len(positions)

@@ -150,7 +150,7 @@ def test_forward_scan_t1_matches_reference(name):
             assert np.array_equal(dp_m[b].numpy(), dp_r)
             assert np.array_equal(jmin_m[b].numpy(), jmin_r)
             assert np.array_equal(key_m[b].numpy(), key_r)
-            assert np.array_equal(pidx_m[b].numpy(), pidx_r)
+            assert np.array_equal(pidx_m[b].numpy(), pidx_r.transpose(0, 2, 1))
 
 
 @pytest.mark.parametrize("name", ["t1", "t1_heavy"])
@@ -264,11 +264,24 @@ def test_kernel_envelope():
     assert all(wmec_cuda.kernel_supported(k, 1, 2) for k in range(1, 17))
     assert not wmec_cuda.kernel_supported(0, 1, 2)
     assert not wmec_cuda.kernel_supported(wmec_cuda.MAX_K + 1, 1, 2)
-    assert not wmec_cuda.kernel_supported(10, 4, 4)
     assert not wmec_cuda.kernel_supported(10, 1, 4)
+    # pedigrees: T = 4 up to K = 16 and T = 16 up to K = 13, with P = 2 or 4
+    assert all(wmec_cuda.kernel_supported(k, 4, p) for k in range(1, 17) for p in (2, 4))
+    assert all(wmec_cuda.kernel_supported(k, 16, p) for k in range(1, 14) for p in (2, 4))
+    assert not wmec_cuda.kernel_supported(17, 4, 4)
+    assert not wmec_cuda.kernel_supported(14, 16, 4)
+    assert not wmec_cuda.kernel_supported(10, 64, 4)
+    assert not wmec_cuda.kernel_supported(10, 16, 6)
     # the forward state leaves shared memory above K = 14 (12 B per state)
     assert wmec_cuda.state_bytes(14) == 0
     assert wmec_cuda.state_bytes(15) == 12 << 15
+    # general T: (2T + 3) words with tables, T words in the m-only mode
+    assert wmec_cuda.state_bytes(12, 4) == 0
+    assert wmec_cuda.state_bytes(13, 4) == 44 << 13
+    assert wmec_cuda.state_bytes(13, 4, tables=False) == 0
+    assert wmec_cuda.state_bytes(10, 16) == 0
+    assert wmec_cuda.state_bytes(11, 16) == 140 << 11
+    assert wmec_cuda.state_bytes(12, 16, tables=False) == 64 << 12
 
 
 def test_launch_chunking_is_exact(monkeypatch):

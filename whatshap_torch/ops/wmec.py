@@ -12,12 +12,14 @@ Three parts:
 
 - host packing (pack_problem, connected_column_ranges, extract_*): numpy,
   copied from the reference package so that the port imports nothing of it;
-- the plain torch mirror (forward_scan, solve_batched) for any T, with the
+- the plain torch mirror (forward_scan, solve_batched, forward_m_batched,
+  solve_seeded_batched) for any T, with the
   column loop in Python: the CPU path, and the yardstick that the CUDA
   kernels are held against;
-- the route (run_dp, run_dp_batched, solve_batched_auto): on a CUDA device
-  every instance goes to the hand-written kernels of wmec_cuda, and what
-  they cannot take raises NotImplementedError instead of leaving the card.
+- the route (run_dp, run_dp_batched, run_dp_batched_pedigree and the
+  *_auto solvers): on a CUDA device every instance goes to the hand-written
+  kernels of wmec_cuda, and what they cannot take raises
+  NotImplementedError instead of leaving the card.
 """
 
 from dataclasses import dataclass
@@ -490,7 +492,7 @@ def _col_cost(bits, abits, wdiff_c, wbase_c, acost_c, T: int, P: int):
     return total.amin(dim=-1)
 
 
-def forward_scan(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
+def forward_scan(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None, emit_tables=True):
     """Plain torch mirror of the reference's _forward_scan_impl, with a
     leading block axis written out.
 
@@ -498,8 +500,17 @@ def forward_scan(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
     wdiff (B, C, K, T*P*2) f32, wbase (B, C, T, P, 2) i32, rankw (B, C, K)
     f32, acost (B, C, T, 2^P) i32, die_prev (B, C, K) bool, rc (B, C) i32.
     Returns dp_last (B, S, T), jmin_last (B, S, T), key_last (B, S),
-    proj_idx (B, C, S, T) and proj_jmin (B, C, S, T); proj_jmin is None for
-    T == 1, where it is identically zero.  All int32.
+    proj_idx (B, C, T, S) and proj_jmin (B, C, T, S); proj_jmin is None for
+    T == 1, where it is identically zero.  All int32.  The tables keep the
+    CUDA kernels' layout, (column, transmission, bipartition); the
+    reference's is (column, bipartition, transmission).
+
+    dp0 (B, T) i32 seeds the scan as the reference's _seeded_carry does:
+    the cost starts as dp0 broadcast over the bipartitions, jmin and key at
+    zero (without it all three start at zero).  emit_tables=False is the
+    m-only mode of the seam pass: no tables (both None), and neither the
+    tie key nor jmin is tracked (key_last and jmin_last come back zero);
+    fold winners have equal cost, so dp_last is the same.
     """
     B, C = wdiff.shape[0], wdiff.shape[1]
     S = 1 << K
@@ -520,19 +531,25 @@ def forward_scan(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
     # other bit is an identity, so the Python loop skips it
     die_any = die_prev.any(dim=0).cpu().numpy()
 
-    dp = torch.zeros((B, S, T), dtype=torch.int32, device=dev)
-    jmin = torch.zeros_like(dp) if T > 1 else None
+    if dp0 is None:
+        dp = torch.zeros((B, S, T), dtype=torch.int32, device=dev)
+    else:
+        dp = dp0.to(torch.int32)[:, None, :].expand(B, S, T).contiguous()
+    jmin = torch.zeros_like(dp) if T > 1 and emit_tables else None
     key = torch.zeros((B, S), dtype=torch.int32, device=dev)
-    proj_idx = torch.empty((B, C, S, T), dtype=torch.int32, device=dev)
-    proj_jmin = torch.empty_like(proj_idx) if T > 1 else None
+    proj_idx = proj_jmin = None
+    if emit_tables:
+        proj_idx = torch.empty((B, C, T, S), dtype=torch.int32, device=dev)
+        proj_jmin = torch.empty_like(proj_idx) if T > 1 else None
     for c in range(C):
         # ---- fold dying bits of the previous column (forward projection)
         proj_cost, _key, p_idx, p_jmin = _fold_dying(
             K, T, die_prev[:, c], dp, key, jmin, np.nonzero(die_any[c])[0].tolist()
         )
-        proj_idx[:, c] = p_idx
+        if proj_idx is not None:
+            proj_idx[:, c] = p_idx.transpose(1, 2)
         if proj_jmin is not None:
-            proj_jmin[:, c] = p_jmin
+            proj_jmin[:, c] = p_jmin.transpose(1, 2)
 
         # ---- transmission min-plus (pedigreedptable.cpp:262-300); the
         # argmin keeps the first strict minimum over tj
@@ -550,32 +567,35 @@ def forward_scan(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
         if jmin is not None:
             jmin = jmin_new
 
-        # ---- tie-break key for this column
-        r = torch.matmul(bits, rankw64[:, c, :, None])[..., 0]
-        key = _inverse_gray(r.to(torch.int32), K)
+        # ---- tie-break key for this column (the m-only mode keeps none)
+        if emit_tables:
+            r = torch.matmul(bits, rankw64[:, c, :, None])[..., 0]
+            key = _inverse_gray(r.to(torch.int32), K)
 
     jmin_last = jmin if jmin is not None else torch.zeros_like(dp)
     return dp, jmin_last, key, proj_idx, proj_jmin
 
 
-def _backtrace_from(start_idx, start_trans, prev_trans, proj_idx, proj_jmin):
-    """Walk the projection tables backwards from the last-column states
-    (start_idx, start_trans) (B,) whose preceding transmission is prev_trans.
-    Returns (index_path (B, C), trans_path (B, C), seam_prev (B,)), where
+def _backtrace_from(start_idx, start_trans, prev_trans, proj_idx, proj_jmin, block=None):
+    """Walk the projection tables (B, C, T, S) backwards from the last-column
+    states (start_idx, start_trans) (W,) whose preceding transmission is
+    prev_trans; walk w reads the tables of block block[w] (default: w).
+    Returns (index_path (W, C), trans_path (W, C), seam_prev (W,)), where
     seam_prev is the transmission value of the column BEFORE the first one.
     proj_jmin None stands for an all-zero table (T == 1)."""
-    B, C = proj_idx.shape[0], proj_idx.shape[1]
-    rows = torch.arange(B, device=proj_idx.device)
-    index_path = torch.empty((B, C), dtype=torch.int32, device=proj_idx.device)
+    W, C = start_idx.shape[0], proj_idx.shape[1]
+    dev = proj_idx.device
+    rows = torch.arange(W, device=dev) if block is None else block
+    index_path = torch.empty((W, C), dtype=torch.int32, device=dev)
     trans_path = torch.empty_like(index_path)
     v, vt, pt = start_idx.long(), start_trans.long(), prev_trans.long()
     index_path[:, C - 1] = v
     trans_path[:, C - 1] = vt
     for c in range(C - 1, 0, -1):
         # backtrace tables of column c-1 were emitted at scan step c
-        v = proj_idx[rows, c, v, pt].long()
+        v = proj_idx[rows, c, pt, v].long()
         vt = pt
-        pt = proj_jmin[rows, c, v, vt].long() if proj_jmin is not None else pt
+        pt = proj_jmin[rows, c, vt, v].long() if proj_jmin is not None else pt
         index_path[:, c - 1] = v
         trans_path[:, c - 1] = vt
     return index_path, trans_path, pt.to(torch.int32)
@@ -604,6 +624,105 @@ def solve_batched(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
         K, T, P, wdiff, wbase, rankw, acost, die_prev, rc
     )
     return _backtrace_impl(K, T, dp_last, jmin_last, key_last, proj_idx, proj_jmin)[:3]
+
+
+def forward_m_batched(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
+    """Seeded forward scan, folded final cost only (the reference's
+    forward_m_batched): per block, m (T,) = min over bipartitions of the
+    final dp of a scan started from dp0 (B, T).  With a unit seed this is
+    one row of the block's T x T seam matrix.  Returns m (B, T) int32."""
+    dp_last = forward_scan(
+        K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=dp0, emit_tables=False
+    )[0]
+    return dp_last.amin(dim=1)
+
+
+def _seam_fold(K, T, dp_last, key_last, jmin_last, die_next):
+    """The seam fold of a block's final state (B, S, T) with the NEXT block's
+    first-column die flags die_next (B, K): all slots active at the block's
+    last column die there, so row 0 of the fold holds, per transmission t,
+    the folded cost m[t], the winning bipartition s*(t) and its jmin.
+    Returns (m (B, T), s_star (B, T), jmin_star (B, T))."""
+    fc, _fk, fi, fj = _fold_dying(K, T, die_next, dp_last, key_last, jmin_last)
+    return fc[:, 0], fi[:, 0], fj[:, 0]
+
+
+def solve_seeded_batched(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, die_next):
+    """Seeded solve of the pedigree block chain (the reference's
+    solve_seeded_batched, T > 1): per block, seeded with its incoming seam
+    vector dp0 (B, T), the head solve from the global optimum, the seam fold
+    with die_next (B, K), and one walk per transmission value t from the
+    fold's winner (s*(t), t) with the folded jmin as the preceding
+    transmission.  Returns (cost_head (B,), m (B, T), ip_head (B, C),
+    tp_head (B, C), seam_head (B,), ips (B, T, C), tps (B, T, C), seams
+    (B, T)), int32."""
+    B = wdiff.shape[0]
+    dp_last, jmin_last, key_last, pi, pj = forward_scan(
+        K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=dp0
+    )
+    cost_head, ip_head, tp_head, seam_head = _backtrace_impl(
+        K, T, dp_last, jmin_last, key_last, pi, pj
+    )
+    m, s_star, jmin_star = _seam_fold(K, T, dp_last, key_last, jmin_last, die_next)
+    dev = wdiff.device
+    t_ids = torch.arange(T, dtype=torch.int32, device=dev).repeat(B)
+    block = torch.arange(B, device=dev).repeat_interleave(T)
+    ips, tps, seams = _backtrace_from(
+        s_star.reshape(-1), t_ids, jmin_star.reshape(-1), pi, pj, block
+    )
+    C = pi.shape[1]
+    return (
+        cost_head, m, ip_head, tp_head, seam_head,
+        ips.reshape(B, T, C), tps.reshape(B, T, C), seams.reshape(B, T),
+    )
+
+
+def coset_representatives(T: int, t_sym_masks: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+    """Transmission-symmetry cosets: for every XOR mask d in the span of
+    t_sym_masks, G[a][b] == G[a^d][b^d] for each block's seam matrix G
+    (founder haplotype relabeling, see pack_problem), so one seeded scan per
+    coset representative recovers all of G:
+        G[a][b] = G[rep(a)][b ^ a ^ rep(a)].
+    Returns (rep_of (T,), the index of each t's representative, and reps
+    (R,), the representatives); R = 1 for a trio."""
+    span = {0}
+    for g in t_sym_masks:
+        span |= {d ^ g for d in span}
+    rep_of = np.full(T, -1, dtype=np.int64)
+    reps: List[int] = []
+    for a in range(T):
+        if rep_of[a] >= 0:
+            continue
+        for d in span:
+            if rep_of[a ^ d] < 0:
+                rep_of[a ^ d] = len(reps)
+        reps.append(a)
+    return rep_of, np.asarray(reps, dtype=np.int64)
+
+
+def chain_seams(parts, nb: int, rep_of: np.ndarray, reps: np.ndarray) -> np.ndarray:
+    """The exact min-plus seam chain on the host.  `parts` lists pass 1's
+    output per bucket, (block indices (n,), m (n * R, T)): each block's
+    folded minima from its R coset seeds, block after block.  Puts the rows
+    in block order, expands each block's seam matrix G from its coset rows,
+    then chains m_j = minplus(m_{j-1}, G_j) with INF saturation, in int64.
+    Returns m_in (nb, T): the incoming seam vector of each block (zeros for
+    block 0)."""
+    R, T = len(reps), len(rep_of)
+    m_rows = np.zeros((nb, R, T), dtype=np.int64)
+    for idxs, m in parts:
+        m_rows[np.asarray(idxs)] = np.asarray(m).reshape(len(idxs), R, T)
+    a_idx = np.arange(T)[:, None]
+    b_idx = np.arange(T)[None, :]
+    row_sel = rep_of[a_idx]  # (T, 1)
+    col_sel = b_idx ^ a_idx ^ reps[rep_of[a_idx]]  # (T, T)
+    G = m_rows[:, row_sel, col_sel]  # (nb, T, T)
+    m_in = np.zeros((nb, T), dtype=np.int64)
+    m_cur = np.minimum(G[0].min(axis=0), INF)
+    for j in range(1, nb):
+        m_in[j] = m_cur
+        m_cur = np.minimum((m_cur[:, None] + G[j]).min(axis=0), INF)
+    return m_in
 
 
 # ---------------------------------------------------------------------------
@@ -641,18 +760,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _unsupported(K: int, T: int, P: int) -> NotImplementedError:
-    if T != 1 or P != 2:
-        what = "pedigree instances (T > 1 or P != 2) need the pedigree route, ROADMAP Queue 1 item 4"
-    else:
-        what = (
-            f"K > {wmec_cuda.MAX_K} or tables beyond the memory budget need the "
-            "segmented solve, ROADMAP Queue 1 item 5"
-        )
-    return NotImplementedError(f"no CUDA kernel for K={K}, T={T}, P={P} yet: {what}")
+    return NotImplementedError(
+        f"no CUDA kernel for K={K}, T={T}, P={P} yet: shapes beyond the kernels' "
+        f"envelope ({wmec_cuda.ENVELOPE}) or tables beyond the memory budget need "
+        "the segmented solve, ROADMAP Queue 1 item 5"
+    )
 
 
 def _launch_batched(solve, K, T, P, arrays, per_block_bytes: int):
-    """One batched solve, split along the block axis into sequential chunks
+    """One batched call of `solve` (a tensor or a tuple of tensors with a
+    leading block axis), split along the block axis into sequential chunks
     so that one chunk's tables and scratch stay under the table budget."""
     B = arrays[0].shape[0]
     budget = _table_budget(arrays[0].device)
@@ -662,30 +779,57 @@ def _launch_batched(solve, K, T, P, arrays, per_block_bytes: int):
     if max_b < 1:
         raise _unsupported(K, T, P)
     parts = [solve(K, T, P, *(a[i : i + max_b] for a in arrays)) for i in range(0, B, max_b)]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
     return tuple(torch.cat(xs) for xs in zip(*parts))
 
 
-def solve_batched_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
-    """Batched solve of stacked blocks on the device they lie on.
+def _pick(K, T, P, device, kernel_route, mirror):
+    """The kernel route for shapes the kernels take (its plain versions on
+    CPU tensors), the torch mirror for other shapes on the CPU; on CUDA
+    other shapes raise."""
+    if wmec_cuda.kernel_supported(K, T, P):
+        return kernel_route
+    if device.type == "cpu":
+        return mirror
+    raise _unsupported(K, T, P)
 
-    Shapes the kernels take (wmec_cuda.kernel_supported) go through
-    wmec_cuda.solve_batched_cuda: its kernels on a CUDA device, their plain
-    versions on the CPU.  Other shapes run the torch mirror on the CPU and
-    raise NotImplementedError on CUDA."""
-    dev = wdiff.device
-    supported = wmec_cuda.kernel_supported(K, T, P)
-    if supported:
-        solve = wmec_cuda.solve_batched_cuda
-    elif dev.type == "cpu":
-        solve = solve_batched
-    else:
-        raise _unsupported(K, T, P)
+
+def solve_batched_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
+    """Batched solve of stacked blocks on the device they lie on, through
+    wmec_cuda.solve_batched_cuda where the kernels take the shape (_pick)."""
+    solve = _pick(K, T, P, wdiff.device, wmec_cuda.solve_batched_cuda, solve_batched)
     C = wdiff.shape[1]
     per_block = C * T * (1 << K) * 4 * (2 if T > 1 else 1)  # index (+ trans) tables
     if solve is wmec_cuda.solve_batched_cuda:
-        per_block += wmec_cuda.state_bytes(K)
+        per_block += wmec_cuda.state_bytes(K, T)
     return _launch_batched(
         solve, K, T, P, (wdiff, wbase, rankw, acost, die_prev, rc), per_block
+    )
+
+
+def forward_m_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
+    """Pass 1 of the pedigree route, forward_m_batched's signature, through
+    the m-only kernel wmec_cuda.forward_m_t where it takes the shape."""
+    fwd = _pick(K, T, P, wdiff.device, wmec_cuda.forward_m_t, forward_m_batched)
+    per_block = wmec_cuda.state_bytes(K, T, tables=False) if fwd is not forward_m_batched else 0
+    return _launch_batched(
+        fwd, K, T, P, (wdiff, wbase, rankw, acost, die_prev, rc, dp0), per_block
+    )
+
+
+def solve_seeded_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, die_next):
+    """Pass 2 of the pedigree route, solve_seeded_batched's signature,
+    through wmec_cuda.solve_seeded_batched_cuda where the kernels take the
+    shape, chunked under the table budget."""
+    solve = _pick(
+        K, T, P, wdiff.device, wmec_cuda.solve_seeded_batched_cuda, solve_seeded_batched
+    )
+    per_block = wdiff.shape[1] * T * (1 << K) * 4 * 2  # index and trans tables
+    if solve is not solve_seeded_batched:
+        per_block += wmec_cuda.state_bytes(K, T)
+    return _launch_batched(
+        solve, K, T, P, (wdiff, wbase, rankw, acost, die_prev, rc, dp0, die_next), per_block
     )
 
 
@@ -806,21 +950,12 @@ def run_dp_batched(
     for (c_pad, k_b), members in buckets.items():
         arrays = to_device(stacked[(c_pad, k_b)], device)
         costs, index_paths, _trans = solve(k_b, T, P, *arrays)
-        pending.append((members, c_pad, costs, index_paths))
-
-    # one fetch for every bucket: costs first, then the index paths
-    flat = torch.cat(
-        [x.reshape(-1) for _m, _c, costs, ip in pending for x in (costs, ip)]
-    ).cpu().numpy()
+        pending += [costs, index_paths]
+    fetched = _fetch(pending)  # one copy for every bucket
 
     total_cost = 0
     index_path = np.zeros(C, dtype=np.int64)
-    off = 0
-    for members, c_pad, _costs, _ip in pending:
-        nb = len(members)
-        costs = flat[off : off + nb]
-        paths = flat[off + nb : off + nb + nb * c_pad].reshape(nb, c_pad)
-        off += nb + nb * c_pad
+    for members, costs, paths in zip(buckets.values(), fetched[::2], fetched[1::2]):
         for bi, (ri, _arrs) in enumerate(members):
             a, b = ranges[ri]
             total_cost += int(costs[bi])
@@ -828,18 +963,135 @@ def run_dp_batched(
     return DPResult(total_cost, index_path, np.zeros(C, dtype=np.int64))
 
 
-def run_dp(packed: PackedProblem, device=None, solve=solve_batched_auto) -> Optional[DPResult]:
+def _fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Bring int32 device tensors to the host in ONE device-to-host copy:
+    numpy arrays of the same shapes, in order."""
+    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off : off + t.numel()].reshape(tuple(t.shape)))
+        off += t.numel()
+    return out
+
+
+def run_dp_batched_pedigree(
+    packed: PackedProblem,
+    device: torch.device,
+    forward_m=forward_m_auto,
+    solve_seeded=solve_seeded_auto,
+) -> Optional[DPResult]:
+    """Solve a pedigree (T > 1) instance exactly by splitting it into
+    read-connected blocks, after the reference's run_dp_batched_pedigree.
+
+    The blocks are coupled only through the transmission chain, and the DP
+    is min-plus linear in its incoming folded state, so:
+
+      1. pass 1 (`forward_m`, forward_m_auto): each bucket of blocks, every
+         block repeated once per transmission-symmetry coset (R of them) on
+         the device, runs unit-seeded table-free scans giving the rows of
+         each block's T x T seam matrix; all m come back in one fetch;
+      2. the host chains the seam vectors in exact int64 min-plus
+         (chain_seams, with the coset expansion);
+      3. pass 2 (`solve_seeded`, solve_seeded_auto): each bucket re-runs
+         seeded with its incoming seam vectors, giving the head solve and
+         one walk per seam transmission value; every bucket's outputs come
+         back in one fetch, and the host stitches right to left.
+
+    Each bucket's arrays reach the device in one copy, die flags of the
+    next block's first column (die_next) included.  Returns None for T == 1
+    or a single range: callers solve it as one block.
+    """
+    from ..parallel.blocks import stack_blocks, to_device
+
+    C, T, P = packed.n_cols, packed.T, packed.P
+    if C == 0 or T == 1:
+        return None
+    ranges = connected_column_ranges(packed)
+    nb = len(ranges)
+    if nb <= 1:
+        return None
+
+    buckets: dict = {}  # (c_pad, k_b) -> ([range index], [PaddedArrays], [die_next])
+    for ri, (c_pad, k_b, arrs) in enumerate(_slice_ranges(packed, ranges)):
+        dn = np.zeros(k_b, dtype=bool)
+        if ri + 1 < nb:
+            nxt = packed.die_prev[ranges[ri + 1][0]]
+            kk = min(len(nxt), k_b)
+            dn[:kk] = nxt[:kk]
+        idxs, members, dnext = buckets.setdefault((c_pad, k_b), ([], [], []))
+        idxs.append(ri)
+        members.append(arrs)
+        dnext.append(dn)
+
+    rep_of, reps = coset_representatives(T, packed.t_sym_masks)
+    R = len(reps)
+    unit_seeds = np.full((R, T), INF, dtype=np.int32)
+    unit_seeds[np.arange(R), reps] = 0
+    seeds = torch.from_numpy(unit_seeds).to(device)
+
+    # ---- pass 1: unit-seeded forwards, one launch per bucket
+    on_device = {}
+    pending = []
+    for (c_pad, k_b), (idxs, members, dnext) in buckets.items():
+        arrays = to_device(stack_blocks(members) + (np.stack(dnext),), device)
+        on_device[(c_pad, k_b)] = arrays
+        rep = tuple(a.repeat_interleave(R, dim=0) for a in arrays[:6])
+        pending.append(forward_m(k_b, T, P, *rep, seeds.repeat(len(idxs), 1)))
+    parts = [(idxs, m) for (idxs, _m, _d), m in zip(buckets.values(), _fetch(pending))]
+
+    # ---- host chain: the incoming seam vector of every block
+    m_in = torch.from_numpy(chain_seams(parts, nb, rep_of, reps).astype(np.int32)).to(device)
+
+    # ---- pass 2: seeded solves with per-seam walks, one fetch for all
+    pending = []
+    for key, (idxs, _m, _d) in buckets.items():
+        arrays = on_device[key]
+        dp0 = m_in[torch.as_tensor(idxs, device=device)]
+        pending += solve_seeded(key[1], T, P, *arrays[:6], dp0, arrays[6])
+    fetched = _fetch(pending)
+    per_block = [None] * nb
+    for bi_bucket, (idxs, _m, _d) in enumerate(buckets.values()):
+        outs = fetched[8 * bi_bucket : 8 * bi_bucket + 8]
+        for bi, ri in enumerate(idxs):
+            per_block[ri] = tuple(x[bi] for x in outs)
+
+    # ---- host stitch, right to left
+    index_path = np.zeros(C, dtype=np.int64)
+    trans_path = np.zeros(C, dtype=np.int64)
+    cost_head, _m, ip_head, tp_head, seam_head, _ips, _tps, _seams = per_block[-1]
+    a, b = ranges[-1]
+    index_path[a:b] = ip_head[: b - a]
+    trans_path[a:b] = tp_head[: b - a]
+    prev_t = int(seam_head)
+    for j in range(nb - 2, -1, -1):
+        _c, _m, _iph, _tph, _sh, ips, tps, seams = per_block[j]
+        a, b = ranges[j]
+        index_path[a:b] = ips[prev_t][: b - a]
+        trans_path[a:b] = tps[prev_t][: b - a]
+        prev_t = int(seams[prev_t])
+    return DPResult(int(cost_head), index_path, trans_path)
+
+
+def run_dp(
+    packed: PackedProblem,
+    device=None,
+    solve=solve_batched_auto,
+    forward_m=forward_m_auto,
+    solve_seeded=solve_seeded_auto,
+) -> Optional[DPResult]:
     """Run the forward scan + backtrace on `device` (default "cuda", see
     resolve_device).  Returns None for empty problems.
 
-    A single-sample instance that splits into several read-connected ranges
-    takes the batched route (run_dp_batched).  A single range, or a
-    pedigree, is solved as one block (B = 1) padded to a power-of-two column
-    count.  On a CUDA device every instance runs in the kernels of
-    wmec_cuda, and one that they cannot take raises NotImplementedError.
-    `solve` (solve_batched_auto's signature) solves each stack of blocks; a
-    check can hand in the torch mirror to run the same route without the
-    kernels.
+    An instance that splits into several read-connected ranges takes the
+    batched route: run_dp_batched for a single sample, run_dp_batched_pedigree
+    for a pedigree (T > 1), on every device.  A single range is solved as
+    one block (B = 1) padded to a power-of-two column count.  On a CUDA
+    device every instance runs in the kernels of wmec_cuda, and one that
+    they cannot take raises NotImplementedError.  `solve`, `forward_m` and
+    `solve_seeded` (the signatures of solve_batched_auto, forward_m_auto and
+    solve_seeded_auto) solve each stack of blocks; a check can hand in the
+    torch mirror (solve_batched, forward_m_batched, solve_seeded_batched) to
+    run the same route without the kernels.
     """
     from ..parallel.blocks import pad_block, stack_blocks, to_device
 
@@ -847,7 +1099,10 @@ def run_dp(packed: PackedProblem, device=None, solve=solve_batched_auto) -> Opti
     C, K, T, P = packed.n_cols, packed.K, packed.T, packed.P
     if C == 0:
         return None
-    result = run_dp_batched(packed, device, solve)
+    if T == 1:
+        result = run_dp_batched(packed, device, solve)
+    else:
+        result = run_dp_batched_pedigree(packed, device, forward_m, solve_seeded)
     if result is not None:
         return result
 

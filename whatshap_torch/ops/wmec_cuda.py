@@ -1,18 +1,29 @@
 """
-Hand-written CUDA kernels of the single-sample wMEC solve, with their
-wrappers and plain torch versions.
+Hand-written CUDA kernels of the wMEC/PedMEC solve, with their wrappers and
+plain torch versions.
 
-Replaces whatshap_tpu/ops/wmec_pallas.py for T == 1 (one individual, P = 2):
+Replaces whatshap_tpu/ops/wmec_pallas.py:
 
 - forward_t1 launches csrc/wmec_forward_t1.cu, the forward column scan that
   replaces _make_kernel in its T=1, table-emitting form (as
   solve_batched_pallas launches it);
 - backtrace_t1 launches csrc/wmec_backtrace_t1.cu, the index-path walk that
   replaces _make_backtrace_kernel (via backtrace_pallas);
+- forward_t and forward_m_t launch csrc/wmec_forward_t.cu, the general-T
+  (pedigree) forward scan that replaces _make_kernel for T > 1: with tables,
+  unseeded or seeded (forward_scan_pallas, solve_batched_pallas at T = 4/16,
+  forward_tables_seeded_pallas), and in the seeded m-only mode of the seam
+  pass (forward_m_seeded_pallas);
+- backtrace_t launches csrc/wmec_backtrace_t.cu, the general-T walk of
+  (index, transmission, preceding transmission) that replaces
+  _make_backtrace_kernel_t, M walks per block over its tables
+  (backtrace_pallas_t at M = 1, backtrace_pallas_t_multi at M = T + 1);
 - _select_optimum picks the tie-broken optimum between them, in torch ops,
   as the JAX side leaves it to XLA;
 - solve_batched_cuda is forward -> select -> backtrace, the mirror of
-  solve_batched_pallas for T == 1.
+  solve_batched_pallas; forward_m_t (as forward_m_seeded_pallas) and
+  solve_seeded_batched_cuda (the mirror of solve_seeded_batched_pallas) are
+  the two passes of the pedigree route.
 
 A wrapper checks its inputs, then runs its plain torch version on CPU
 tensors and its kernel on CUDA tensors; it never falls back from the one to
@@ -27,47 +38,77 @@ import torch
 
 from . import _build
 
-#: Largest K whose forward state (int32 cost, tie key and projection index,
-#: 12 * 2^K bytes) fits one CTA's shared memory (227 KB) on Hopper; above it
-#: the state lives in a per-block global scratch.
-SMEM_MAX_K = 14
-#: Largest K the forward kernel is built and checked for.
+#: Largest K the T=1 forward kernel is built and checked for.
 MAX_K = 16
+#: Largest K of the general-T kernels per transmission count T (P <= 4, as
+#: the reference's kernel): the forward state and tables grow with T * 2^K.
+MAX_K_T = {4: 16, 16: 13}
+#: Founder partition counts the general-T kernels are built for.
+PEDIGREE_P = (2, 4)
+ENVELOPE = f"T = 1, P = 2, K <= {MAX_K}; " + "; ".join(
+    f"T = {t}, P in {PEDIGREE_P}, K <= {k}" for t, k in MAX_K_T.items()
+)
+#: Dynamic shared memory a forward CTA may take for its state (of the 227 KB
+#: a Hopper CTA can use, leaving room for the staged column inputs); a larger
+#: state lives in a per-block global scratch.
+SMEM_STATE_BYTES = 200 * 1024
 
 
 def kernel_supported(K: int, T: int, P: int) -> bool:
     """Shapes the CUDA kernels of this module take: one individual (T == 1,
-    P == 2) with 1 <= K <= MAX_K slots."""
-    return T == 1 and P == 2 and 1 <= K <= MAX_K
+    P == 2) with 1 <= K <= MAX_K slots, or a pedigree of T = 4 or 16
+    transmission values with P in PEDIGREE_P and K <= MAX_K_T[T]."""
+    if T == 1:
+        return P == 2 and 1 <= K <= MAX_K
+    return T in MAX_K_T and P in PEDIGREE_P and 1 <= K <= MAX_K_T[T]
 
 
-def state_bytes(K: int) -> int:
-    """Device scratch the forward kernel needs per block beyond its outputs:
-    none while the state fits shared memory."""
-    return 0 if K <= SMEM_MAX_K else 12 << K
+def _state_words(T: int, tables: bool) -> int:
+    """int32 words of forward state per bipartition: cost, tie key and
+    projection index at T = 1; cost and jmin per transmission plane plus the
+    key, the fold's key and the fold's index for T > 1 (cost planes only in
+    the m-only mode)."""
+    if T == 1:
+        return 3
+    return 2 * T + 3 if tables else T
 
 
+def state_bytes(K: int, T: int = 1, tables: bool = True) -> int:
+    """Device scratch a forward kernel needs per block beyond its outputs:
+    none while its state fits shared memory (SMEM_STATE_BYTES; at T = 1 up
+    to K = 14), else the whole state."""
+    b = _state_words(T, tables) * 4 << K
+    return 0 if b <= SMEM_STATE_BYTES else b
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 _SIGNATURES = {
-    "wmec_forward_t1": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    "wmec_backtrace_t1": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "wmec_forward_t1": [_P] * 9 + [_I] * 3 + [_P],
+    "wmec_backtrace_t1": [_P] * 4 + [_I] * 3 + [_P],
+    "wmec_forward_t": [_P] * 13 + [_I] * 5 + [_P],
+    "wmec_forward_m_t": [_P] * 8 + [_I] * 5 + [_P],
+    "wmec_backtrace_t": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 
-def _launch(name: str, *args) -> None:
-    """Call the C entry point `name` of the library of the same name on the
-    current stream; raise if it reports a CUDA error."""
-    lib = _build.load(name)
-    fn = getattr(lib, name)
+def _launch(lib_name: str, *args, fn_name: str = None) -> None:
+    """Call the C entry point `fn_name` (default: `lib_name`) of the library
+    built from csrc/<lib_name>.cu on the current stream; raise if it reports
+    a CUDA error."""
+    fn_name = fn_name or lib_name
+    lib = _build.load(lib_name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
+        fn.argtypes = _SIGNATURES[fn_name]
         fn.restype = ctypes.c_int
-        err_fn = getattr(lib, name + "_error_string")
+        err_fn = getattr(lib, lib_name + "_error_string")
         err_fn.argtypes = [ctypes.c_int]
         err_fn.restype = ctypes.c_char_p
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        msg = getattr(lib, name + "_error_string")(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+        msg = getattr(lib, lib_name + "_error_string")(err).decode()
+        raise RuntimeError(f"{fn_name}: CUDA error {err}: {msg}")
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -95,7 +136,7 @@ def forward_t1_plain(K, P, wdiff, wbase, rankw, acost, die_prev, rc):
     dp_last, _jmin, key_last, proj_idx, _pj = forward_scan(
         K, 1, P, wdiff, wbase, rankw, acost, die_prev, rc
     )
-    return proj_idx[..., 0], dp_last[..., 0], key_last
+    return proj_idx[:, :, 0], dp_last[..., 0], key_last
 
 
 def forward_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc):
@@ -158,7 +199,7 @@ def backtrace_t1_plain(opt_idx, pidx):
     from .wmec import _backtrace_from
 
     zero = torch.zeros_like(opt_idx)
-    path, _trans, _seam = _backtrace_from(opt_idx, zero, zero, pidx[..., None], None)
+    path, _trans, _seam = _backtrace_from(opt_idx, zero, zero, pidx[:, :, None], None)
     rows = torch.arange(pidx.shape[0], device=pidx.device)
     return path, pidx[rows, 0, path[:, 0].long()]
 
@@ -223,13 +264,233 @@ def _select_optimum(K: int, T: int, dp_last, key_last):
     return m, best // S, best % S
 
 
+def _check_pedigree_inputs(name, K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
+    """Shape checks shared by the general-T forward wrappers; returns the
+    device.  dp0 may be None (unseeded)."""
+    B, C = wdiff.shape[0], wdiff.shape[1]
+    if T == 1 or not kernel_supported(K, T, P):
+        raise ValueError(f"{name}: unsupported shape K={K}, T={T}, P={P} ({ENVELOPE})")
+    _check(wdiff, "wdiff", torch.float32, (B, C, K, T * P * 2))
+    _check(wbase, "wbase", torch.int32, (B, C, T, P, 2))
+    _check(rankw, "rankw", torch.float32, (B, C, K))
+    _check(acost, "acost", torch.int32, (B, C, T, 1 << P))
+    _check(die_prev, "die_prev", torch.bool, (B, C, K))
+    _check(rc, "rc", torch.int32, (B, C))
+    tensors = [wdiff, wbase, rankw, acost, die_prev, rc]
+    if dp0 is not None:
+        _check(dp0, "dp0", torch.int32, (B, T))
+        tensors.append(dp0)
+    return _check_device(*tensors)
+
+
+def forward_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None):
+    """Plain torch version of the general-T forward scan with tables: the
+    torch mirror (wmec.forward_scan), in forward_t's output layout."""
+    from .wmec import forward_scan
+
+    dp_last, jmin_last, key_last, pidx, pjmin = forward_scan(
+        K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=dp0
+    )
+    return (
+        pidx, pjmin,
+        dp_last.transpose(1, 2).contiguous(), jmin_last.transpose(1, 2).contiguous(),
+        key_last,
+    )
+
+
+def forward_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None):
+    """General-T (pedigree) forward column scan with tables over stacked
+    blocks.
+
+    Inputs as wmec.forward_scan: wdiff (B, C, K, T*P*2) f32, wbase (B, C, T,
+    P, 2) i32, rankw (B, C, K) f32, acost (B, C, T, 2^P) i32, die_prev (B, C,
+    K) bool, rc (B, C) i32, and the optional seed dp0 (B, T) i32 (without it
+    the state starts at zero).  Returns pidx and pjmin (B, C, T, 2^K), the
+    projection index and transmission-argmin tables of every column, and the
+    final state dp_last and jmin_last (B, T, 2^K) and key_last (B, 2^K), all
+    int32.
+    """
+    dev = _check_pedigree_inputs("forward_t", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
+    if dev.type == "cpu":
+        return forward_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
+
+    B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
+    pidx = torch.empty((B, C, T, S), dtype=torch.int32, device=dev)
+    pjmin = torch.empty_like(pidx)
+    dp_last = torch.empty((B, T, S), dtype=torch.int32, device=dev)
+    jmin_last = torch.empty_like(dp_last)
+    key_last = torch.empty((B, S), dtype=torch.int32, device=dev)
+    scratch = None
+    if state_bytes(K, T):
+        scratch = torch.empty((B, _state_words(T, True), S), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(
+            "wmec_forward_t",
+            wdiff.data_ptr(), wbase.data_ptr(), rankw.data_ptr(), acost.data_ptr(),
+            die_prev.data_ptr(), rc.data_ptr(),
+            dp0.data_ptr() if dp0 is not None else None,
+            pidx.data_ptr(), pjmin.data_ptr(), dp_last.data_ptr(), jmin_last.data_ptr(),
+            key_last.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            B, C, K, T, P,
+        )
+    forward_t.launches += 1
+    return pidx, pjmin, dp_last, jmin_last, key_last
+
+
+forward_t.launches = 0
+
+
+def forward_m_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
+    """Plain torch version of the m-only forward scan: wmec.forward_m_batched."""
+    from .wmec import forward_m_batched
+
+    return forward_m_batched(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
+
+
+def forward_m_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
+    """General-T forward scan in the seeded m-only mode of the seam pass:
+    inputs as forward_t with the seed dp0 (B, T) i32 required; returns only
+    m (B, T) i32, the final cost of each transmission plane minimised over
+    the bipartitions.  No tables, no tie key and no transmission argmin are
+    kept (fold winners have equal cost, so m does not depend on them)."""
+    if dp0 is None:
+        raise ValueError("forward_m_t: the m-only mode is seeded: dp0 (B, T) is required")
+    dev = _check_pedigree_inputs("forward_m_t", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
+    if dev.type == "cpu":
+        return forward_m_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
+
+    B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
+    m = torch.empty((B, T), dtype=torch.int32, device=dev)
+    scratch = None
+    if state_bytes(K, T, tables=False):
+        scratch = torch.empty((B, _state_words(T, False), S), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(
+            "wmec_forward_t",
+            wdiff.data_ptr(), wbase.data_ptr(), acost.data_ptr(), die_prev.data_ptr(),
+            rc.data_ptr(), dp0.data_ptr(), m.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            B, C, K, T, P,
+            fn_name="wmec_forward_m_t",
+        )
+    forward_m_t.launches += 1
+    return m
+
+
+forward_m_t.launches = 0
+
+
+def backtrace_t_plain(init, pidx, pjmin):
+    """Plain torch version of the general-T backtrace (see backtrace_t): the
+    torch mirror's walk (wmec._backtrace_from), walk w on block w // M, then
+    the step through column 0."""
+    from .wmec import _backtrace_from
+
+    B, M = init.shape[0], init.shape[1]
+    flat = init.reshape(B * M, 3).long()
+    block = torch.arange(B * M, device=init.device) // M
+    path, tpath, seam = _backtrace_from(flat[:, 0], flat[:, 1], flat[:, 2], pidx, pjmin, block)
+    v = pidx[block, 0, seam.long(), path[:, 0].long()]
+    final = torch.stack([v, seam, pjmin[block, 0, seam.long(), v.long()]], dim=1)
+    C = pidx.shape[1]
+    return path.reshape(B, M, C), tpath.reshape(B, M, C), final.reshape(B, M, 3)
+
+
+def backtrace_t(init, pidx, pjmin):
+    """General-T backtrace, M walks per block over the block's tables.
+
+    init (B, M, 3) i32 holds each walk's start (index v, transmission vt,
+    preceding transmission prev_t); pidx and pjmin (B, C, T, 2^K) i32 are
+    forward_t's tables.  From column C-1 down to 0 each walk records (v, vt),
+    then steps v <- pidx[c, prev_t, v], vt <- prev_t, prev_t <- pjmin[c, vt,
+    v].  Returns the index paths and transmission paths (B, M, C) and the
+    triple after the step through column 0, final (B, M, 3), all int32, as
+    backtrace_pallas_t (M = 1) and backtrace_pallas_t_multi do."""
+    B, C = pidx.shape[0], pidx.shape[1]
+    if pidx.dim() != 4:
+        raise ValueError("backtrace_t: pidx must be (B, C, T, 2^K)")
+    T, S = pidx.shape[2], pidx.shape[3]
+    K = S.bit_length() - 1
+    if S & (S - 1) or not 1 <= K <= MAX_K_T.get(T, 0):
+        raise ValueError(f"backtrace_t: unsupported table shape T={T}, 2^K={S} ({ENVELOPE})")
+    M = init.shape[1] if init.dim() == 3 else 0
+    _check(init, "init", torch.int32, (B, M, 3))
+    _check(pidx, "pidx", torch.int32, (B, C, T, S))
+    _check(pjmin, "pjmin", torch.int32, (B, C, T, S))
+    if M < 1:
+        raise ValueError("backtrace_t: needs at least one walk per block")
+    dev = _check_device(init, pidx, pjmin)
+    if dev.type == "cpu":
+        return backtrace_t_plain(init, pidx, pjmin)
+
+    path = torch.empty((B, M, C), dtype=torch.int32, device=dev)
+    tpath = torch.empty_like(path)
+    final = torch.empty((B, M, 3), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(
+            "wmec_backtrace_t",
+            init.data_ptr(), pidx.data_ptr(), pjmin.data_ptr(),
+            path.data_ptr(), tpath.data_ptr(), final.data_ptr(),
+            B, M, C, T, K,
+        )
+    backtrace_t.launches += 1
+    return path, tpath, final
+
+
+backtrace_t.launches = 0
+
+
+def _head_init(K, T, dp_last, jmin_last, key_last):
+    """The head walk's start per block: the selected optimum (opt_idx,
+    opt_trans) and the jmin entry there.  Returns (costs (B,), init (B, 3))."""
+    m, opt_trans, opt_idx = _select_optimum(K, T, dp_last, key_last)
+    rows = torch.arange(dp_last.shape[0], device=dp_last.device)
+    prev = jmin_last[rows, opt_trans.long(), opt_idx.long()]
+    return m, torch.stack([opt_idx, opt_trans, prev], dim=1)
+
+
 def solve_batched_cuda(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
-    """End-to-end batched T=1 solve: forward kernel, optimum selection,
-    backtrace kernel.  Returns (costs (B,), index paths (B, C), transmission
-    paths (B, C)), int32, matching wmec.solve_batched."""
-    if T != 1:
-        raise ValueError("solve_batched_cuda solves single individuals (T == 1) only")
-    pidx, dp_last, key_last = forward_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc)
-    m, _opt_trans, opt_idx = _select_optimum(K, 1, dp_last, key_last)
-    index_path, _final = backtrace_t1(opt_idx.contiguous(), pidx)
-    return m, index_path, torch.zeros_like(index_path)
+    """End-to-end batched solve: forward kernel, optimum selection, backtrace
+    kernel (T = 1: forward_t1 and backtrace_t1; T > 1: forward_t and
+    backtrace_t with one walk per block).  Returns (costs (B,), index paths
+    (B, C), transmission paths (B, C)), int32, matching wmec.solve_batched."""
+    if T == 1:
+        pidx, dp_last, key_last = forward_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc)
+        m, _opt_trans, opt_idx = _select_optimum(K, 1, dp_last, key_last)
+        index_path, _final = backtrace_t1(opt_idx.contiguous(), pidx)
+        return m, index_path, torch.zeros_like(index_path)
+    pidx, pjmin, dp_last, jmin_last, key_last = forward_t(
+        K, T, P, wdiff, wbase, rankw, acost, die_prev, rc
+    )
+    m, init = _head_init(K, T, dp_last, jmin_last, key_last)
+    index_path, trans_path, _final = backtrace_t(init[:, None].contiguous(), pidx, pjmin)
+    return m, index_path[:, 0], trans_path[:, 0]
+
+
+def solve_seeded_batched_cuda(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, die_next):
+    """Pass 2 of the pedigree route, the mirror of
+    solve_seeded_batched_pallas: the seeded forward kernel with tables, the
+    head's optimum selection, the seam fold with the next block's die flags
+    die_next (B, K) (torch ops, as the reference leaves it to XLA), then the
+    head walk and the T seam walks in ONE backtrace launch over the shared
+    tables.  Returns wmec.solve_seeded_batched's 8 outputs."""
+    from .wmec import _seam_fold
+
+    pidx, pjmin, dp_last, jmin_last, key_last = forward_t(
+        K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0
+    )
+    cost_head, head = _head_init(K, T, dp_last, jmin_last, key_last)
+    m, s_star, jmin_star = _seam_fold(
+        K, T, dp_last.transpose(1, 2), key_last, jmin_last.transpose(1, 2), die_next
+    )
+    B = dp_last.shape[0]
+    t_ids = torch.arange(T, dtype=torch.int32, device=dp_last.device).expand(B, T)
+    inits = torch.cat([head[:, None], torch.stack([s_star, t_ids, jmin_star], dim=2)], dim=1)
+    ips, tps, fins = backtrace_t(inits.contiguous(), pidx, pjmin)
+    # the walk's final triple is one step through column 0: its middle
+    # element is the transmission before the block's first column
+    return (
+        cost_head, m, ips[:, 0], tps[:, 0], fins[:, 0, 1].contiguous(),
+        ips[:, 1:], tps[:, 1:], fins[:, 1:, 1].contiguous(),
+    )
