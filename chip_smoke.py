@@ -14,7 +14,12 @@ Phases, every one of which must pass:
             kernels (tables mode unseeded and seeded, m-only mode, backtrace
             at M = 1 and M = T + 1) at T = 4, K = 7, 10, 12, 15, 16 and T =
             16, K = 7, 10, 13 (B = 4 blocks of C = 128 columns); half the
-            blocks with weights above 256.
+            blocks with weights above 256.  The genotyping kernels (backward
+            and forward) against their float32 plain versions at T = 1, K =
+            7, 12, 15, 16; T = 4, K = 7, 12, 15; T = 16, K = 7, 10 (B = 4
+            simulated instances of C = 128 columns, one with a zero-sum
+            prior column): red and scaling within rtol 1e-4, likelihoods
+            within atol 1e-5, identical NaN patterns.
 3. slice    the single-sample main path: a chromosome of 256 blocks x 512
             heterozygous variants at coverage 15 (K = 15) phased by
             PedigreeDPTable(device="cuda"), with the kernels' launch counters
@@ -38,9 +43,21 @@ Phases, every one of which must pass:
 7. quartet  two trios with shared parents (T = 16, four symmetry cosets),
             16 blocks x 128 columns at coverage 3 per individual, checked
             against the plain route.
-8. timing   the main paths' largest buckets copied to the card, and each
+8. genotype one simulated sample of 32,768 variants (hom and het) at
+            coverage 15 (K = 15), priors from compute_genotypes over its
+            reads, through GenotypeDPTable(device="cuda") as one instance
+            (B = 1), one launch of each genotyping kernel expected; a time
+            split pack / prepare / h2d / kernels / d2h+marginals, GT
+            concordance with the simulation, and a 2,048-column instance of
+            the same generator against the float64 plain route on the card
+            (atol 2e-4).  genotype-trio: a trio of 8,192 variants at coverage
+            5 each (K = 15, T = 4, P = 4), checked the same way on 1,024
+            columns (atol 3e-4).
+9. timing   the main paths' largest buckets copied to the card, and each
             kernel at its shape (CUDA events), beside its plain version and
-            its bound.
+            its bound: the wMEC kernels as before, the general-T tables
+            kernel and backtrace also at the trio-single shape, the
+            genotyping kernels at the genotype and genotype-trio shapes.
 
 It prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}.  Where there is no CUDA device,
@@ -56,7 +73,7 @@ import numpy as np
 import torch
 
 import whatshap_torch.core as core
-from whatshap_torch.ops import _build, wmec, wmec_cuda
+from whatshap_torch.ops import _build, genotyping, genotyping_cuda, wmec, wmec_cuda
 from whatshap_torch.parallel import blocks
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32
@@ -65,6 +82,13 @@ from whatshap_torch.parallel import blocks
 # per int32 lane per clock is a quarter of it.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_ADDS_PER_S = 67e12 / 4
+# f32 adds: one per f32 lane and clock, half the 67e12 FLOP/s of the data
+# sheet (which counts a multiply-add as two).  exp: the special-function
+# units return 16 results per clock per SM on compute capability 9.0 (CUDA C
+# Programming Guide, arithmetic instruction throughput), times 132 SMs at
+# the 1.98 GHz boost clock (data sheet).
+PEAK_F32_ADDS_PER_S = 67e12 / 2
+PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 
 REPLACES = {
     "wmec_forward_t1": "whatshap_tpu/ops/wmec_pallas.py:73",
@@ -72,6 +96,8 @@ REPLACES = {
     "wmec_forward_t": "whatshap_tpu/ops/wmec_pallas.py:73",
     "wmec_forward_m_t": "whatshap_tpu/ops/wmec_pallas.py:73",
     "wmec_backtrace_t": "whatshap_tpu/ops/wmec_pallas.py:660",
+    "geno_backward": "whatshap_tpu/ops/genotyping_pallas.py:117",
+    "geno_forward": "whatshap_tpu/ops/genotyping_pallas.py:182",
 }
 SOURCES = {
     "wmec_forward_t1": "wmec_forward_t1",
@@ -79,6 +105,8 @@ SOURCES = {
     "wmec_forward_t": "wmec_forward_t",
     "wmec_forward_m_t": "wmec_forward_t",
     "wmec_backtrace_t": "wmec_backtrace_t",
+    "geno_backward": "geno_backward",
+    "geno_forward": "geno_forward",
 }
 WRAPPERS = {
     "wmec_forward_t1": wmec_cuda.forward_t1,
@@ -86,7 +114,10 @@ WRAPPERS = {
     "wmec_forward_t": wmec_cuda.forward_t,
     "wmec_forward_m_t": wmec_cuda.forward_m_t,
     "wmec_backtrace_t": wmec_cuda.backtrace_t,
+    "geno_backward": genotyping_cuda.backward,
+    "geno_forward": genotyping_cuda.forward,
 }
+SINGLE = (1, ())
 TRIO = (3, ((0, 1, 2),))
 QUARTET = (4, ((0, 1, 2), (0, 1, 3)))
 
@@ -624,6 +655,366 @@ def time_pedigree_kernels(packed, device="cuda"):
     return out
 
 
+def time_trio_single_kernels(packed, device="cuda"):
+    """Kernel rows 3-5 at the shape the single-block route gives them at
+    T = 4: one read-connected trio range (B = 1), the tables kernel unseeded
+    (as forward_scan_pallas and solve_batched_pallas launch it) and the
+    backtrace with one walk."""
+    (c_pad, K), members, _ri = main_bucket(packed)
+    T, P = packed.T, packed.P
+    arrays = blocks.to_device(blocks.stack_blocks(members), device)
+    B, C, S = len(members), c_pad, 1 << K
+    fwd_ms = _time(lambda: wmec_cuda.forward_t(K, T, P, *arrays), reps=2)
+    kern = wmec_cuda.forward_t(K, T, P, *arrays)
+    plain, fwd_plain_ms = _plain_ms(lambda: wmec_cuda.forward_t_plain(K, T, P, *arrays))
+    fwd_err = _max_err(zip(kern, plain))
+    del plain
+    _m, init = wmec_cuda._head_init(K, T, *kern[2:])
+    init = init[:, None].contiguous()
+    bt_ms = _time(lambda: wmec_cuda.backtrace_t(init, kern[0], kern[1]), reps=10)
+    walks = wmec_cuda.backtrace_t(init, kern[0], kern[1])
+    ref, bt_plain_ms = _plain_ms(lambda: wmec_cuda.backtrace_t_plain(init, kern[0], kern[1]))
+    bt_err = _max_err(zip(walks, ref))
+    fwd_bound = _bound(_nbytes(*arrays), _nbytes(*kern), (2 * T * P + 1 + T * T) * B * C * S)
+    bt_bound = 4 * B * (3 + 4 * C + 3) / PEAK_BYTES_PER_S * 1e3
+    print(f"trio-single kernels (B={B} C={C} K={K} T={T} P={P}): wmec_forward_t unseeded "
+          f"{fwd_ms:.3f} ms (plain {fwd_plain_ms:.3f} ms), bound {fwd_bound[0]:.4f} ms by "
+          f"{fwd_bound[1]}, max|err|={fwd_err}; wmec_backtrace_t M=1 {bt_ms:.3f} ms (plain "
+          f"{bt_plain_ms:.3f} ms), bound {bt_bound:.6f} ms by bytes, max|err|={bt_err}", flush=True)
+    _require(fwd_err == 0 and bt_err == 0, "general-T kernels bit-equal at the trio-single shape")
+
+
+# ---------------------------------------------------------------------------
+# genotyping
+# ---------------------------------------------------------------------------
+
+
+def simulate_genotyping(n_cols, coverage, pedigree, seed, zero_prior=None):
+    """A simulated genotyping chromosome of n_cols variants: every
+    individual's two haplotypes carry the alternative allele with probability
+    1/2 at each variant (so hom ref, het and hom alt in the ratio 1:2:1);
+    each child of a trio inherits one haplotype of each parent, switching
+    once per parent at a random point.  Reads of every individual tile the
+    chromosome in `coverage` lanes (read length ~12 variants, 5 % allele
+    errors, qualities 10-39).  The priors are each individual's
+    compute_genotypes over its own reads, normalised as the genotype CLI
+    regularises them (constant 0); with zero_prior = c the first
+    individual's prior at column c is all 0.  Returns (readset, positions,
+    pedigree, numeric sample ids, true genotypes (n_ind, C))."""
+    n_ind, trios = pedigree
+    rng = np.random.RandomState(seed)
+    haps = rng.randint(0, 2, size=(n_ind, 2, n_cols))
+    for fa, mo, ch in trios:
+        for side, parent in enumerate((fa, mo)):
+            pick = np.full(n_cols, rng.randint(0, 2))
+            pick[rng.randint(n_cols // 4, 3 * n_cols // 4):] ^= 1
+            haps[ch, side] = haps[parent, pick, np.arange(n_cols)]
+    positions = ((np.arange(n_cols) + 1) * 10).tolist()
+    nsi = core.NumericSampleIds()
+    ped = core.Pedigree(nsi)
+    rs = core.ReadSet()
+    for ind in range(n_ind):
+        own = core.ReadSet()
+        for lane in range(coverage):
+            start = int(rng.randint(0, 6))
+            while start < n_cols - 1:
+                length = int(np.clip(rng.poisson(12), 2, n_cols - start))
+                side = int(rng.randint(0, 2))
+                cols = np.arange(start, start + length)
+                alleles = haps[ind, side, cols] ^ (rng.rand(length) < 0.05)
+                quals = rng.randint(10, 40, size=length)
+                read = core.Read(f"i{ind}_l{lane}_{start}", 50, 0, ind)
+                for c, a, q in zip(cols.tolist(), alleles.tolist(), quals.tolist()):
+                    read.add_variant(positions[c], int(a), int(q))
+                own.add(read)
+                rs.add(read)
+                start += length
+        own.sort()
+        _gts, priors = core.compute_genotypes(own, positions)
+        gls = [core.PhredGenotypeLikelihoods([g / sum(gl) for g in gl]) for gl in priors]
+        if ind == 0 and zero_prior is not None:
+            gls[zero_prior] = core.PhredGenotypeLikelihoods([0.0, 0.0, 0.0])
+        ped.add_individual(f"ind{ind}", [core.Genotype([])] * n_cols, gls)
+    for fa, mo, ch in trios:
+        ped.add_relationship(f"ind{fa}", f"ind{mo}", f"ind{ch}")
+    rs.sort()
+    return rs, positions, ped, nsi, haps.sum(axis=1)
+
+
+def _pad_k(stacked, k_pad):
+    """Pad prepared inputs' slot axis to k_pad: the extra state bits carry
+    zero diff and never fold, and dup takes the exact 2^pad duplicate
+    factor, so every scaled quantity is unchanged (as the reference's
+    pad_prepared_k)."""
+    trans, passign, base, diff, birth, die_next, dup, gmask = stacked
+    pad = k_pad - diff.shape[2]
+    diff = np.pad(diff, ((0, 0), (0, 0), (0, pad), (0, 0)))
+    birth = np.pad(birth, ((0, 0), (0, 0), (0, pad)))
+    die_next = np.pad(die_next, ((0, 0), (0, 0), (0, pad)))
+    return [trans, passign, base, diff, birth, die_next, dup * 2.0 ** pad, gmask]
+
+
+def geno_bucket(T, K, n_blocks, n_cols, seed):
+    """Prepared inputs of n_blocks simulated genotyping instances of n_cols
+    columns (one sample, a trio or a quartet by T), padded to K slots; block
+    0 has a zero-sum prior at column n_cols // 2.  Returns (P, stacked)."""
+    pedigree = {1: SINGLE, 4: TRIO, 16: QUARTET}[T]
+    cov = max(1, K // pedigree[0])
+    parts = []
+    for b in range(n_blocks):
+        rs, pos, ped, _nsi, _gt = simulate_genotyping(
+            n_cols, cov, pedigree, seed + b, zero_prior=n_cols // 2 if b == 0 else None
+        )
+        packed = wmec.pack_problem(rs, [10] * n_cols, ped, False, pos,
+                                   check_conflicts=False, emission_tables=False)
+        _require(packed.K <= K and packed.T == T, f"genotyping block K {packed.K} <= {K}, T {packed.T}")
+        (_k, _t, P, _n), stacked = genotyping.prepare_genotyping_batch([packed], ped)
+        parts.append(_pad_k(stacked, K))
+    return P, [np.concatenate(xs) for xs in zip(*parts)]
+
+
+def _rel_err(a, b) -> float:
+    """Largest |a - b| / (|b| + 1e-30) over the entries where b is a number
+    (the 1e-30 keeps float32 subnormals out of it); inf where the NaN
+    patterns differ.  Taken in slices: beta tables are large."""
+    worst = 0.0
+    for x, y in zip(a.reshape(-1).split(1 << 26), b.reshape(-1).split(1 << 26)):
+        x, y = x.double(), y.double()
+        nan = torch.isnan(y)
+        if not torch.equal(nan, torch.isnan(x)):
+            return float("inf")
+        d = ((x - y).abs() / (y.abs() + 1e-30))[~nan]
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    return worst
+
+
+def _col_err(beta, beta_p) -> float:
+    """Largest |beta - beta_p| of a (B, C, T, S) table relative to the
+    largest |beta_p| of its (instance, column), over the columns that are
+    numbers in both (the NaN patterns are checked by _rel_err).  Entries far
+    below their column's largest carry the rounding of their large negative
+    log-emissions, so they are held to this scale, not to their own."""
+    worst = 0.0
+    rows = beta.reshape(-1, beta.shape[2] * beta.shape[3])
+    rows_p = beta_p.reshape(rows.shape)
+    step = max(1, (1 << 26) // rows.shape[1])
+    for x, y in zip(rows.split(step), rows_p.split(step)):
+        scale = y.abs().amax(dim=1)
+        err = (x - y).abs().amax(dim=1) / (scale + 1e-30)
+        err = err[~(scale.isnan() | err.isnan())]
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+    return worst
+
+
+def _abs_err(a, b) -> float:
+    """Largest |a - b| over the entries where both are numbers."""
+    worst = 0.0
+    for x, y in zip(a.reshape(-1).split(1 << 26), b.reshape(-1).split(1 << 26)):
+        worst = max(worst, float((x.double() - y.double()).abs().nan_to_num(nan=0.0).max()))
+    return worst
+
+
+def _per_col(red):
+    """red (B, C, T * nA) over its column sums in float64: the joint
+    posterior of transmission and allele assignment, the scale-free form in
+    which the likelihoods take it."""
+    red = red.double()
+    return red / red.sum(dim=-1, keepdim=True)
+
+
+def _lik_err(lik, ref) -> float:
+    """Largest absolute difference of two likelihood arrays; inf where the
+    NaN patterns differ."""
+    nan = np.isnan(ref)
+    if not np.array_equal(nan, np.isnan(lik)):
+        return float("inf")
+    return float(np.max(np.abs(lik[~nan] - ref[~nan]), initial=0.0))
+
+
+def compare_geno_kernels(device, shapes=((1, 7), (1, 12), (1, 15), (1, 16), (4, 7), (4, 12),
+                                         (4, 15), (16, 7), (16, 10)), n_blocks=4, n_cols=128):
+    """Phase geno-kernels: both genotyping kernels against their float32
+    plain versions on the same CUDA tensors; red and scaling within
+    rtol=1e-4, likelihoods within atol=1e-5, identical NaN patterns.  As a
+    witness of where beta_store's per-entry differences come from, the
+    kernel's and the float32 plain version's beta_store are both held
+    against the float64 plain version on the same inputs (printed, not
+    gated).  Returns {kernel name: max abs error} (red normalised per
+    column)."""
+    err = {"geno_backward": 0.0, "geno_forward": 0.0}
+    for T, K in shapes:
+        P, stacked = geno_bucket(T, K, n_blocks, n_cols, 3000 + 10 * K + T)
+        x = genotyping.to_device(stacked, torch.device(device))
+        diff, base, passign, trans, birth, die_next, dup = x
+        beta, scaling = genotyping_cuda.backward(K, T, P, diff, base, passign, trans, birth, dup)
+        beta_p, scaling_p = genotyping_cuda.backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
+        red = genotyping_cuda.forward(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
+        red_p = genotyping_cuda.forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling_p, beta_p)
+        torch.cuda.synchronize()
+        rel = {"scaling": _rel_err(scaling, scaling_p), "beta_store": _col_err(beta, beta_p),
+               "red": _rel_err(red, red_p)}
+        _require(torch.equal(beta.isnan(), beta_p.isnan()), f"beta_store NaN patterns at T={T}, K={K}")
+        beta64, _s64 = genotyping_cuda.backward_plain(
+            K, T, P, diff.double(), base.double(), passign.double(), trans.double(), birth, dup.double()
+        )
+        print(f"geno kernels T={T:2d} K={K:2d}: beta_store against the float64 plain version, "
+              f"per entry / to its column's largest: kernel {_rel_err(beta, beta64):.3e} / "
+              f"{_col_err(beta, beta64):.3e}, float32 plain {_rel_err(beta_p, beta64):.3e} / "
+              f"{_col_err(beta_p, beta64):.3e}", flush=True)
+        del beta64
+        shape4 = (n_blocks, n_cols, T, 1 << P)
+        lik = genotyping.likelihoods_from_red(red.reshape(shape4).double().cpu().numpy(), stacked[7][0])
+        lik_p = genotyping.likelihoods_from_red(red_p.reshape(shape4).double().cpu().numpy(), stacked[7][0])
+        e_lik = _lik_err(lik, lik_p)
+        nan_blocks = int(np.isnan(lik).any(axis=(1, 2, 3)).sum())
+        e_bwd = max(_abs_err(beta, beta_p), _abs_err(scaling, scaling_p))
+        e_fwd = _abs_err(_per_col(red), _per_col(red_p))
+        print(f"geno kernels T={T:2d} K={K:2d} P={P} B={n_blocks} C={n_cols}: rel err scaling "
+              f"{rel['scaling']:.3e} red {rel['red']:.3e}, beta_store to its column's largest "
+              f"{rel['beta_store']:.3e}; "
+              f"likelihoods max|err|={e_lik:.3e}; blocks with NaN {nan_blocks}", flush=True)
+        _require(rel["scaling"] <= 1e-4 and rel["red"] <= 1e-4 and rel["beta_store"] <= 1e-4
+                 and e_lik <= 1e-5,
+                 f"genotyping kernels agree with plain at T={T}, K={K}")
+        _require(nan_blocks == 1, f"the zero-sum prior's NaN stays in its block at T={T}, K={K}")
+        err["geno_backward"] = max(err["geno_backward"], e_bwd)
+        err["geno_forward"] = max(err["geno_forward"], e_fwd)
+        del beta, beta_p, x
+    return err
+
+
+def genotype_instance(spec, device, label, check_cols, atol):
+    """Phase genotype / genotype-trio: a simulated chromosome through
+    GenotypeDPTable(device="cuda") with the genotyping kernels' launch
+    counters set to 0 just before and read just after (one launch of each
+    expected), then the same instance through the route's pieces with a time
+    split, GT concordance with the simulated genotypes, and a check of the
+    likelihoods against the float64 plain route on the card on a
+    `check_cols`-column instance of the same generator within `atol`.
+    spec = (n_cols, coverage, pedigree, seed).  Returns (launch counts, the
+    prepared static shape and stacked inputs)."""
+    n_cols, coverage, pedigree, seed = spec
+    t0 = time.perf_counter()
+    rs, pos, ped, nsi, truth = simulate_genotyping(n_cols, coverage, pedigree, seed)
+    print(f"{label}: chromosome built in {time.perf_counter() - t0:.1f} s", flush=True)
+    rc = [10] * n_cols
+    n_ind = pedigree[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    table = core.GenotypeDPTable(nsi, rs, rc, ped, pos, device=device)
+    likelihoods = [[table.get_genotype_likelihoods(f"ind{i}", c).as_vector() for c in range(n_cols)]
+                   for i in range(n_ind)]
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    packed = table._packed
+    print(f"{label}: {n_cols} variants, {len(rs)} reads, K={packed.K}, T={packed.T}, P={packed.P}; "
+          f"wall {wall:.3f} s = {n_cols / wall:.1f} variants genotyped/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    _require(launches["geno_backward"] == 1 and launches["geno_forward"] == 1,
+             f"{label}: one launch of each genotyping kernel")
+    lik = np.asarray(likelihoods, dtype=np.float64)  # (n_ind, C, 3)
+    _require(lik.shape == (n_ind, n_cols, 3) and np.isfinite(lik).all(), f"{label}: finite likelihoods")
+    _require(np.allclose(lik.sum(axis=2), 1.0, atol=1e-5), f"{label}: likelihoods sum to 1")
+    concordance = float(np.mean(lik.argmax(axis=2) == truth))
+    print(f"{label}: GT concordance with the simulated genotypes {concordance:.4f}", flush=True)
+    _require(concordance > 0.9, f"{label}: genotypes recovered")
+
+    # the same instance again, timed between synchronisations
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    packed = wmec.pack_problem(rs, rc, ped, False, pos, check_conflicts=False, emission_tables=False)
+    t1 = time.perf_counter()
+    static, stacked = genotyping.prepare_genotyping_batch([packed], ped)
+    t2 = time.perf_counter()
+    x = genotyping.to_device(stacked, dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    red = genotyping.forward_backward(*static[:3], *x)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    lik_split = genotyping.likelihoods_from_red(red.to("cpu", torch.float64).numpy(), stacked[7][0])[0]
+    t5 = time.perf_counter()
+    split = {"pack": t1 - t0, "prepare": t2 - t1, "h2d": t3 - t2, "kernels": t4 - t3,
+             "d2h+marginals": t5 - t4}
+    text = " ".join(f"{k} {v:.3f}" for k, v in split.items())
+    print(f"{label}: split (s): {text}; total {t5 - t0:.3f}", flush=True)
+    _require(np.array_equal(lik_split, table._likelihoods), f"{label}: split run agrees")
+    del x, red
+
+    # the float64 plain route on the card, on a shorter instance
+    rs_c, pos_c, ped_c, nsi_c, _truth = simulate_genotyping(check_cols, coverage, pedigree, seed + 1)
+    small = core.GenotypeDPTable(nsi_c, rs_c, [10] * check_cols, ped_c, pos_c, device=device)
+    st_c, stk_c = genotyping.prepare_genotyping_batch([small._packed], ped_c)
+    t0 = time.perf_counter()
+    trans, passign, base, diff, birth, die_next, dup, _gmask = (torch.from_numpy(a).to(dev) for a in stk_c)
+    red64, _scaling = genotyping.forward_backward_plain(
+        *st_c[:3], diff, base, passign, trans, birth, die_next, dup
+    )
+    ref = genotyping.likelihoods_from_red(red64.cpu().numpy(), stk_c[7][0])[0]
+    e = _lik_err(small._likelihoods, ref)
+    print(f"{label}: {check_cols}-column instance (K={small._packed.K}) against the float64 plain "
+          f"route on the card ({time.perf_counter() - t0:.1f} s): likelihoods max|err|={e:.3e} "
+          f"(limit {atol})", flush=True)
+    _require(e <= atol, f"{label}: kernels agree with the float64 plain route")
+    return launches, static, stacked
+
+
+def time_geno_kernels(static, stacked, label, device="cuda"):
+    """Phase timing, genotyping: each kernel at a genotyping cell's shape
+    (CUDA events), beside its float32 plain version on the same inputs and
+    its bound: the larger of the bytes (each input read once, each output
+    written once), the exps and the f32 adds of the emission sums over
+    their rates.  The work counted is the least the function needs: in Gray
+    order a state's log-emission sums differ from its neighbour's by one
+    diff row, T*P*2 adds per state and column; exp of a sum over the P
+    partitions is the product of per-partition exps, T*P*2 exps per state
+    and column, not one per allele assignment."""
+    K, T, P, _n = static
+    x = genotyping.to_device(stacked, torch.device(device))
+    diff, base, passign, trans, birth, die_next, dup = x
+    B, C, S = diff.shape[0], diff.shape[1], 1 << K
+    bwd_ms = _time(lambda: genotyping_cuda.backward(K, T, P, diff, base, passign, trans, birth, dup), reps=1)
+    beta, scaling = genotyping_cuda.backward(K, T, P, diff, base, passign, trans, birth, dup)
+    fwd_ms = _time(lambda: genotyping_cuda.forward(K, T, P, diff, base, passign, trans, die_next, scaling, beta), reps=1)
+    red = genotyping_cuda.forward(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
+    (beta_p, scaling_p), bwd_plain_ms = _plain_ms(
+        lambda: genotyping_cuda.backward_plain(K, T, P, diff, base, passign, trans, birth, dup))
+    rel_bwd = max(_rel_err(scaling, scaling_p), _col_err(beta, beta_p))
+    _require(torch.equal(beta.isnan(), beta_p.isnan()), f"{label}: beta_store NaN patterns")
+    abs_bwd = max(_abs_err(scaling, scaling_p), _abs_err(beta, beta_p))
+    del beta_p
+    red_p, fwd_plain_ms = _plain_ms(
+        lambda: genotyping_cuda.forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling, beta))
+    rel_fwd = _rel_err(red, red_p)
+    print(f"{label}: kernels against plain at the cell: rel err scaling and beta_store (to its "
+          f"column's largest) {rel_bwd:.3e}, red {rel_fwd:.3e} (largest |red| "
+          f"{float(red_p.abs().nan_to_num().max()):.3e}, |scaling| "
+          f"{float(scaling_p.abs().nan_to_num().max()):.3e})", flush=True)
+    _require(rel_bwd <= 1e-4 and rel_fwd <= 1e-4, f"{label}: genotyping kernels agree with plain at the cell")
+    cells = B * C * S
+    exps_ms = cells * T * P * 2 / PEAK_EXP_PER_S * 1e3
+    adds_ms = cells * T * P * 2 / PEAK_F32_ADDS_PER_S * 1e3
+    common = _nbytes(diff, base, passign, trans)
+    out = {}
+    for name, ms, plain_ms, nbytes, err in (
+        ("geno_backward", bwd_ms, bwd_plain_ms, common + _nbytes(birth, dup, beta, scaling), abs_bwd),
+        ("geno_forward", fwd_ms, fwd_plain_ms, common + _nbytes(die_next, scaling, beta, red),
+         _abs_err(_per_col(red), _per_col(red_p))),
+    ):
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound = max(bytes_ms, exps_ms, adds_ms)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, max_abs_err=err,
+                         bound_by="bytes" if bound == bytes_ms else "operations")
+        print(f"{label} {name} (B={B} C={C} K={K} T={T} P={P}): {ms:.3f} ms (plain "
+              f"{plain_ms:.3f} ms), bound {bound:.4f} ms by {out[name]['bound_by']} (bytes "
+              f"{bytes_ms:.4f}, exp {exps_ms:.4f}, f32 adds {adds_ms:.4f} ms)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -644,6 +1035,7 @@ def main() -> int:
     # 2. kernels against their plain versions
     errs = compare_kernels("cuda")
     errs.update(compare_pedigree_kernels("cuda"))
+    errs.update(compare_geno_kernels("cuda"))
     print(f"phases 1-2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def both(hap):  # the two haplotypes of one heterozygous sample
@@ -691,7 +1083,7 @@ def main() -> int:
         rs_s, pos_s, ped_s, [10] * len(pos_s), windows, "cuda", "trio-single",
         ("wmec_forward_t", "wmec_backtrace_t"),
     )
-    del rs_s, packed_s
+    del rs_s
 
     # 7. a quartet (two trios with shared parents: T = 16, four cosets)
     rs_q, pos_q, ped_q, _truth_q = simulate_pedigree(16, 128, 3, QUARTET, seed=13)
@@ -701,14 +1093,32 @@ def main() -> int:
     del rs_q
     print(f"phases 5-7 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 8. kernel times at the main paths' shapes
+    # 8. genotyping: one sample of 32,768 variants at coverage 15 (K = 15),
+    # and a trio of 8,192 variants at coverage 5 each (K = 15, T = 4)
+    torch.cuda.empty_cache()
+    geno_launches, geno_static, geno_stacked = genotype_instance(
+        (32768, 15, SINGLE, 17), "cuda", "genotype", check_cols=2048, atol=2e-4
+    )
+    _l, trio_g_static, trio_g_stacked = genotype_instance(
+        (8192, 5, TRIO, 19), "cuda", "genotype-trio", check_cols=1024, atol=3e-4
+    )
+    print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 9. kernel times at the main paths' shapes
     packed = wmec.pack_problem(rs, [1] * len(positions), het, False)
     times = time_kernels(packed)
     del packed
     torch.cuda.empty_cache()
     packed_t = wmec.pack_problem(rs_t, [10] * len(pos_t), ped_t, False, pos_t)
     times.update(time_pedigree_kernels(packed_t))
+    time_trio_single_kernels(packed_s)
+    del packed_t, packed_s
+    torch.cuda.empty_cache()
+    times.update(time_geno_kernels(geno_static, geno_stacked, "genotype"))
+    torch.cuda.empty_cache()
+    time_geno_kernels(trio_g_static, trio_g_stacked, "genotype-trio")
     launches.update({k: trio_launches[k] for k in pedigree_kernels})
+    launches.update({k: geno_launches[k] for k in ("geno_backward", "geno_forward")})
 
     power = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -227,3 +227,136 @@ def test_pedigree_route_on_cuda_never_runs_the_plain_versions(cuda_device, monke
         rs, positions, ped = _pedigree_chromosome(n_blocks, 40, 3, TRIO, seed=11)
         table = core.PedigreeDPTable(rs, [5] * len(positions), ped, False, positions)
         assert len(table.get_super_reads()[1]) == len(positions)
+
+
+def _geno_instance(n_cols, coverage, n_ind, trios, seed, zero_prior=None):
+    """A genotyping instance whose reads tile the columns in `coverage`
+    lanes per individual (so K = coverage * n_ind), random priors; with
+    zero_prior = c the first individual's prior at column c is all 0.
+    Returns (readset, positions, pedigree, numeric sample ids)."""
+    rng = np.random.RandomState(seed)
+    positions = ((np.arange(n_cols) + 1) * 10).tolist()
+    rs = core.ReadSet()
+    for ind in range(n_ind):
+        for lane in range(coverage):
+            start = 0
+            while start < n_cols - 1:
+                length = int(np.clip(rng.poisson(6), 2, n_cols - start))
+                read = core.Read(f"i{ind}_l{lane}_{start}", 50, 0, ind)
+                for c in range(start, start + length):
+                    read.add_variant(positions[c], int(rng.randint(0, 2)), int(rng.randint(5, 40)))
+                rs.add(read)
+                start += length
+    rs.sort()
+    nsi = core.NumericSampleIds()
+    ped = core.Pedigree(nsi)
+    for ind in range(n_ind):
+        gls = rng.rand(n_cols, 3) + 0.01
+        gls /= gls.sum(axis=1, keepdims=True)
+        if ind == 0 and zero_prior is not None:
+            gls[zero_prior] = 0.0
+        ped.add_individual(
+            f"ind{ind}", [core.Genotype([])] * n_cols,
+            [core.PhredGenotypeLikelihoods(list(g)) for g in gls],
+        )
+    for f, m, c in trios:
+        ped.add_relationship(f"ind{f}", f"ind{m}", f"ind{c}")
+    return rs, positions, ped, nsi
+
+
+def _rel_close(x, y, rtol):
+    """x and y have the same NaN pattern and agree within rtol elsewhere."""
+    x, y = x.double().cpu(), y.double().cpu()
+    nan = torch.isnan(y)
+    assert torch.equal(nan, torch.isnan(x))
+    assert bool(((x - y).abs() <= rtol * y.abs() + 1e-30)[~nan].all())
+
+
+GENO_PEDIGREES = {1: (1, ()), 4: TRIO, 16: QUARTET}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,coverage", [(1, 3), (1, 7), (1, 15), (1, 16), (4, 2), (4, 4), (4, 5), (16, 2), (16, 3)])
+def test_geno_kernels_match_plain(cuda_device, T, coverage):
+    """Both genotyping kernels against their float32 plain versions on the
+    same CUDA tensors, on both sides of the shared-memory limit of the
+    state; instance 0 has a zero-sum prior column, whose NaN fills its
+    instance and no other."""
+    from whatshap_torch.ops import genotyping, genotyping_cuda
+
+    n_ind, trios = GENO_PEDIGREES[T]
+    parts = []
+    for b in range(3):
+        rs, positions, ped, _nsi = _geno_instance(48, coverage, n_ind, trios, 100 * T + 10 * coverage + b,
+                                                  zero_prior=20 if b == 0 else None)
+        packed = wmec.pack_problem(rs, [7] * 48, ped, False, positions,
+                                   check_conflicts=False, emission_tables=False)
+        (K, T_, P, _n), stacked = genotyping.prepare_genotyping_batch([packed], ped)
+        assert T_ == T and K == coverage * n_ind
+        parts.append(stacked)
+    stacked = [np.concatenate(xs) for xs in zip(*parts)]
+    diff, base, passign, trans, birth, die_next, dup = genotyping.to_device(stacked, cuda_device)
+    before = (genotyping_cuda.backward.launches, genotyping_cuda.forward.launches)
+    beta, scaling = genotyping_cuda.backward(K, T, P, diff, base, passign, trans, birth, dup)
+    red = genotyping_cuda.forward(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
+    assert (genotyping_cuda.backward.launches, genotyping_cuda.forward.launches) == (before[0] + 1, before[1] + 1)
+    beta_p, scaling_p = genotyping_cuda.backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
+    red_p = genotyping_cuda.forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling_p, beta_p)
+    torch.cuda.synchronize()
+    for x, y in ((scaling, scaling_p), (red, red_p)):
+        _rel_close(x, y, 1e-4)
+    # beta entries far below their column's largest carry the rounding of
+    # their large negative log-emissions; they are held to 1e-4 of that
+    assert torch.equal(beta.isnan(), beta_p.isnan())
+    col_max = beta_p.flatten(2).amax(dim=2)
+    ok = ~col_max.isnan()
+    err = (beta - beta_p).abs().flatten(2).amax(dim=2)
+    assert bool((err[ok] <= 1e-4 * col_max[ok]).all())
+    nan_rows = torch.isnan(red).flatten(1).any(dim=1).tolist()
+    assert nan_rows == [True, False, False]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pedigree,atol", [((1, ()), 2e-4), (TRIO, 3e-4)])
+def test_genotype_route_on_cuda_matches_cpu(cuda_device, pedigree, atol):
+    """GenotypeDPTable on the card (float32 kernels, one launch each) is
+    within the reference's f32 bar of the float64 CPU route."""
+    from whatshap_torch.ops import genotyping_cuda
+
+    n_ind, trios = pedigree
+    rs, positions, ped, nsi = _geno_instance(60, 5, n_ind, trios, seed=5)
+    before = (genotyping_cuda.backward.launches, genotyping_cuda.forward.launches)
+    gpu = core.GenotypeDPTable(nsi, rs, [10] * 60, ped, positions)
+    assert gpu.device.type == "cuda"
+    assert (genotyping_cuda.backward.launches, genotyping_cuda.forward.launches) == (before[0] + 1, before[1] + 1)
+    cpu = core.GenotypeDPTable(nsi, rs, [10] * 60, ped, positions, device="cpu")
+    np.testing.assert_allclose(gpu._likelihoods, cpu._likelihoods, atol=atol)
+
+
+@pytest.mark.cuda
+def test_genotype_route_on_cuda_refuses_what_it_cannot_solve(cuda_device):
+    """Three trios (T = 64), or one sample above K = 16, raise on CUDA
+    instead of leaving the card."""
+    rs, positions, ped, nsi = _geno_instance(12, 1, 5, ((0, 1, 2), (0, 1, 3), (0, 1, 4)), seed=1)
+    with pytest.raises(NotImplementedError, match="genotyping"):
+        core.GenotypeDPTable(nsi, rs, [10] * 12, ped, positions)
+    rs, positions, ped, nsi = _geno_instance(30, 17, 1, (), seed=2)
+    with pytest.raises(NotImplementedError, match="genotyping"):
+        core.GenotypeDPTable(nsi, rs, [10] * 30, ped, positions)
+
+
+@pytest.mark.cuda
+def test_genotype_route_on_cuda_never_runs_the_plain_versions(cuda_device, monkeypatch):
+    """With every plain version made to raise, a trio still genotypes on the
+    card."""
+    from whatshap_torch.ops import genotyping, genotyping_cuda
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a plain version ran on the CUDA route")
+
+    for mod, name in [(genotyping, "forward_backward_plain"), (genotyping_cuda, "backward_plain"),
+                      (genotyping_cuda, "forward_plain")]:
+        monkeypatch.setattr(mod, name, refuse)
+    rs, positions, ped, nsi = _geno_instance(40, 3, 3, TRIO[1], seed=3)
+    table = core.GenotypeDPTable(nsi, rs, [10] * 40, ped, positions)
+    assert np.isfinite(table._likelihoods).all() and table._likelihoods.shape == (40, 3, 3)

@@ -1,0 +1,231 @@
+"""
+Hand-written CUDA kernels of the genotyping forward-backward HMM, with their
+wrappers and plain torch versions.
+
+Replaces whatshap_tpu/ops/genotyping_pallas.py forward_backward_pallas:
+
+- backward launches csrc/geno_backward.cu, the scaled backward pass that
+  replaces _make_bwd_kernel: per column the scaled beta table and the
+  scaling sum;
+- forward launches csrc/geno_forward.cu, the scaled forward pass that
+  replaces _make_fwd_kernel: per column the T * 2^P state-summed
+  forward * beta products `red`, from which the host takes the genotype
+  marginals (genotyping.likelihoods_from_red).
+
+Both take the per-column tables of genotyping.prepare_genotyping_batch in
+float32, flattened per column as the Pallas kernels take them: diff (B, C, K,
+T*P*2), base (B, C, T*P*2), passign (B, C, T*2^P), trans (B, C, T*T) with
+index tj*T + ti, birth and die_next (B, C, K) bool, dup and scaling (B, C).
+
+A wrapper checks its inputs, then runs its plain torch version on CPU tensors
+(float32 or float64) and its kernel on CUDA tensors (float32, inside the
+kernels' envelope); it never falls back from the one to the other.
+`launches` on a wrapper counts its kernel launches, nothing else.  The plain
+versions follow the Pallas kernels' arithmetic step by step, in the dtype of
+their inputs, with the column loop in Python: in float64 they are the CPU
+route, in float32 the yardstick the kernels are held against.
+"""
+
+import numpy as np
+import torch
+
+from .wmec_cuda import _check, _check_device, _launch
+
+#: Largest K of the kernels per transmission count T, and the founder
+#: partition counts they are built for (the wMEC kernels' envelope,
+#: wmec_cuda.MAX_K and MAX_K_T).
+MAX_K_T = {1: 16, 4: 16, 16: 13}
+P_OF_T = {1: (2,), 4: (2, 4), 16: (2, 4)}
+ENVELOPE = "; ".join(f"T = {t}, P in {P_OF_T[t]}, K <= {k}" for t, k in MAX_K_T.items())
+#: Dynamic shared memory a CTA may take for its state (T planes of 2^K
+#: float32); a larger state lives in a per-instance global scratch.  The
+#: states are powers of two, so this keeps T = 1 up to K = 15, T = 4 up to
+#: K = 13 and T = 16 up to K = 11 in shared memory, with room for the staged
+#: column inputs and the per-warp partial sums.
+SMEM_STATE_BYTES = 128 * 1024
+
+
+def kernel_supported(K: int, T: int, P: int) -> bool:
+    """Shapes the kernels take: T in MAX_K_T, P in P_OF_T[T], 1 <= K <=
+    MAX_K_T[T]."""
+    return T in MAX_K_T and P in P_OF_T[T] and 1 <= K <= MAX_K_T[T]
+
+
+def state_bytes(K: int, T: int) -> int:
+    """Device scratch a kernel needs per instance beyond its outputs: none
+    while its state (T * 2^K float32) fits SMEM_STATE_BYTES, else the whole
+    state."""
+    b = T * 4 << K
+    return 0 if b <= SMEM_STATE_BYTES else b
+
+
+def _sum_fold(x, K: int, bits, any_bits):
+    """Sum out the flagged slot bits of the state x (B, S, T), writing the
+    pair's sum to both partners; bits (B, K) bool, per instance, and
+    any_bits (K,) their union on the host."""
+    B, S, T = x.shape
+    for p in range(K):
+        if not any_bits[p]:
+            continue
+        flag = bits[:, p]
+        view = x.reshape(B, S >> (p + 1), 2, (1 << p) * T)
+        total = view[:, :, 0] + view[:, :, 1]
+        folded = torch.stack([total, total], dim=2).reshape(B, S, T)
+        x = torch.where(flag[:, None, None], folded, x)
+    return x
+
+
+def _emission(bits, abits, diff_c, base_c, T: int, P: int):
+    """exp(sum_p (acc_j + base_j)) with acc = bits @ diff over the slot axis
+    and j = (t*P + p)*2 + bit p of a; bits (S, K), abits (nA, P) long,
+    diff_c (B, K, T*P*2), base_c (B, T*P*2).  Returns (B, S, T, nA)."""
+    B, S = diff_c.shape[0], bits.shape[0]
+    logcp = (torch.matmul(bits, diff_c) + base_c[:, None, :]).reshape(B, S, T, P, 2)
+    lem = logcp[:, :, :, 0, abits[:, 0]]
+    for p in range(1, P):
+        lem = lem + logcp[:, :, :, p, abits[:, p]]
+    return torch.exp(lem)
+
+
+def _tables(K: int, P: int, dtype, device):
+    S = 1 << K
+    idx = torch.arange(S, device=device)
+    bits = ((idx[:, None] >> torch.arange(K, device=device)[None, :]) & 1).to(dtype)
+    a = np.arange(1 << P)
+    abits = torch.from_numpy((a[:, None] >> np.arange(P)[None, :]) & 1).to(device)
+    return bits, abits
+
+
+def backward_plain(K, T, P, diff, base, passign, trans, birth, dup):
+    """Plain torch version of the backward pass (see backward), in the dtype
+    of its inputs; base, passign and trans may also come unflattened
+    ((B, C, T, P, 2), (B, C, T, nA), (B, C, T, T))."""
+    B, C = diff.shape[0], diff.shape[1]
+    S, nA = 1 << K, 1 << P
+    base = base.reshape(B, C, T * P * 2)
+    passign = passign.reshape(B, C, T, nA)
+    trans = trans.reshape(B, C, T, T)
+    bits, abits = _tables(K, P, diff.dtype, diff.device)
+    any_birth = birth.any(dim=0).cpu().tolist()
+    beta = torch.ones((B, S, T), dtype=diff.dtype, device=diff.device)
+    beta_store = torch.empty((B, C, T, S), dtype=diff.dtype, device=diff.device)
+    scaling = torch.empty((B, C), dtype=diff.dtype, device=diff.device)
+    for c in range(C - 1, -1, -1):
+        em = _emission(bits, abits, diff[:, c], base[:, c], T, P)
+        scaling[:, c] = (beta.sum(dim=(1, 2)) / dup[:, c]) * nA
+        inv = (1.0 / scaling[:, c])[:, None, None]
+        weighted = beta * (em * passign[:, c, None]).sum(dim=3)  # (B, S, T_i)
+        beta_store[:, c] = (beta * inv).transpose(1, 2)
+        contrib = torch.matmul(weighted, trans[:, c].transpose(1, 2))  # (B, S, T_j)
+        beta = _sum_fold(contrib, K, birth[:, c], any_birth[c]) * inv
+    return beta_store, scaling
+
+
+def forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling, beta_store):
+    """Plain torch version of the forward pass (see forward), in the dtype of
+    its inputs; returns red (B, C, T * 2^P)."""
+    B, C = diff.shape[0], diff.shape[1]
+    S, nA = 1 << K, 1 << P
+    base = base.reshape(B, C, T * P * 2)
+    passign = passign.reshape(B, C, T, nA)
+    trans = trans.reshape(B, C, T, T)
+    bits, abits = _tables(K, P, diff.dtype, diff.device)
+    any_die = die_next.any(dim=0).cpu().tolist()
+    red = torch.empty((B, C, T, nA), dtype=diff.dtype, device=diff.device)
+    alpha = None
+    for c in range(C):
+        em = _emission(bits, abits, diff[:, c], base[:, c], T, P)
+        inv = 1.0 / scaling[:, c]
+        if c == 0:
+            sum_prev = torch.ones((B, S, T), dtype=diff.dtype, device=diff.device)
+        else:
+            sum_prev = torch.matmul(alpha, trans[:, c])  # sum_tj alpha[tj] * trans[tj, ti]
+        fwd = sum_prev[..., None] * em * (passign[:, c] * inv[:, None, None])[:, None]
+        if c == C - 1:  # the last column has no successor: identity beta
+            red[:, c] = fwd.sum(dim=1)
+        else:
+            red[:, c] = (fwd * beta_store[:, c].transpose(1, 2)[..., None]).sum(dim=1)
+        alpha = _sum_fold(fwd.sum(dim=3), K, die_next[:, c], any_die[c])
+    return red.reshape(B, C, T * nA)
+
+
+def _check_inputs(name, K, T, P, diff, base, passign, trans, flags, per_col):
+    """Shape checks shared by both wrappers: float32, or float64 on the CPU,
+    and on CUDA a shape inside the kernels' envelope; returns the device."""
+    B, C = diff.shape[0], diff.shape[1]
+    if diff.is_cuda and not kernel_supported(K, T, P):
+        raise ValueError(f"{name}: unsupported shape K={K}, T={T}, P={P} ({ENVELOPE})")
+    if B < 1 or C < 1:
+        raise ValueError(f"{name}: needs at least one instance and one column")
+    nA = 1 << P
+    dtype = torch.float64 if not diff.is_cuda and diff.dtype == torch.float64 else torch.float32
+    _check(diff, "diff", dtype, (B, C, K, T * P * 2))
+    _check(base, "base", dtype, (B, C, T * P * 2))
+    _check(passign, "passign", dtype, (B, C, T * nA))
+    _check(trans, "trans", dtype, (B, C, T * T))
+    _check(flags, "fold flags", torch.bool, (B, C, K))
+    _check(per_col, "per-column scale", dtype, (B, C))
+    return _check_device(diff, base, passign, trans, flags, per_col)
+
+
+def backward(K, T, P, diff, base, passign, trans, birth, dup):
+    """Scaled backward pass over stacked instances: birth (B, C, K) flags the
+    slot bits born entering each column, dup (B, C) is each column's
+    inactive-bit duplicate factor 2^(K - active).  Returns beta_store (B, C,
+    T, 2^K), the incoming beta of every column scaled by its sum, and scaling
+    (B, C), in the inputs' dtype, as the Pallas backward kernel does."""
+    dev = _check_inputs("backward", K, T, P, diff, base, passign, trans, birth, dup)
+    if dev.type == "cpu":
+        return backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
+
+    B, C, S = diff.shape[0], diff.shape[1], 1 << K
+    beta_store = torch.empty((B, C, T, S), dtype=torch.float32, device=dev)
+    scaling = torch.empty((B, C), dtype=torch.float32, device=dev)
+    scratch = None
+    if state_bytes(K, T):
+        scratch = torch.empty((B, T, S), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(
+            "geno_backward",
+            diff.data_ptr(), base.data_ptr(), passign.data_ptr(), trans.data_ptr(),
+            birth.data_ptr(), dup.data_ptr(), beta_store.data_ptr(), scaling.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            B, C, K, T, P,
+        )
+    backward.launches += 1
+    return beta_store, scaling
+
+
+backward.launches = 0
+
+
+def forward(K, T, P, diff, base, passign, trans, die_next, scaling, beta_store):
+    """Scaled forward pass over stacked instances, from backward's outputs:
+    die_next (B, C, K) flags the slot bits that die after each column.
+    Returns red (B, C, T * 2^P) in the inputs' dtype: red[b, c, t*nA + a] is the sum over
+    the bipartitions of forward * beta of transmission t and allele
+    assignment a, as the Pallas forward kernel emits it."""
+    dev = _check_inputs("forward", K, T, P, diff, base, passign, trans, die_next, scaling)
+    B, C, S = diff.shape[0], diff.shape[1], 1 << K
+    _check(beta_store, "beta_store", diff.dtype, (B, C, T, S))
+    _check_device(diff, beta_store)
+    if dev.type == "cpu":
+        return forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling, beta_store)
+
+    red = torch.empty((B, C, T << P), dtype=torch.float32, device=dev)
+    scratch = None
+    if state_bytes(K, T):
+        scratch = torch.empty((B, T, S), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(
+            "geno_forward",
+            diff.data_ptr(), base.data_ptr(), passign.data_ptr(), trans.data_ptr(),
+            die_next.data_ptr(), scaling.data_ptr(), beta_store.data_ptr(), red.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            B, C, K, T, P,
+        )
+    forward.launches += 1
+    return red
+
+
+forward.launches = 0

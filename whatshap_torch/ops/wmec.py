@@ -763,7 +763,7 @@ def _unsupported(K: int, T: int, P: int) -> NotImplementedError:
     return NotImplementedError(
         f"no CUDA kernel for K={K}, T={T}, P={P} yet: shapes beyond the kernels' "
         f"envelope ({wmec_cuda.ENVELOPE}) or tables beyond the memory budget need "
-        "the segmented solve, ROADMAP Queue 1 item 5"
+        "the segmented solve, ROADMAP Queue 1 item 1"
     )
 
 
