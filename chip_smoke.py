@@ -10,7 +10,11 @@ Phases, every one of which must pass:
             source, all started together.
 2. kernels  on the card, each kernel is held bit-equal against its plain
             torch version on the same CUDA tensors: the T=1 kernels at K = 7,
-            10, 14, 15, 16 (B = 4 blocks of C = 256 columns); the general-T
+            10, 14, 15, 16, 17 (B = 4 blocks of C = 256 columns); the carry
+            kernels (kernel row 9) and the tables kernels from a carry (row
+            10), from the nonzero state after the first 64 columns of B = 3
+            blocks of C = 192, at T = 1, K = 7, 10, 14, 15, 16, 17; T = 4, K
+            = 7, 12, 15, 16; T = 16, K = 7, 13; the general-T
             kernels (tables mode unseeded and seeded, m-only mode, backtrace
             at M = 1 and M = T + 1) at T = 4, K = 7, 10, 12, 15, 16 and T =
             16, K = 7, 10, 13 (B = 4 blocks of C = 128 columns); half the
@@ -53,17 +57,35 @@ Phases, every one of which must pass:
             (atol 2e-4).  genotype-trio: a trio of 8,192 variants at coverage
             5 each (K = 15, T = 4, P = 4), checked the same way on 1,024
             columns (atol 3e-4).
-9. timing   the main paths' largest buckets copied to the card, and each
+9. segmented  the segmented (checkpoint and recompute) solve of one
+            read-connected range whose tables exceed the table budget,
+            through PedigreeDPTable(device="cuda") with the budget pinned at
+            768 MiB: segmented, one block of 32,768 heterozygous columns at
+            coverage 15 (K = 15, 16 segments of 2,048); segmented-trio, a
+            trio range of 8,192 columns at coverage 5 each (K = 15, T = 4,
+            16 segments of 512); segmented-k17, 2,048 columns at coverage 17
+            (K = 17, 2 segments of 1,024).  Each must launch the carry
+            kernel, the tables kernel and the backtrace once per segment and
+            nothing else, agree with the unsegmented single-block route on
+            the card at the default budget (cost, partitioning, index and
+            transmission paths) and recover the simulated haplotypes; a
+            second run splits the time into pack / carry pass / tables +
+            backtrace pass / d2h / extract; both routes' peak device memory
+            is printed.
+10. timing  the main paths' largest buckets copied to the card, and each
             kernel at its shape (CUDA events), beside its plain version and
             its bound: the wMEC kernels as before, the general-T tables
             kernel and backtrace also at the trio-single shape, the
-            genotyping kernels at the genotype and genotype-trio shapes.
+            genotyping kernels at the genotype and genotype-trio shapes,
+            rows 9 and 10 at the segments' shapes (B = 1; C = 2048, K = 15,
+            T = 1 and C = 512, K = 15, T = 4).
 
 It prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}.  Where there is no CUDA device,
 or when a phase fails, it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -90,33 +112,35 @@ PEAK_INT32_ADDS_PER_S = 67e12 / 4
 PEAK_F32_ADDS_PER_S = 67e12 / 2
 PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 
-REPLACES = {
-    "wmec_forward_t1": "whatshap_tpu/ops/wmec_pallas.py:73",
-    "wmec_backtrace_t1": "whatshap_tpu/ops/wmec_pallas.py:626",
-    "wmec_forward_t": "whatshap_tpu/ops/wmec_pallas.py:73",
-    "wmec_forward_m_t": "whatshap_tpu/ops/wmec_pallas.py:73",
-    "wmec_backtrace_t": "whatshap_tpu/ops/wmec_pallas.py:660",
-    "geno_backward": "whatshap_tpu/ops/genotyping_pallas.py:117",
-    "geno_forward": "whatshap_tpu/ops/genotyping_pallas.py:182",
-}
-SOURCES = {
-    "wmec_forward_t1": "wmec_forward_t1",
-    "wmec_backtrace_t1": "wmec_backtrace_t1",
-    "wmec_forward_t": "wmec_forward_t",
-    "wmec_forward_m_t": "wmec_forward_t",
-    "wmec_backtrace_t": "wmec_backtrace_t",
-    "geno_backward": "geno_backward",
-    "geno_forward": "geno_forward",
-}
 WRAPPERS = {
     "wmec_forward_t1": wmec_cuda.forward_t1,
+    "wmec_forward_carry_t1": wmec_cuda.forward_carry_t1,
     "wmec_backtrace_t1": wmec_cuda.backtrace_t1,
     "wmec_forward_t": wmec_cuda.forward_t,
+    "wmec_forward_carry_t": wmec_cuda.forward_carry_t,
     "wmec_forward_m_t": wmec_cuda.forward_m_t,
     "wmec_backtrace_t": wmec_cuda.backtrace_t,
     "geno_backward": genotyping_cuda.backward,
     "geno_forward": genotyping_cuda.forward,
 }
+# The kernels line: (entry, source, the TPU kernel it replaces).  Rows 9
+# and 10 at T = 1 and T > 1 are entries of their own; an entry's launches
+# are read on the path that runs it (rows 9 and 10 on the segmented phases,
+# where forward_t1 and forward_t launch only from a carry).
+ENTRIES = [
+    ("wmec_forward_t1", "wmec_forward_t1", "whatshap_tpu/ops/wmec_pallas.py:73"),
+    ("wmec_backtrace_t1", "wmec_backtrace_t1", "whatshap_tpu/ops/wmec_pallas.py:626"),
+    ("wmec_forward_t", "wmec_forward_t", "whatshap_tpu/ops/wmec_pallas.py:73"),
+    ("wmec_forward_m_t", "wmec_forward_t", "whatshap_tpu/ops/wmec_pallas.py:73"),
+    ("wmec_backtrace_t", "wmec_backtrace_t", "whatshap_tpu/ops/wmec_pallas.py:660"),
+    ("wmec_forward_carry_t1", "wmec_forward_t1", "whatshap_tpu/ops/wmec_pallas.py:967"),
+    ("wmec_forward_t1:carry_in", "wmec_forward_t1", "whatshap_tpu/ops/wmec_pallas.py:1024"),
+    ("wmec_forward_carry_t", "wmec_forward_t", "whatshap_tpu/ops/wmec_pallas.py:967"),
+    ("wmec_forward_t:carry_in", "wmec_forward_t", "whatshap_tpu/ops/wmec_pallas.py:1024"),
+    ("geno_backward", "geno_backward", "whatshap_tpu/ops/genotyping_pallas.py:117"),
+    ("geno_forward", "geno_forward", "whatshap_tpu/ops/genotyping_pallas.py:182"),
+]
+CARRY_KERNELS = ("wmec_forward_carry_t1", "wmec_forward_carry_t")
 SINGLE = (1, ())
 TRIO = (3, ((0, 1, 2),))
 QUARTET = (4, ((0, 1, 2), (0, 1, 3)))
@@ -191,7 +215,7 @@ def _max_err(pairs) -> int:
     return worst
 
 
-def compare_kernels(device, ks=(7, 10, 14, 15, 16), n_blocks=4, n_cols=256):
+def compare_kernels(device, ks=(7, 10, 14, 15, 16, 17), n_blocks=4, n_cols=256):
     """Phase 2: both kernels against their plain versions, bit for bit.
     Returns {kernel name: max abs error}."""
     err = {"wmec_forward_t1": 0, "wmec_backtrace_t1": 0}
@@ -211,6 +235,52 @@ def compare_kernels(device, ks=(7, 10, 14, 15, 16), n_blocks=4, n_cols=256):
         _require(e_fwd == 0 and e_bt == 0, f"kernels bit-equal to plain at K={K}")
         err["wmec_forward_t1"] = max(err["wmec_forward_t1"], e_fwd)
         err["wmec_backtrace_t1"] = max(err["wmec_backtrace_t1"], e_bt)
+    return err
+
+
+def _carry_after(K, T, P, head):
+    """The state after a scan over `head` (the kernel's; it is held to its
+    plain version above): (cost, key) at T = 1, (cost, jmin, key) above."""
+    if T == 1:
+        return wmec_cuda.forward_t1(K, P, *head)[1:]
+    return tuple(wmec_cuda.forward_t(K, T, P, *head)[2:])
+
+
+def compare_carry_kernels(device, shapes=((1, 7), (1, 10), (1, 14), (1, 15), (1, 16), (1, 17),
+                                         (4, 7), (4, 12), (4, 15), (4, 16), (16, 7), (16, 13)),
+                          n_blocks=3, n_cols=192, head_cols=64):
+    """Phase 2, rows 9 and 10: the carry kernel and the tables kernel from a
+    carry against their plain versions, bit for bit, over the last
+    n_cols - head_cols columns of n_blocks blocks, from the nonzero state
+    after their first head_cols columns.  Returns {entry: max abs error}."""
+    err = {}
+    for T, K in shapes:
+        if T == 1:
+            P, arrays = 2, packed_bucket(n_blocks, n_cols, K, 4000 + 10 * K, device)
+        else:
+            P, arrays = 4, pedigree_bucket(n_blocks, n_cols, K, T, 5000 + 10 * K + T, device)
+        head = [a[:, :head_cols].contiguous() for a in arrays]
+        tail = [a[:, head_cols:].contiguous() for a in arrays]
+        carry = _carry_after(K, T, P, head)
+        _require(all(bool((x != 0).any()) for x in (carry[0], carry[-1])), f"nonzero carry at T={T}, K={K}")
+        if T == 1:
+            names = ("wmec_forward_carry_t1", "wmec_forward_t1:carry_in")
+            kern = (wmec_cuda.forward_carry_t1(K, P, *tail, carry), wmec_cuda.forward_t1(K, P, *tail, carry=carry))
+            plain = (wmec_cuda.forward_carry_t1_plain(K, P, *tail, carry),
+                     wmec_cuda.forward_t1_plain(K, P, *tail, carry))
+        else:
+            names = ("wmec_forward_carry_t", "wmec_forward_t:carry_in")
+            kern = (wmec_cuda.forward_carry_t(K, T, P, *tail, carry), wmec_cuda.forward_t(K, T, P, *tail, carry=carry))
+            plain = (wmec_cuda.forward_carry_t_plain(K, T, P, *tail, carry),
+                     wmec_cuda.forward_t_plain(K, T, P, *tail, carry=carry))
+        torch.cuda.synchronize()
+        e = [_max_err(zip(k, p)) for k, p in zip(kern, plain)]
+        print(f"kernels rows 9-10 T={T:2d} K={K:2d} B={n_blocks} C={n_cols - head_cols} (carry from "
+              f"{head_cols} columns): carry max|err|={e[0]} tables from the carry max|err|={e[1]}", flush=True)
+        _require(e == [0, 0], f"rows 9 and 10 bit-equal to plain at T={T}, K={K}")
+        for name, x in zip(names, e):
+            err[name] = max(err.get(name, 0), x)
+        del kern, plain
     return err
 
 
@@ -281,6 +351,7 @@ def phase_instance(rs, positions, ped, rc, truth, device, label, expect):
           f"cost {cost}; wall {wall:.3f} s = {C / wall:.1f} variants/s; "
           f"peak device memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
     _require(all(launches[n] > 0 for n in expect), f"{label}: every kernel of its path launched")
+    _require(all(launches[n] == 0 for n in CARRY_KERNELS), f"{label}: unsegmented, as before")
     _require(len(superreads[0][0]) == C and len(transmission) == C, f"{label}: output shapes")
     _require(packed.T > 1 or transmission == [0] * C, f"{label}: no transmission for one sample")
 
@@ -685,6 +756,177 @@ def time_trio_single_kernels(packed, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# the segmented solve
+# ---------------------------------------------------------------------------
+
+#: The table budget the segmented phases pin: below each instance's whole
+#: tables (4, 8 and 1 GiB), above one segment's tables, state and
+#: checkpoints (~0.26, ~0.53 and ~0.52 GiB).
+SEGMENT_PHASE_BUDGET = 768 << 20
+
+
+@contextlib.contextmanager
+def pinned_budget():
+    """Within the block, wmec's table budget on the card is
+    SEGMENT_PHASE_BUDGET bytes; the budget function is restored on the way
+    out."""
+    saved = wmec._table_budget
+    wmec._table_budget = lambda device: SEGMENT_PHASE_BUDGET if device.type == "cuda" else None
+    try:
+        yield
+    finally:
+        wmec._table_budget = saved
+
+
+def _phase_table(rs, positions, ped, rc):
+    """PedigreeDPTable on the card, from the ReadSet to the superreads, with
+    its wall time, launch counts and peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    table = core.PedigreeDPTable(rs, rc, ped, False, positions, device="cuda")
+    out = (table.get_optimal_cost(), table.get_optimal_partitioning(), table.get_super_reads())
+    wall = time.perf_counter() - t0
+    return table, out, wall, read_launches(), torch.cuda.max_memory_allocated()
+
+
+def segmented_instance(rs, positions, ped, rc, truth, label, K, T, n_seg):
+    """Phase segmented*: one read-connected range whose whole tables exceed
+    the pinned budget, through PedigreeDPTable(device="cuda") with the
+    counters set to 0 just before and read just after: the carry kernel,
+    the tables kernel from a carry and the backtrace must each launch once
+    per segment (n_seg) and no other wMEC kernel at all.  Then a second run
+    through the route's pieces with each pass timed between
+    synchronisations, and the unsegmented single-block route on the card at
+    the default budget, which must give the same cost, partitioning, index
+    and transmission paths.  truth = (block or window (C,), haps (n_ind,
+    C)).  Returns the first run's launch counts and the packed instance."""
+    C = len(positions)
+    packed = wmec.pack_problem(rs, rc, ped, False, positions)
+    _require(len(wmec.connected_column_ranges(packed)) == 1 and packed.K == K and packed.T == T,
+             f"{label}: one range, K={packed.K} == {K}, T={packed.T} == {T}")
+    if T == 1:
+        path = ("wmec_forward_carry_t1", "wmec_forward_t1", "wmec_backtrace_t1")
+    else:
+        path = ("wmec_forward_carry_t", "wmec_forward_t", "wmec_backtrace_t")
+    with pinned_budget():
+        table, (cost, partition, (superreads, transmission)), wall, launches, peak = _phase_table(
+            rs, positions, ped, rc)
+        seg = wmec._single_range_segment(C, K, T, torch.device("cuda"))
+        print(f"{label}: {C} variants, {len(rs)} reads, K={K}, T={T}, one read-connected range; "
+              f"table budget pinned at {SEGMENT_PHASE_BUDGET / 2**20:.0f} MiB; segments of {seg}; "
+              f"cost {cost}; wall {wall:.3f} s = {C / wall:.1f} variants/s; peak device memory "
+              f"{peak / 2**30:.3f} GiB; launches {launches}", flush=True)
+        _require(all(launches[n] == n_seg for n in path), f"{label}: {n_seg} launches of each kernel of the path")
+        _require(sum(launches[n] for n in WRAPPERS if n not in path) == 0, f"{label}: no other kernel launched")
+        _require(len(superreads[0][0]) == C and len(transmission) == C, f"{label}: output shapes")
+
+        # the same instance through the route's pieces, each pass timed
+        # between two synchronisations: the checkpoint pass (carry kernels),
+        # then per segment the tables kernel from its checkpoint and the
+        # backtrace
+        laps = {"carry": 0.0, "tables+backtrace": 0.0}
+        ends = []
+
+        def timed(fn, lap):
+            def run(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                ends.append(time.perf_counter())
+                laps[lap] += ends[-1] - t
+                return out
+            return run
+
+        def solve(K_, T_, P_, *arrays):
+            return wmec.solve_segmented(
+                K_, T_, P_, *arrays, timed(wmec_cuda._carry_pass, "carry"),
+                timed(wmec_cuda._tables_pass, "tables+backtrace"), timed(wmec_cuda._walk, "tables+backtrace"),
+            )
+
+        t0 = time.perf_counter()
+        packed = wmec.pack_problem(rs, rc, ped, False, positions)
+        t1_ = time.perf_counter()
+        result = wmec.run_dp(packed, "cuda", solve_segmented=solve)
+        t2 = time.perf_counter()
+        part_split = wmec.extract_partitioning(packed, result)
+        wmec.extract_alleles(packed, result, ped)
+        t3 = time.perf_counter()
+    split = {"pack": t1_ - t0, **laps, "prep+h2d+select": ends[-1] - t1_ - sum(laps.values()),
+             "d2h": t2 - ends[-1], "extract": t3 - t2}
+    text = " ".join(f"{k} {v:.3f}" for k, v in split.items())
+    print(f"{label}: split (s): {text}; total {t3 - t0:.3f}", flush=True)
+    _require(result.optimal_cost == cost and part_split == partition, f"{label}: split run agrees")
+
+    # the unsegmented single-block route at the default budget
+    whole, (cost_w, partition_w, _sr), wall_w, launches_w, peak_w = _phase_table(rs, positions, ped, rc)
+    same = (
+        cost_w == cost and partition_w == partition
+        and np.array_equal(whole._result.index_path, table._result.index_path)
+        and np.array_equal(whole._result.trans_path, table._result.trans_path)
+    )
+    print(f"{label}: unsegmented route at the default budget: wall {wall_w:.3f} s, peak device memory "
+          f"{peak_w / 2**30:.3f} GiB (segmented {peak / 2**30:.3f}), launches {launches_w}; cost, "
+          f"partitioning, index and transmission paths equal: {same}", flush=True)
+    _require(all(launches_w[n] == 0 for n in CARRY_KERNELS), f"{label}: the default budget does not segment")
+    _require(same, f"{label}: segmented route equals the unsegmented route")
+
+    agree = haplotype_agreement(superreads, *truth)
+    print(f"{label}: superreads agree with the simulated haplotypes at {agree:.4f} of calls "
+          f"(lowest over {len(truth[1])} individual(s))", flush=True)
+    _require(agree > 0.9, f"{label}: haplotypes recovered")
+    if T > 1:
+        switches = int(np.count_nonzero(np.diff(table._result.trans_path)))
+        print(f"{label}: {switches} transmission changes on the optimal path", flush=True)
+    return launches, packed
+
+
+def time_carry_kernels(packed, seg, label, device="cuda"):
+    """Phase timing, rows 9 and 10 at a segment's shape (B = 1, C = seg) as
+    the segmented route gives it them: segment 1 of the instance, from the
+    checkpoint after segment 0.  Bounds: the bytes (each input read once,
+    the carry in and out, the tables) against the int32 adds the function
+    needs (5 per state and column at T = 1, 2TP + 1 + T^2 above)."""
+    K, T, P = packed.K, packed.T, packed.P
+    c_pad = -(-packed.n_cols // seg) * seg
+    arrays = blocks.to_device(blocks.stack_blocks([blocks.pad_block(packed, c_pad)]), device)
+    head = [a[:, :seg].contiguous() for a in arrays]
+    tail = [a[:, seg : 2 * seg].contiguous() for a in arrays]
+    carry = _carry_after(K, T, P, head)
+    S = 1 << K
+    ops = (5 if T == 1 else 2 * T * P + 1 + T * T) * seg * S
+    inputs = _nbytes(*(tail[:5] if T == 1 else tail), *carry)  # T = 1 does not read rc
+    if T == 1:
+        carry_fn = lambda: wmec_cuda.forward_carry_t1(K, P, *tail, carry)  # noqa: E731
+        tables_fn = lambda: wmec_cuda.forward_t1(K, P, *tail, carry=carry)  # noqa: E731
+        plains = (lambda: wmec_cuda.forward_carry_t1_plain(K, P, *tail, carry),
+                  lambda: wmec_cuda.forward_t1_plain(K, P, *tail, carry))
+        names = ("wmec_forward_carry_t1", "wmec_forward_t1:carry_in")
+    else:
+        carry_fn = lambda: wmec_cuda.forward_carry_t(K, T, P, *tail, carry)  # noqa: E731
+        tables_fn = lambda: wmec_cuda.forward_t(K, T, P, *tail, carry=carry)  # noqa: E731
+        plains = (lambda: wmec_cuda.forward_carry_t_plain(K, T, P, *tail, carry),
+                  lambda: wmec_cuda.forward_t_plain(K, T, P, *tail, carry=carry))
+        names = ("wmec_forward_carry_t", "wmec_forward_t:carry_in")
+    out = {}
+    for name, fn, plain_fn in zip(names, (carry_fn, tables_fn), plains):
+        ms = _time(fn, reps=2)
+        kern = fn()
+        plain, plain_ms = _plain_ms(plain_fn)
+        bound = _bound(inputs, _nbytes(*(x for x in kern if x is not None)), ops)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=_max_err(zip(kern, plain)),
+                         bound_ms=bound[0], bound_by=bound[1])
+        del kern, plain
+        r = out[name]
+        print(f"{label} {name} (B=1 C={seg} K={K} T={T} P={P}): {ms:.3f} ms (plain {plain_ms:.3f} ms), "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, max|err|={r['max_abs_err']}", flush=True)
+    _require(all(r["max_abs_err"] == 0 for r in out.values()), f"{label}: rows 9 and 10 bit-equal at the segment")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # genotyping
 # ---------------------------------------------------------------------------
 
@@ -1034,6 +1276,7 @@ def main() -> int:
 
     # 2. kernels against their plain versions
     errs = compare_kernels("cuda")
+    errs.update(compare_carry_kernels("cuda"))
     errs.update(compare_pedigree_kernels("cuda"))
     errs.update(compare_geno_kernels("cuda"))
     print(f"phases 1-2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1104,7 +1347,29 @@ def main() -> int:
     )
     print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 9. kernel times at the main paths' shapes
+    # 9. the segmented solve of single ranges beyond the (pinned) budget
+    torch.cuda.empty_cache()
+    rs_g, pos_g, truth_g = chromosome(1, 32768, 15, seed=23)
+    seg_launches, packed_g = segmented_instance(
+        rs_g, pos_g, _het_pedigree(len(pos_g)), [1] * len(pos_g), (truth_g[0], both(truth_g[1])),
+        "segmented", K=15, T=1, n_seg=16,
+    )
+    del rs_g
+    rs_gt, pos_gt, ped_gt, truth_gt = simulate_pedigree(1, 8192, 5, TRIO, seed=29)
+    seg_trio_launches, packed_gt = segmented_instance(
+        rs_gt, pos_gt, ped_gt, [10] * len(pos_gt), (np.arange(len(pos_gt)) // 256, truth_gt[1]),
+        "segmented-trio", K=15, T=4, n_seg=16,
+    )
+    del rs_gt
+    rs_k, pos_k, truth_k = chromosome(1, 2048, 17, seed=31)
+    segmented_instance(
+        rs_k, pos_k, _het_pedigree(len(pos_k)), [1] * len(pos_k), (truth_k[0], both(truth_k[1])),
+        "segmented-k17", K=17, T=1, n_seg=2,
+    )
+    del rs_k
+    print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 10. kernel times at the main paths' shapes
     packed = wmec.pack_problem(rs, [1] * len(positions), het, False)
     times = time_kernels(packed)
     del packed
@@ -1117,21 +1382,29 @@ def main() -> int:
     times.update(time_geno_kernels(geno_static, geno_stacked, "genotype"))
     torch.cuda.empty_cache()
     time_geno_kernels(trio_g_static, trio_g_stacked, "genotype-trio")
+    torch.cuda.empty_cache()
+    times.update(time_carry_kernels(packed_g, 2048, "segmented"))
+    times.update(time_carry_kernels(packed_gt, 512, "segmented-trio"))
+    del packed_g, packed_gt
     launches.update({k: trio_launches[k] for k in pedigree_kernels})
     launches.update({k: geno_launches[k] for k in ("geno_backward", "geno_forward")})
+    launches["wmec_forward_carry_t1"] = seg_launches["wmec_forward_carry_t1"]
+    launches["wmec_forward_t1:carry_in"] = seg_launches["wmec_forward_t1"]
+    launches["wmec_forward_carry_t"] = seg_trio_launches["wmec_forward_carry_t"]
+    launches["wmec_forward_t:carry_in"] = seg_trio_launches["wmec_forward_t"]
 
     power = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     kernels = []
-    for name in WRAPPERS:
+    for name, source, replaces in ENTRIES:
         t = times[name]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": f"whatshap_torch/csrc/{SOURCES[name]}.cu",
-            "replaces": REPLACES[name],
+            "source": f"whatshap_torch/csrc/{source}.cu",
+            "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(errs[name], t["max_abs_err"]),
             "ms": t["ms"],

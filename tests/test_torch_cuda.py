@@ -99,11 +99,11 @@ def test_route_on_cuda_refuses_what_it_cannot_solve(cuda_device):
     above it, raises on CUDA instead of leaving the card."""
     rs, positions = _chromosome(1, 12, 3, seed=1)
     ped = _pedigree(len(positions), n_ind=5, trios=((0, 1, 2), (0, 1, 3), (0, 1, 4)))
-    with pytest.raises(NotImplementedError, match="segmented"):
+    with pytest.raises(NotImplementedError, match="wider envelope"):
         core.PedigreeDPTable(rs, [1] * len(positions), ped, False, positions)
     k = wmec_cuda.MAX_K + 1
     rs, positions = _chromosome(1, 40, k, seed=2)
-    with pytest.raises(NotImplementedError, match="segmented"):
+    with pytest.raises(NotImplementedError, match="wider envelope"):
         core.PedigreeDPTable(rs, [1] * len(positions), _pedigree(len(positions)), False, positions)
 
 
@@ -360,3 +360,121 @@ def test_genotype_route_on_cuda_never_runs_the_plain_versions(cuda_device, monke
     rs, positions, ped, nsi = _geno_instance(40, 3, 3, TRIO[1], seed=3)
     table = core.GenotypeDPTable(nsi, rs, [10] * 40, ped, positions)
     assert np.isfinite(table._likelihoods).all() and table._likelihoods.shape == (40, 3, 3)
+
+
+def _force_segments(monkeypatch, packed):
+    """Make the single range `packed` segment on the card: a table budget of
+    three quarters of its unsegmented tables (C padded to a power of two
+    above 256 columns), and segments of the reference's shortest length,
+    256 columns.  Returns the number of segments."""
+    C, K, T = packed.n_cols, packed.K, packed.T
+    tables = wmec._next_pow2(C) * wmec._table_bytes_per_col(K, T)
+    monkeypatch.setattr(wmec, "_table_budget", lambda device: tables * 3 // 4 if device.type == "cuda" else None)
+    monkeypatch.setattr(wmec, "SEGMENT_TABLE_BUDGET", 1 << 10)
+    seg = wmec._single_range_segment(C, K, T, torch.device("cuda"))
+    assert seg == 256
+    return -(-C // seg)
+
+
+def _carry_bucket(T, K, device, n_blocks=3, n_cols=96, head_cols=32):
+    """(P, the columns after head_cols, the state after the first head_cols)
+    of a bucket at T and K: the carry rows 9 and 10 start from."""
+    if T == 1:
+        P, arrays = 2, _bucket(K, n_blocks, n_cols, seed=20 * K)
+    else:
+        P, arrays = 4, _pedigree_bucket(K, T, n_blocks, n_cols, seed=20 * K + T)
+    K = arrays[0].shape[2]
+    ta = blocks.to_device(arrays, device)
+    head = [a[:, :head_cols].contiguous() for a in ta]
+    tail = [a[:, head_cols:].contiguous() for a in ta]
+    if T == 1:
+        carry = wmec_cuda.forward_t1(K, P, *head)[1:]
+    else:
+        carry = tuple(wmec_cuda.forward_t(K, T, P, *head)[2:])
+    return K, P, tail, carry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K", [(1, 7), (1, 14), (1, 15), (1, 17), (4, 7), (4, 13), (4, 16), (16, 7), (16, 13)])
+def test_carry_kernels_match_plain(cuda_device, T, K):
+    """Rows 9 and 10, the carry kernel and the tables kernel from a carry,
+    against their plain versions from a nonzero carry, on both sides of the
+    shared-memory limit of the state; the carry they read is left as it
+    was."""
+    K, P, tail, carry = _carry_bucket(T, K, cuda_device)
+    saved = [c.clone() for c in carry]
+    if T == 1:
+        pairs = [
+            (wmec_cuda.forward_carry_t1(K, P, *tail, carry), wmec_cuda.forward_carry_t1_plain(K, P, *tail, carry)),
+            (wmec_cuda.forward_t1(K, P, *tail, carry=carry), wmec_cuda.forward_t1_plain(K, P, *tail, carry)),
+        ]
+    else:
+        pairs = [
+            (wmec_cuda.forward_carry_t(K, T, P, *tail, carry),
+             wmec_cuda.forward_carry_t_plain(K, T, P, *tail, carry)),
+            (wmec_cuda.forward_t(K, T, P, *tail, carry=carry),
+             wmec_cuda.forward_t_plain(K, T, P, *tail, carry=carry)),
+        ]
+    torch.cuda.synchronize()
+    assert bool((carry[0] != 0).any())
+    for kern, plain in pairs:
+        for x, y in zip(kern, plain):
+            assert (x is None and y is None) or torch.equal(x, y)
+    assert all(torch.equal(c, s) for c, s in zip(carry, saved))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pedigree", [(1, ()), TRIO])
+def test_segmented_route_on_cuda(cuda_device, pedigree, monkeypatch):
+    """A single range whose tables exceed the (patched) table budget takes
+    the segmented route on the card: the carry kernel, the tables kernel
+    and the backtrace launch once per segment, and the result equals the
+    unsegmented route on the card and the CPU run."""
+    rs, positions, ped = _pedigree_chromosome(1, 700, 3 if pedigree == TRIO else 8, pedigree, seed=3)
+    rc = [5] * len(positions)
+    whole = core.PedigreeDPTable(rs, rc, ped, False, positions)
+    assert len(wmec.connected_column_ranges(whole._packed)) == 1
+    n_seg = _force_segments(monkeypatch, whole._packed)
+    assert n_seg == 3
+    T = whole._packed.T
+    if T == 1:
+        counters = [wmec_cuda.forward_carry_t1, wmec_cuda.forward_t1, wmec_cuda.backtrace_t1]
+    else:
+        counters = [wmec_cuda.forward_carry_t, wmec_cuda.forward_t, wmec_cuda.backtrace_t]
+    before = [f.launches for f in counters]
+    gpu = core.PedigreeDPTable(rs, rc, ped, False, positions)
+    assert [f.launches - b for f, b in zip(counters, before)] == [n_seg] * 3
+    cpu = core.PedigreeDPTable(rs, rc, ped, False, positions, device="cpu")
+    for other in (whole, cpu):
+        assert gpu.get_optimal_cost() == other.get_optimal_cost()
+        assert gpu.get_optimal_partitioning() == other.get_optimal_partitioning()
+        assert np.array_equal(gpu._result.index_path, other._result.index_path)
+        assert np.array_equal(gpu._result.trans_path, other._result.trans_path)
+
+
+@pytest.mark.cuda
+def test_segmented_route_on_cuda_never_runs_the_plain_versions(cuda_device, monkeypatch):
+    """With every plain version made to raise, a segmented single sample and
+    trio still phase on the card."""
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a plain version ran on the CUDA route")
+
+    for mod, name in [
+        (wmec, "forward_scan"), (wmec, "solve_batched"), (wmec, "_backtrace_from"),
+        (wmec, "forward_carry"), (wmec, "forward_tables"), (wmec, "walk_segment"),
+        (wmec_cuda, "forward_t_plain"), (wmec_cuda, "forward_carry_t_plain"),
+        (wmec_cuda, "backtrace_t_plain"), (wmec_cuda, "forward_t1_plain"),
+        (wmec_cuda, "forward_carry_t1_plain"), (wmec_cuda, "backtrace_t1_plain"),
+    ]:
+        monkeypatch.setattr(mod, name, refuse)
+    for pedigree, cov in (((1, ()), 6), (TRIO, 2)):
+        rs, positions, ped = _pedigree_chromosome(1, 400, cov, pedigree, seed=7)
+        rc = [5] * len(positions)
+        packed = wmec.pack_problem(rs, rc, ped, False, positions)
+        with monkeypatch.context() as m:
+            assert _force_segments(m, packed) == 2
+            launches = wmec_cuda.forward_carry_t1.launches + wmec_cuda.forward_carry_t.launches
+            table = core.PedigreeDPTable(rs, rc, ped, False, positions)
+            assert wmec_cuda.forward_carry_t1.launches + wmec_cuda.forward_carry_t.launches == launches + 2
+        assert len(table.get_super_reads()[1]) == len(positions)

@@ -383,8 +383,8 @@ def test_route_refuses_beyond_the_envelope_only_on_cuda():
     """Three trios (T = 64) run the mirror on the CPU; the auto solvers
     would raise NotImplementedError for such a shape on a CUDA device."""
     dev = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="segmented"):
+    with pytest.raises(NotImplementedError, match="wider envelope"):
         wmec._pick(5, 64, 4, dev, wmec_cuda.solve_batched_cuda, wmec.solve_batched)
-    with pytest.raises(NotImplementedError, match="segmented"):
+    with pytest.raises(NotImplementedError, match="wider envelope"):
         wmec._pick(14, 16, 4, dev, wmec_cuda.solve_batched_cuda, wmec.solve_batched)
     assert wmec._pick(5, 64, 4, torch.device("cpu"), None, wmec.solve_batched) is wmec.solve_batched

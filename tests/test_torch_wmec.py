@@ -261,7 +261,7 @@ def test_wrappers_count_kernel_launches_only():
 
 
 def test_kernel_envelope():
-    assert all(wmec_cuda.kernel_supported(k, 1, 2) for k in range(1, 17))
+    assert all(wmec_cuda.kernel_supported(k, 1, 2) for k in range(1, 18))
     assert not wmec_cuda.kernel_supported(0, 1, 2)
     assert not wmec_cuda.kernel_supported(wmec_cuda.MAX_K + 1, 1, 2)
     assert not wmec_cuda.kernel_supported(10, 1, 4)
@@ -275,6 +275,7 @@ def test_kernel_envelope():
     # the forward state leaves shared memory above K = 14 (12 B per state)
     assert wmec_cuda.state_bytes(14) == 0
     assert wmec_cuda.state_bytes(15) == 12 << 15
+    assert wmec_cuda.state_bytes(17) == 12 << 17
     # general T: (2T + 3) words with tables, T words in the m-only mode
     assert wmec_cuda.state_bytes(12, 4) == 0
     assert wmec_cuda.state_bytes(13, 4) == 44 << 13
@@ -296,7 +297,7 @@ def test_launch_chunking_is_exact(monkeypatch):
     for x, y in zip(whole, chunked):
         assert torch.equal(x, y)
     monkeypatch.setattr(wmec, "_table_budget", lambda device: per_block - 1)
-    with pytest.raises(NotImplementedError, match="segmented"):
+    with pytest.raises(NotImplementedError, match="table budget"):
         wmec.solve_batched_auto(K, T, P, *ta)
 
 

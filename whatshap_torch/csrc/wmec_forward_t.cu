@@ -1,15 +1,26 @@
 // General-T (pedigree) wMEC forward column scan for Hopper (sm_90a).
 //
 // Replaces whatshap_tpu/ops/wmec_pallas.py `_make_kernel` for T > 1 in the
-// forms the pedigree route launches:
+// forms the pedigree route and the segmented solve launch:
 //
 //   tables   pidx/pjmin per column and the final dp, jmin and key, unseeded
-//            (forward_scan_pallas, solve_batched_pallas at T = 4/16) or
-//            seeded from a (T,) vector per block (forward_tables_seeded_pallas);
+//            (forward_scan_pallas, solve_batched_pallas at T = 4/16),
+//            seeded from a (T,) vector per block (forward_tables_seeded_pallas)
+//            or started from a carried state (forward_tables_pallas);
+//   carry    from a carried state (cost, jmin and key of the previous
+//            segment's last column), the final state only, no tables
+//            (forward_carry_pallas, the checkpoint pass of the segmented
+//            solve, whose recompute pass is the tables mode from a carry);
 //   m-only   seeded, and only m[t] = min_i dp[t][i] of the last column comes
 //            out (forward_m_seeded_pallas, emit_m_only): no tables, no tie
 //            key, no transmission argmin (fold winners have equal cost, so m
 //            does not depend on them).
+//
+// Two template flags make the three modes: kTrack keeps the tie key and the
+// transmission argmin and writes the final state (tables and carry), kWrite
+// emits the tables (tables only).  Without kWrite the fold is a plain min of
+// the costs: the winner's cost is the pair's minimum whichever wins a tie,
+// and the folded key, index and jmin feed only the tables.
 //
 // One CTA per block b runs the whole column loop (the TPU's sequential grid
 // axis).  The state of bipartition i is, per transmission plane t, its cost
@@ -39,11 +50,12 @@
 // Bound: with tables, the two table writes, 8*T*B*C*2^K bytes; the function
 // needs (2*T*P + 1 + T^2)*B*C*2^K int32 adds (one per cost sum and per key
 // in Gray order, plus the min-plus), 49*B*C*2^K for a trio (T = 4, P = 4),
-// so the bytes bound it.  The m-only mode writes nearly nothing and is bound by its
-// (2*T*P + T^2)*B*C*2^K adds.  The design is the simple one: the state
-// ((2T + 3) int32 words per bipartition with tables, T in the m-only mode)
-// sits in dynamic shared memory while it fits (T = 4: K <= 12 with tables,
-// K <= 13 m-only; T = 16: K <= 10 and K <= 11) and in a per-block global
+// so the bytes bound it.  The carry and m-only modes write nearly nothing
+// and are bound by their (2*T*P + 1 + T^2) and (2*T*P + T^2)*B*C*2^K adds.
+// The design is the simple one: the state ((2T + 3) int32 words per
+// bipartition with tables or carry, T in the m-only mode) sits in dynamic
+// shared memory while it fits (T = 4: K <= 12 with tables, K <= 13 m-only;
+// T = 16: K <= 10 and K <= 11) and in a per-block global
 // scratch above, from one templated body; every fold is one pass with a
 // barrier after it, and each state's sums are taken over its K bits, K
 // times the adds the function needs.  One CTA per block leaves SMs idle
@@ -62,16 +74,19 @@ constexpr int kThreads = 512;
 struct Args {
   const float* wdiff;    // (B, C, K, T*P*2)
   const int* wbase;      // (B, C, T*P*2)
-  const float* rankw;    // (B, C, K)        tables mode only
+  const float* rankw;    // (B, C, K)        tables and carry modes
   const int* acost;      // (B, C, T*2^P)
   const uint8_t* die;    // (B, C, K)
   const int* rc;         // (B, C)
   const int* seed;       // (B, T) or null (state starts at 0)
+  const int* cost0;      // (B, T, S) or null: carried cost (not with seed)
+  const int* jmin0;      // (B, T, S) or null: carried jmin
+  const int* key0;       // (B, S) or null: carried tie key
   int* pidx;             // (B, C, T, S)     tables mode
   int* pjmin;            // (B, C, T, S)     tables mode
-  int* dp_last;          // (B, T, S)        tables mode
-  int* jmin_last;        // (B, T, S)        tables mode
-  int* key_last;         // (B, S)           tables mode
+  int* dp_last;          // (B, T, S)        tables and carry modes
+  int* jmin_last;        // (B, T, S)        tables and carry modes
+  int* key_last;         // (B, S)           tables and carry modes
   int* m;                // (B, T)           m-only mode
   int* scratch;          // (B, words, S), or null: state in shared memory
   int C;
@@ -80,12 +95,13 @@ struct Args {
 
 __host__ __device__ constexpr int log2_of(int t) { return t <= 1 ? 0 : 1 + log2_of(t >> 1); }
 
-template <int T, int P, bool kTables>
+template <int T, int P, bool kTrack, bool kWrite>
 __global__ void __launch_bounds__(kThreads) forward_t_kernel(Args a) {
+  static_assert(kTrack || !kWrite, "the tables mode tracks the full state");
   constexpr int P2 = 2 * P;
   constexpr int TP2 = T * P2;
   constexpr int NA = 1 << P;
-  constexpr int kWords = kTables ? 2 * T + 3 : T;
+  constexpr int kWords = kTrack ? 2 * T + 3 : T;
   // max popcount(ti ^ tj) over T = 4^n values is log2(T)
   constexpr int kMaxPc = log2_of(T) > 0 ? log2_of(T) : 1;
 
@@ -103,18 +119,19 @@ __global__ void __launch_bounds__(kThreads) forward_t_kernel(Args a) {
   const int b = blockIdx.x;
   int* state = a.scratch == nullptr ? smem : a.scratch + (size_t)b * kWords * S;
   int* cost = state;              // T planes of S
-  int* jmin = state + T * S;      // T planes of S (tables mode)
-  int* key = state + 2 * T * S;   // S (tables mode)
+  int* jmin = state + T * S;      // T planes of S (kTrack)
+  int* key = state + 2 * T * S;   // S (kTrack)
   int* fkey = key + S;            // S: the fold's per-plane key
   int* fidx = fkey + S;           // S: the fold's per-plane source index
 
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
 #pragma unroll
     for (int t = 0; t < T; ++t) {
-      cost[t * S + i] = a.seed != nullptr ? a.seed[b * T + t] : 0;
-      if (kTables) jmin[t * S + i] = 0;
+      const size_t at = ((size_t)b * T + t) * S + i;
+      cost[t * S + i] = a.cost0 != nullptr ? a.cost0[at] : a.seed != nullptr ? a.seed[b * T + t] : 0;
+      if (kTrack) jmin[t * S + i] = a.jmin0 != nullptr ? a.jmin0[at] : 0;
     }
-    if (kTables) key[i] = 0;
+    if (kTrack) key[i] = a.key0 != nullptr ? a.key0[(size_t)b * S + i] : 0;
   }
 
   for (int c = 0; c < C; ++c) {
@@ -125,7 +142,7 @@ __global__ void __launch_bounds__(kThreads) forward_t_kernel(Args a) {
     for (int j = threadIdx.x; j < T * NA; j += blockDim.x) s_ac[j] = a.acost[col * T * NA + j];
     for (int k = threadIdx.x; k < K; k += blockDim.x) {
       s_die[k] = a.die[col * K + k];
-      if (kTables) s_rw[k] = (int)a.rankw[col * K + k];
+      if (kTrack) s_rw[k] = (int)a.rankw[col * K + k];
     }
     if (threadIdx.x == 0) s_rc = a.rc[col];
     __syncthreads();
@@ -133,7 +150,7 @@ __global__ void __launch_bounds__(kThreads) forward_t_kernel(Args a) {
     for (int p = 0; p < K; ++p) any_die |= s_die[p] != 0;
 
     // ---- fold dying slot bits (s_die is uniform, so are the branches)
-    if (kTables) {
+    if (kWrite) {
       for (int t = 0; t < T; ++t) {
         int* ct = cost + t * S;
         int* jt = jmin + t * S;
@@ -243,9 +260,9 @@ __global__ void __launch_bounds__(kThreads) forward_t_kernel(Args a) {
           best_a = min(best_a, min(s0 + pa + s_ac[ti * NA + x], kInf));
         }
         cost[ti * S + i] = min(best_a + best, kInf);
-        if (kTables) jmin[ti * S + i] = barg;
+        if (kTrack) jmin[ti * S + i] = barg;
       }
-      if (kTables) {
+      if (kTrack) {
         int r = 0;
         for (int k = 0; k < K; ++k) {
           if ((i >> k) & 1) r += s_rw[k];
@@ -257,7 +274,7 @@ __global__ void __launch_bounds__(kThreads) forward_t_kernel(Args a) {
     __syncthreads();
   }
 
-  if (kTables) {
+  if (kTrack) {
     for (int i = threadIdx.x; i < S; i += blockDim.x) {
 #pragma unroll
       for (int t = 0; t < T; ++t) {
@@ -285,42 +302,61 @@ __global__ void __launch_bounds__(kThreads) forward_t_kernel(Args a) {
   }
 }
 
-template <int T, int P, bool kTables>
+template <int T, int P, bool kTrack, bool kWrite>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr int kWords = kTables ? 2 * T + 3 : T;
+  constexpr int kWords = kTrack ? 2 * T + 3 : T;
   const int S = 1 << a.K;
   const int threads = S < kThreads ? (S < 32 ? 32 : S) : kThreads;
   size_t smem = 0;
   if (a.scratch == nullptr) {
     smem = (size_t)kWords * S * sizeof(int);
     cudaError_t e = cudaFuncSetAttribute(
-        forward_t_kernel<T, P, kTables>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        forward_t_kernel<T, P, kTrack, kWrite>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  forward_t_kernel<T, P, kTables><<<B, threads, smem, stream>>>(a);
+  forward_t_kernel<T, P, kTrack, kWrite><<<B, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool kTables>
+template <bool kTrack, bool kWrite>
 int dispatch(const Args& a, int B, int T, int P, cudaStream_t stream) {
-  if (T == 4 && P == 2) return launch<4, 2, kTables>(a, B, stream);
-  if (T == 4 && P == 4) return launch<4, 4, kTables>(a, B, stream);
-  if (T == 16 && P == 2) return launch<16, 2, kTables>(a, B, stream);
-  if (T == 16 && P == 4) return launch<16, 4, kTables>(a, B, stream);
+  if (T == 4 && P == 2) return launch<4, 2, kTrack, kWrite>(a, B, stream);
+  if (T == 4 && P == 4) return launch<4, 4, kTrack, kWrite>(a, B, stream);
+  if (T == 16 && P == 2) return launch<16, 2, kTrack, kWrite>(a, B, stream);
+  if (T == 16 && P == 4) return launch<16, 4, kTrack, kWrite>(a, B, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// Tables mode: unseeded, seeded from seed (B, T), or from a carried state
+// (cost0, jmin0, key0); seed and carry are exclusive.
 extern "C" int wmec_forward_t(const float* wdiff, const int* wbase, const float* rankw,
                               const int* acost, const uint8_t* die, const int* rc,
-                              const int* seed, int* pidx, int* pjmin, int* dp_last,
+                              const int* seed, const int* cost0, const int* jmin0,
+                              const int* key0, int* pidx, int* pjmin, int* dp_last,
                               int* jmin_last, int* key_last, int* scratch, int B, int C,
                               int K, int T, int P, cudaStream_t stream) {
+  if (B < 1 || C < 1 || K < 1 || K > kMaxK || (seed != nullptr && cost0 != nullptr))
+    return (int)cudaErrorInvalidValue;
+  Args a{wdiff, wbase, rankw, acost, die, rc, seed, cost0, jmin0, key0, pidx, pjmin, dp_last,
+         jmin_last, key_last, nullptr, scratch, C, K};
+  return dispatch<true, true>(a, B, T, P, stream);
+}
+
+// Carry mode: from the carried state (cost0, jmin0, key0) to the state after
+// the last column (dp_last, jmin_last, key_last), no tables.  The outputs
+// must not alias the carry: a checkpoint is read again by the tables pass.
+extern "C" int wmec_forward_carry_t(const float* wdiff, const int* wbase, const float* rankw,
+                                    const int* acost, const uint8_t* die, const int* rc,
+                                    const int* cost0, const int* jmin0, const int* key0,
+                                    int* dp_last, int* jmin_last, int* key_last, int* scratch,
+                                    int B, int C, int K, int T, int P, cudaStream_t stream) {
   if (B < 1 || C < 1 || K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
-  Args a{wdiff, wbase, rankw, acost, die, rc, seed, pidx, pjmin, dp_last, jmin_last,
-         key_last, nullptr, scratch, C, K};
-  return dispatch<true>(a, B, T, P, stream);
+  Args a{wdiff, wbase, rankw, acost, die, rc, nullptr, cost0, jmin0, key0, nullptr, nullptr,
+         dp_last, jmin_last, key_last, nullptr, scratch, C, K};
+  return dispatch<true, false>(a, B, T, P, stream);
 }
 
 extern "C" int wmec_forward_m_t(const float* wdiff, const int* wbase, const int* acost,
@@ -329,8 +365,8 @@ extern "C" int wmec_forward_m_t(const float* wdiff, const int* wbase, const int*
                                 cudaStream_t stream) {
   if (B < 1 || C < 1 || K < 1 || K > kMaxK || seed == nullptr) return (int)cudaErrorInvalidValue;
   Args a{wdiff, wbase, nullptr, acost, die, rc, seed, nullptr, nullptr, nullptr, nullptr,
-         nullptr, m, scratch, C, K};
-  return dispatch<false>(a, B, T, P, stream);
+         nullptr, nullptr, nullptr, nullptr, m, scratch, C, K};
+  return dispatch<false, false>(a, B, T, P, stream);
 }
 
 extern "C" const char* wmec_forward_t_error_string(int err) {

@@ -492,7 +492,9 @@ def _col_cost(bits, abits, wdiff_c, wbase_c, acost_c, T: int, P: int):
     return total.amin(dim=-1)
 
 
-def forward_scan(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None, emit_tables=True):
+def forward_scan(
+    K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None, carry0=None, mode="tables"
+):
     """Plain torch mirror of the reference's _forward_scan_impl, with a
     leading block axis written out.
 
@@ -505,13 +507,25 @@ def forward_scan(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None, em
     CUDA kernels' layout, (column, transmission, bipartition); the
     reference's is (column, bipartition, transmission).
 
-    dp0 (B, T) i32 seeds the scan as the reference's _seeded_carry does:
-    the cost starts as dp0 broadcast over the bipartitions, jmin and key at
-    zero (without it all three start at zero).  emit_tables=False is the
-    m-only mode of the seam pass: no tables (both None), and neither the
-    tie key nor jmin is tracked (key_last and jmin_last come back zero);
-    fold winners have equal cost, so dp_last is the same.
+    The state starts at zero, or as one of:
+    - dp0 (B, T) i32, the seed of the reference's _seeded_carry: the cost is
+      dp0 broadcast over the bipartitions, jmin and key start at zero;
+    - carry0 = (dp (B, S, T), jmin (B, S, T), key (B, S)), the state after
+      a preceding segment's last column (the reference's carry0); at T == 1
+      jmin is not read and may be None.
+    The two are exclusive.  `mode` picks what is kept:
+    - "tables": the full state and the tables;
+    - "carry": the full state (cost, jmin and tie key) without tables, both
+      table outputs None: the checkpoint pass of the segmented solve;
+    - "m": the m-only mode of the seam pass: no tables, and neither the tie
+      key nor jmin is tracked (key_last and jmin_last come back zero); fold
+      winners have equal cost, so dp_last is the same.
     """
+    if dp0 is not None and carry0 is not None:
+        raise ValueError("forward_scan: a seed (dp0) and a carry (carry0) are exclusive")
+    if mode not in ("tables", "carry", "m"):
+        raise ValueError(f"forward_scan: unknown mode {mode!r}")
+    track, emit_tables = mode != "m", mode == "tables"
     B, C = wdiff.shape[0], wdiff.shape[1]
     S = 1 << K
     dev = wdiff.device
@@ -531,12 +545,20 @@ def forward_scan(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None, em
     # other bit is an identity, so the Python loop skips it
     die_any = die_prev.any(dim=0).cpu().numpy()
 
-    if dp0 is None:
-        dp = torch.zeros((B, S, T), dtype=torch.int32, device=dev)
+    jmin = None
+    if carry0 is not None:
+        dp = carry0[0].to(torch.int32).contiguous()
+        if T > 1 and track:
+            jmin = carry0[1].to(torch.int32)
+        key = carry0[2].to(torch.int32)
     else:
-        dp = dp0.to(torch.int32)[:, None, :].expand(B, S, T).contiguous()
-    jmin = torch.zeros_like(dp) if T > 1 and emit_tables else None
-    key = torch.zeros((B, S), dtype=torch.int32, device=dev)
+        if dp0 is None:
+            dp = torch.zeros((B, S, T), dtype=torch.int32, device=dev)
+        else:
+            dp = dp0.to(torch.int32)[:, None, :].expand(B, S, T).contiguous()
+        if T > 1 and track:
+            jmin = torch.zeros_like(dp)
+        key = torch.zeros((B, S), dtype=torch.int32, device=dev)
     proj_idx = proj_jmin = None
     if emit_tables:
         proj_idx = torch.empty((B, C, T, S), dtype=torch.int32, device=dev)
@@ -568,7 +590,7 @@ def forward_scan(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None, em
             jmin = jmin_new
 
         # ---- tie-break key for this column (the m-only mode keeps none)
-        if emit_tables:
+        if track:
             r = torch.matmul(bits, rankw64[:, c, :, None])[..., 0]
             key = _inverse_gray(r.to(torch.int32), K)
 
@@ -631,9 +653,7 @@ def forward_m_batched(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
     forward_m_batched): per block, m (T,) = min over bipartitions of the
     final dp of a scan started from dp0 (B, T).  With a unit seed this is
     one row of the block's T x T seam matrix.  Returns m (B, T) int32."""
-    dp_last = forward_scan(
-        K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=dp0, emit_tables=False
-    )[0]
+    dp_last = forward_scan(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=dp0, mode="m")[0]
     return dp_last.amin(dim=1)
 
 
@@ -675,6 +695,94 @@ def solve_seeded_batched(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0,
         cost_head, m, ip_head, tp_head, seam_head,
         ips.reshape(B, T, C), tps.reshape(B, T, C), seams.reshape(B, T),
     )
+
+
+def _planes(carry):
+    """A carry in the kernels' layout (cost (B, T, S), jmin (B, T, S), key
+    (B, S)) as forward_scan's carry0 ((B, S, T) planes)."""
+    return carry[0].transpose(1, 2), carry[1].transpose(1, 2), carry[2]
+
+
+def forward_carry(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
+    """The checkpoint pass of the segmented solve on the torch mirror:
+    forward_scan in its carry mode from `carry` (cost (B, T, S), jmin (B, T,
+    S), key (B, S), the kernels' layout; jmin is zero at T == 1).  Returns
+    the carry after the last column, in the same layout."""
+    dp, jmin, key, _pi, _pj = forward_scan(
+        K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry0=_planes(carry), mode="carry"
+    )
+    return dp.transpose(1, 2).contiguous(), jmin.transpose(1, 2).contiguous(), key
+
+
+def forward_tables(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
+    """The recompute pass of the segmented solve on the torch mirror:
+    forward_scan with tables from `carry` (as forward_carry).  Returns
+    (pidx (B, C, T, S), pjmin (B, C, T, S), None at T == 1)."""
+    return forward_scan(
+        K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry0=_planes(carry)
+    )[3:]
+
+
+def walk_segment(state, pidx, pjmin):
+    """The backtrace of one segment on the torch mirror.  state (B, 3) holds
+    each block's (index, transmission, preceding transmission) at the
+    segment's last column; pidx and pjmin (pjmin None at T == 1) are the
+    segment's tables.  Returns the index and transmission paths (B, seg) and
+    the state one step through the segment's first column: the state at the
+    preceding segment's last column, where its walk starts."""
+    ip, tp, seam = _backtrace_from(state[:, 0], state[:, 1], state[:, 2], pidx, pjmin)
+    rows = torch.arange(state.shape[0], device=state.device)
+    v = pidx[rows, 0, seam.long(), ip[:, 0].long()]
+    prev = pjmin[rows, 0, seam.long(), v.long()] if pjmin is not None else torch.zeros_like(v)
+    return ip, tp, torch.stack([v, seam, prev], dim=1)
+
+
+def solve_segmented(
+    K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, seg,
+    carry_pass=forward_carry, tables_pass=forward_tables, walk=walk_segment,
+):
+    """The segmented (checkpoint and recompute) solve of stacked blocks, the
+    mirror of the reference's wmec_pallas.solve_segmented: the reference
+    C++'s sqrt(n) trick (pedigreedptable.cpp:104,127-173).  C must be a
+    multiple of `seg`.
+
+      1. `carry_pass` runs over the nseg segments in turn without tables,
+         keeping the carry at every segment boundary: nseg + 1 checkpoints
+         of (2T + 1) * 2^K int32 per block, on the device;
+      2. the optimum of the last carry (wmec_cuda._head_init: min cost,
+         Gray key, transmission, index) and its jmin entry start the walk;
+      3. from the last segment to the first, `tables_pass` re-runs the
+         segment from its checkpoint with tables and `walk` backtraces it,
+         handing on its state at the preceding segment's last column.
+
+    One segment's tables live at a time.  The functions (by default the
+    torch mirror: forward_carry, forward_tables, walk_segment) take the
+    kernels' layout; wmec_cuda.solve_segmented_cuda hands in the kernels.
+    Nothing here waits for the device.  Returns (costs (B,), index paths
+    (B, C), transmission paths (B, C)), int32, equal to solve_batched's."""
+    B, C = wdiff.shape[0], wdiff.shape[1]
+    if seg < 1 or C % seg:
+        raise ValueError(f"solve_segmented: C={C} is not a multiple of seg={seg}")
+    arrays = (wdiff, wbase, rankw, acost, die_prev, rc)
+
+    def seg_args(i):
+        return tuple(a[:, i * seg : (i + 1) * seg].contiguous() for a in arrays)
+
+    dev, S = wdiff.device, 1 << K
+    zeros = torch.zeros((B, T, S), dtype=torch.int32, device=dev)
+    checkpoints = [(zeros, zeros, torch.zeros((B, S), dtype=torch.int32, device=dev))]
+    for i in range(C // seg):
+        checkpoints.append(carry_pass(K, T, P, *seg_args(i), checkpoints[-1]))
+    m, state = wmec_cuda._head_init(K, T, *checkpoints.pop())
+
+    ips, tps = [], []
+    for i in reversed(range(C // seg)):
+        pidx, pjmin = tables_pass(K, T, P, *seg_args(i), checkpoints.pop())
+        ip, tp, state = walk(state, pidx, pjmin)
+        del pidx, pjmin  # free this segment's tables before the next one's
+        ips.append(ip)
+        tps.append(tp)
+    return m, torch.cat(ips[::-1], dim=1), torch.cat(tps[::-1], dim=1)
 
 
 def coset_representatives(T: int, t_sym_masks: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
@@ -761,9 +869,17 @@ def resolve_device(device=None) -> torch.device:
 
 def _unsupported(K: int, T: int, P: int) -> NotImplementedError:
     return NotImplementedError(
-        f"no CUDA kernel for K={K}, T={T}, P={P} yet: shapes beyond the kernels' "
-        f"envelope ({wmec_cuda.ENVELOPE}) or tables beyond the memory budget need "
-        "the segmented solve, ROADMAP Queue 1 item 1"
+        f"no CUDA kernel for K={K}, T={T}, P={P} yet: shapes beyond the kernels' envelope "
+        f"({wmec_cuda.ENVELOPE}) need kernels with a wider envelope, ROADMAP Queue 1 item 1"
+    )
+
+
+def _over_budget(K: int, T: int, P: int, need: int, budget: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"one block of K={K}, T={T}, P={P} needs {need} bytes of tables and state on the "
+        f"card, above the table budget of {budget} bytes: the segmented solve takes only "
+        "an instance of one read-connected range (and then one segment and the checkpoints "
+        "must fit); an over-budget range among several is ROADMAP Queue 1 item 9"
     )
 
 
@@ -777,7 +893,7 @@ def _launch_batched(solve, K, T, P, arrays, per_block_bytes: int):
         return solve(K, T, P, *arrays)
     max_b = budget // per_block_bytes
     if max_b < 1:
-        raise _unsupported(K, T, P)
+        raise _over_budget(K, T, P, per_block_bytes, budget)
     parts = [solve(K, T, P, *(a[i : i + max_b] for a in arrays)) for i in range(0, B, max_b)]
     if isinstance(parts[0], torch.Tensor):
         return torch.cat(parts)
@@ -831,6 +947,62 @@ def solve_seeded_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, di
     return _launch_batched(
         solve, K, T, P, (wdiff, wbase, rankw, acost, die_prev, rc, dp0, die_next), per_block
     )
+
+
+#: Bytes of backtrace tables the reference's segment length is sized for
+#: (whatshap_tpu/ops/wmec.py:59); on the CPU, where there is no table
+#: budget, the single-range route segments above twice this, as the
+#: reference does (wmec.py:1892).
+SEGMENT_TABLE_BUDGET = 1 << 30
+
+
+def _table_bytes_per_col(K: int, T: int) -> int:
+    """Bytes of backtrace tables per column and block: the index table, and
+    at T > 1 the transmission table."""
+    return (T * 4 << K) * (2 if T > 1 else 1)
+
+
+def _segment_length(K: int, T: int) -> int:
+    """The reference's segment length (wmec.py:1889-1890): one segment's
+    tables near SEGMENT_TABLE_BUDGET / 2, a power of two in [256, 2048]
+    (2048 at T = 1, K = 15; 512 at T = 4, K = 15; 1024 at T = 1, K = 17)."""
+    per_col = _table_bytes_per_col(K, T)
+    return max(256, min(2048, _next_pow2(SEGMENT_TABLE_BUDGET // per_col, lo=256) >> 1))
+
+
+def _single_range_segment(C: int, K: int, T: int, device: torch.device) -> Optional[int]:
+    """The segment length for a single-range instance of C columns that the
+    unsegmented solve cannot hold, else None.  On CUDA that is exactly where
+    the unsegmented launch would raise: its tables (C padded to a power of
+    two) plus the kernel's state exceed the table budget, so every instance
+    that fits keeps its route.  On the CPU, which has no budget, the
+    reference's rule: tables above 2 * SEGMENT_TABLE_BUDGET."""
+    tables = _next_pow2(C) * _table_bytes_per_col(K, T)
+    budget = _table_budget(device)
+    if budget is None:
+        fits = tables <= 2 * SEGMENT_TABLE_BUDGET
+    else:
+        fits = tables + wmec_cuda.state_bytes(K, T) <= budget
+    return None if fits else _segment_length(K, T)
+
+
+def solve_segmented_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, seg):
+    """The segmented solve of stacked blocks on the device they lie on:
+    wmec_cuda.solve_segmented_cuda where the kernels take the shape (its
+    plain versions on CPU tensors), the torch mirror's solve_segmented for
+    other shapes on the CPU; on CUDA other shapes raise, and so does a
+    segment whose tables, kernel state and checkpoints exceed the table
+    budget."""
+    solve = _pick(K, T, P, wdiff.device, wmec_cuda.solve_segmented_cuda, solve_segmented)
+    budget = _table_budget(wdiff.device)
+    if budget is not None:
+        B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
+        checkpoint = (2 * T + 1) * 4 * S  # cost, jmin and key per block
+        need = seg * _table_bytes_per_col(K, T) + wmec_cuda.state_bytes(K, T)
+        need += (C // seg + 1) * checkpoint
+        if B * need > budget:
+            raise _over_budget(K, T, P, need, budget)
+    return solve(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, seg)
 
 
 @dataclass
@@ -1078,6 +1250,7 @@ def run_dp(
     solve=solve_batched_auto,
     forward_m=forward_m_auto,
     solve_seeded=solve_seeded_auto,
+    solve_segmented=solve_segmented_auto,
 ) -> Optional[DPResult]:
     """Run the forward scan + backtrace on `device` (default "cuda", see
     resolve_device).  Returns None for empty problems.
@@ -1085,13 +1258,16 @@ def run_dp(
     An instance that splits into several read-connected ranges takes the
     batched route: run_dp_batched for a single sample, run_dp_batched_pedigree
     for a pedigree (T > 1), on every device.  A single range is solved as
-    one block (B = 1) padded to a power-of-two column count.  On a CUDA
-    device every instance runs in the kernels of wmec_cuda, and one that
-    they cannot take raises NotImplementedError.  `solve`, `forward_m` and
-    `solve_seeded` (the signatures of solve_batched_auto, forward_m_auto and
-    solve_seeded_auto) solve each stack of blocks; a check can hand in the
-    torch mirror (solve_batched, forward_m_batched, solve_seeded_batched) to
-    run the same route without the kernels.
+    one block (B = 1) padded to a power-of-two column count, or, where its
+    tables would not fit (_single_range_segment), by the segmented solve,
+    padded to a multiple of the segment length.  On a CUDA device every
+    instance runs in the kernels of wmec_cuda, and one that they cannot take
+    raises NotImplementedError.  `solve`, `forward_m`, `solve_seeded` and
+    `solve_segmented` (the signatures of solve_batched_auto, forward_m_auto,
+    solve_seeded_auto and solve_segmented_auto) solve each stack of blocks;
+    a check can hand in the torch mirror (solve_batched, forward_m_batched,
+    solve_seeded_batched, solve_segmented) to run the same route without the
+    kernels.
     """
     from ..parallel.blocks import pad_block, stack_blocks, to_device
 
@@ -1106,9 +1282,13 @@ def run_dp(
     if result is not None:
         return result
 
-    c_pad = _next_pow2(C)
+    seg = _single_range_segment(C, K, T, device)
+    c_pad = _next_pow2(C) if seg is None else -(-C // seg) * seg
     arrays = to_device(stack_blocks([pad_block(packed, c_pad)]), device)
-    costs, index_paths, trans_paths = solve(K, T, P, *arrays)
+    if seg is None:
+        costs, index_paths, trans_paths = solve(K, T, P, *arrays)
+    else:
+        costs, index_paths, trans_paths = solve_segmented(K, T, P, *arrays, seg)
     flat = torch.cat([costs, index_paths[0], trans_paths[0]]).cpu().numpy().astype(np.int64)
     return DPResult(int(flat[0]), flat[1 : 1 + C], flat[1 + c_pad : 1 + c_pad + C])
 

@@ -5,15 +5,18 @@ plain torch versions.
 Replaces whatshap_tpu/ops/wmec_pallas.py:
 
 - forward_t1 launches csrc/wmec_forward_t1.cu, the forward column scan that
-  replaces _make_kernel in its T=1, table-emitting form (as
-  solve_batched_pallas launches it);
+  replaces _make_kernel in its T=1, table-emitting form, from a zero state
+  (as solve_batched_pallas launches it) or from a carried one
+  (forward_tables_pallas); forward_carry_t1 launches its carry mode, the
+  final state without tables (forward_carry_pallas);
 - backtrace_t1 launches csrc/wmec_backtrace_t1.cu, the index-path walk that
   replaces _make_backtrace_kernel (via backtrace_pallas);
 - forward_t and forward_m_t launch csrc/wmec_forward_t.cu, the general-T
   (pedigree) forward scan that replaces _make_kernel for T > 1: with tables,
-  unseeded or seeded (forward_scan_pallas, solve_batched_pallas at T = 4/16,
-  forward_tables_seeded_pallas), and in the seeded m-only mode of the seam
-  pass (forward_m_seeded_pallas);
+  unseeded, seeded or from a carry (forward_scan_pallas, solve_batched_pallas
+  at T = 4/16, forward_tables_seeded_pallas, forward_tables_pallas), and in
+  the seeded m-only mode of the seam pass (forward_m_seeded_pallas);
+  forward_carry_t launches its carry mode (forward_carry_pallas);
 - backtrace_t launches csrc/wmec_backtrace_t.cu, the general-T walk of
   (index, transmission, preceding transmission) that replaces
   _make_backtrace_kernel_t, M walks per block over its tables
@@ -23,7 +26,10 @@ Replaces whatshap_tpu/ops/wmec_pallas.py:
 - solve_batched_cuda is forward -> select -> backtrace, the mirror of
   solve_batched_pallas; forward_m_t (as forward_m_seeded_pallas) and
   solve_seeded_batched_cuda (the mirror of solve_seeded_batched_pallas) are
-  the two passes of the pedigree route.
+  the two passes of the pedigree route; solve_segmented_cuda is the
+  segmented solve (the mirror of wmec_pallas.solve_segmented): the host loop
+  wmec.solve_segmented over the carry kernels, the tables kernels from a
+  carry and the backtraces.
 
 A wrapper checks its inputs, then runs its plain torch version on CPU
 tensors and its kernel on CUDA tensors; it never falls back from the one to
@@ -38,8 +44,9 @@ import torch
 
 from . import _build
 
-#: Largest K the T=1 forward kernel is built and checked for.
-MAX_K = 16
+#: Largest K the T=1 forward kernel is built and checked for (the
+#: reference kernel's own ceiling, wmec_pallas.MAX_K).
+MAX_K = 17
 #: Largest K of the general-T kernels per transmission count T (P <= 4, as
 #: the reference's kernel): the forward state and tables grow with T * 2^K.
 MAX_K_T = {4: 16, 16: 13}
@@ -76,7 +83,8 @@ def _state_words(T: int, tables: bool) -> int:
 def state_bytes(K: int, T: int = 1, tables: bool = True) -> int:
     """Device scratch a forward kernel needs per block beyond its outputs:
     none while its state fits shared memory (SMEM_STATE_BYTES; at T = 1 up
-    to K = 14), else the whole state."""
+    to K = 14), else the whole state.  The carry mode keeps the state of the
+    tables mode (tables=True)."""
     b = _state_words(T, tables) * 4 << K
     return 0 if b <= SMEM_STATE_BYTES else b
 
@@ -84,9 +92,11 @@ def state_bytes(K: int, T: int = 1, tables: bool = True) -> int:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "wmec_forward_t1": [_P] * 9 + [_I] * 3 + [_P],
+    "wmec_forward_t1": [_P] * 11 + [_I] * 3 + [_P],
+    "wmec_forward_carry_t1": [_P] * 10 + [_I] * 3 + [_P],
     "wmec_backtrace_t1": [_P] * 4 + [_I] * 3 + [_P],
-    "wmec_forward_t": [_P] * 13 + [_I] * 5 + [_P],
+    "wmec_forward_t": [_P] * 16 + [_I] * 5 + [_P],
+    "wmec_forward_carry_t": [_P] * 13 + [_I] * 5 + [_P],
     "wmec_forward_m_t": [_P] * 8 + [_I] * 5 + [_P],
     "wmec_backtrace_t": [_P] * 6 + [_I] * 5 + [_P],
     "geno_backward": [_P] * 9 + [_I] * 5 + [_P],
@@ -130,41 +140,76 @@ def _check_device(*tensors) -> torch.device:
     return dev
 
 
-def forward_t1_plain(K, P, wdiff, wbase, rankw, acost, die_prev, rc):
-    """Plain torch version of the T=1 forward scan: the torch mirror
-    (wmec.forward_scan) at T = 1, in forward_t1's output layout."""
-    from .wmec import forward_scan
-
-    dp_last, _jmin, key_last, proj_idx, _pj = forward_scan(
-        K, 1, P, wdiff, wbase, rankw, acost, die_prev, rc
-    )
-    return proj_idx[:, :, 0], dp_last[..., 0], key_last
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
-def forward_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc):
-    """T=1 forward column scan over stacked blocks.
+def _check_carry(carry, B, T, S):
+    """Check a carried state (cost (B, T, S), jmin (B, T, S), key (B, S)),
+    or at T = 1 (cost (B, S), key (B, S)); returns its tensors."""
+    if T == 1:
+        cost0, key0 = carry
+        _check(cost0, "carry cost", torch.int32, (B, S))
+        _check(key0, "carry key", torch.int32, (B, S))
+        return [cost0, key0]
+    cost0, jmin0, key0 = carry
+    _check(cost0, "carry cost", torch.int32, (B, T, S))
+    _check(jmin0, "carry jmin", torch.int32, (B, T, S))
+    _check(key0, "carry key", torch.int32, (B, S))
+    return [cost0, jmin0, key0]
 
-    Inputs as wmec.forward_scan with T = 1: wdiff (B, C, K, 2P) f32, wbase
-    (B, C, 1, P, 2) i32, rankw (B, C, K) f32, acost (B, C, 1, 2^P) i32,
-    die_prev (B, C, K) bool, rc (B, C) i32 (T = 1 has no recombination term,
-    so the kernel does not read it).  Returns pidx (B, C, 2^K), the
-    projection table of every column, and the final state dp_last (B, 2^K)
-    and key_last (B, 2^K), all int32.
-    """
+
+def _check_t1_inputs(name, K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
+    """Shape checks shared by the T=1 forward wrappers; returns the device.
+    carry may be None (zero state)."""
     B, C = wdiff.shape[0], wdiff.shape[1]
     if not kernel_supported(K, 1, P):
-        raise ValueError(f"forward_t1: unsupported shape K={K}, P={P}")
+        raise ValueError(f"{name}: unsupported shape K={K}, P={P}")
     _check(wdiff, "wdiff", torch.float32, (B, C, K, 2 * P))
     _check(wbase, "wbase", torch.int32, (B, C, 1, P, 2))
     _check(rankw, "rankw", torch.float32, (B, C, K))
     _check(acost, "acost", torch.int32, (B, C, 1, 1 << P))
     _check(die_prev, "die_prev", torch.bool, (B, C, K))
     _check(rc, "rc", torch.int32, (B, C))
-    dev = _check_device(wdiff, wbase, rankw, acost, die_prev, rc)
-    if dev.type == "cpu":
-        return forward_t1_plain(K, P, wdiff, wbase, rankw, acost, die_prev, rc)
+    tensors = [wdiff, wbase, rankw, acost, die_prev, rc]
+    if carry is not None:
+        tensors += _check_carry(carry, B, 1, 1 << K)
+    return _check_device(*tensors)
 
-    S = 1 << K
+
+def _t1_carry0(carry):
+    """A T=1 carry (cost (B, S), key (B, S)) as forward_scan's carry0."""
+    return None if carry is None else (carry[0][..., None], None, carry[1])
+
+
+def forward_t1_plain(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry=None):
+    """Plain torch version of the T=1 forward scan: the torch mirror
+    (wmec.forward_scan) at T = 1, in forward_t1's output layout."""
+    from .wmec import forward_scan
+
+    dp_last, _jmin, key_last, proj_idx, _pj = forward_scan(
+        K, 1, P, wdiff, wbase, rankw, acost, die_prev, rc, carry0=_t1_carry0(carry)
+    )
+    return proj_idx[:, :, 0], dp_last[..., 0], key_last
+
+
+def forward_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry=None):
+    """T=1 forward column scan over stacked blocks.
+
+    Inputs as wmec.forward_scan with T = 1: wdiff (B, C, K, 2P) f32, wbase
+    (B, C, 1, P, 2) i32, rankw (B, C, K) f32, acost (B, C, 1, 2^P) i32,
+    die_prev (B, C, K) bool, rc (B, C) i32 (T = 1 has no recombination term,
+    so the kernel does not read it), and the optional carry (cost (B, 2^K),
+    key (B, 2^K)) i32 the scan starts from (without it, from zero).  Returns
+    pidx (B, C, 2^K), the projection table of every column, and the final
+    state dp_last (B, 2^K) and key_last (B, 2^K), all int32.
+    """
+    dev = _check_t1_inputs("forward_t1", K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+    if dev.type == "cpu":
+        return forward_t1_plain(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+
+    B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
+    cost0, key0 = carry if carry is not None else (None, None)
     pidx = torch.empty((B, C, S), dtype=torch.int32, device=dev)
     dp_last = torch.empty((B, S), dtype=torch.int32, device=dev)
     key_last = torch.empty((B, S), dtype=torch.int32, device=dev)
@@ -174,24 +219,61 @@ def forward_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc):
     with torch.cuda.device(dev):
         _launch(
             "wmec_forward_t1",
-            wdiff.data_ptr(),
-            wbase.data_ptr(),
-            rankw.data_ptr(),
-            acost.data_ptr(),
-            die_prev.data_ptr(),
-            pidx.data_ptr(),
-            dp_last.data_ptr(),
-            key_last.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
-            B,
-            C,
-            K,
+            wdiff.data_ptr(), wbase.data_ptr(), rankw.data_ptr(), acost.data_ptr(),
+            die_prev.data_ptr(), _ptr(cost0), _ptr(key0),
+            pidx.data_ptr(), dp_last.data_ptr(), key_last.data_ptr(), _ptr(scratch),
+            B, C, K,
         )
     forward_t1.launches += 1
     return pidx, dp_last, key_last
 
 
 forward_t1.launches = 0
+
+
+def forward_carry_t1_plain(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
+    """Plain torch version of the T=1 carry mode: wmec.forward_scan in its
+    carry mode at T = 1."""
+    from .wmec import forward_scan
+
+    dp_last, _jmin, key_last, _pi, _pj = forward_scan(
+        K, 1, P, wdiff, wbase, rankw, acost, die_prev, rc, carry0=_t1_carry0(carry), mode="carry"
+    )
+    return dp_last[..., 0], key_last
+
+
+def forward_carry_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
+    """T=1 forward scan in the carry mode (the checkpoint pass of the
+    segmented solve): inputs as forward_t1 with the carry (cost (B, 2^K), key
+    (B, 2^K)) i32 required; writes no table and returns the carry after the
+    last column, (dp_last (B, 2^K), key_last (B, 2^K)) i32, in new tensors
+    (a checkpoint is read again)."""
+    if carry is None:
+        raise ValueError("forward_carry_t1: the carry mode needs a carry (cost, key)")
+    dev = _check_t1_inputs("forward_carry_t1", K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+    if dev.type == "cpu":
+        return forward_carry_t1_plain(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+
+    B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
+    dp_last = torch.empty((B, S), dtype=torch.int32, device=dev)
+    key_last = torch.empty((B, S), dtype=torch.int32, device=dev)
+    scratch = None
+    if state_bytes(K):
+        scratch = torch.empty((B, 3, S), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(
+            "wmec_forward_t1",
+            wdiff.data_ptr(), wbase.data_ptr(), rankw.data_ptr(), acost.data_ptr(),
+            die_prev.data_ptr(), carry[0].data_ptr(), carry[1].data_ptr(),
+            dp_last.data_ptr(), key_last.data_ptr(), _ptr(scratch),
+            B, C, K,
+            fn_name="wmec_forward_carry_t1",
+        )
+    forward_carry_t1.launches += 1
+    return dp_last, key_last
+
+
+forward_carry_t1.launches = 0
 
 
 def backtrace_t1_plain(opt_idx, pidx):
@@ -266,12 +348,15 @@ def _select_optimum(K: int, T: int, dp_last, key_last):
     return m, best // S, best % S
 
 
-def _check_pedigree_inputs(name, K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
+def _check_pedigree_inputs(name, K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, carry=None):
     """Shape checks shared by the general-T forward wrappers; returns the
-    device.  dp0 may be None (unseeded)."""
+    device.  dp0 and carry may be None (unseeded); they are exclusive, as in
+    the reference's kernel."""
     B, C = wdiff.shape[0], wdiff.shape[1]
     if T == 1 or not kernel_supported(K, T, P):
         raise ValueError(f"{name}: unsupported shape K={K}, T={T}, P={P} ({ENVELOPE})")
+    if dp0 is not None and carry is not None:
+        raise ValueError(f"{name}: a seed (dp0) and a carry are exclusive")
     _check(wdiff, "wdiff", torch.float32, (B, C, K, T * P * 2))
     _check(wbase, "wbase", torch.int32, (B, C, T, P, 2))
     _check(rankw, "rankw", torch.float32, (B, C, K))
@@ -282,16 +367,19 @@ def _check_pedigree_inputs(name, K, T, P, wdiff, wbase, rankw, acost, die_prev, 
     if dp0 is not None:
         _check(dp0, "dp0", torch.int32, (B, T))
         tensors.append(dp0)
+    if carry is not None:
+        tensors += _check_carry(carry, B, T, 1 << K)
     return _check_device(*tensors)
 
 
-def forward_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None):
+def forward_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None, carry=None):
     """Plain torch version of the general-T forward scan with tables: the
     torch mirror (wmec.forward_scan), in forward_t's output layout."""
-    from .wmec import forward_scan
+    from .wmec import _planes, forward_scan
 
     dp_last, jmin_last, key_last, pidx, pjmin = forward_scan(
-        K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=dp0
+        K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=dp0,
+        carry0=None if carry is None else _planes(carry),
     )
     return (
         pidx, pjmin,
@@ -300,23 +388,27 @@ def forward_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None)
     )
 
 
-def forward_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None):
+def forward_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None, carry=None):
     """General-T (pedigree) forward column scan with tables over stacked
     blocks.
 
     Inputs as wmec.forward_scan: wdiff (B, C, K, T*P*2) f32, wbase (B, C, T,
     P, 2) i32, rankw (B, C, K) f32, acost (B, C, T, 2^P) i32, die_prev (B, C,
-    K) bool, rc (B, C) i32, and the optional seed dp0 (B, T) i32 (without it
-    the state starts at zero).  Returns pidx and pjmin (B, C, T, 2^K), the
-    projection index and transmission-argmin tables of every column, and the
-    final state dp_last and jmin_last (B, T, 2^K) and key_last (B, 2^K), all
-    int32.
+    K) bool, rc (B, C) i32, and what the state starts from: the seed dp0
+    (B, T) i32, or the carry (cost (B, T, 2^K), jmin (B, T, 2^K), key
+    (B, 2^K)) i32 of a preceding segment, or (neither) zero.  Returns pidx
+    and pjmin (B, C, T, 2^K), the projection index and transmission-argmin
+    tables of every column, and the final state dp_last and jmin_last (B, T,
+    2^K) and key_last (B, 2^K), all int32.
     """
-    dev = _check_pedigree_inputs("forward_t", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
+    dev = _check_pedigree_inputs(
+        "forward_t", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, carry
+    )
     if dev.type == "cpu":
-        return forward_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
+        return forward_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, carry)
 
     B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
+    cost0, jmin0, key0 = carry if carry is not None else (None, None, None)
     pidx = torch.empty((B, C, T, S), dtype=torch.int32, device=dev)
     pjmin = torch.empty_like(pidx)
     dp_last = torch.empty((B, T, S), dtype=torch.int32, device=dev)
@@ -329,11 +421,9 @@ def forward_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None):
         _launch(
             "wmec_forward_t",
             wdiff.data_ptr(), wbase.data_ptr(), rankw.data_ptr(), acost.data_ptr(),
-            die_prev.data_ptr(), rc.data_ptr(),
-            dp0.data_ptr() if dp0 is not None else None,
+            die_prev.data_ptr(), rc.data_ptr(), _ptr(dp0), _ptr(cost0), _ptr(jmin0), _ptr(key0),
             pidx.data_ptr(), pjmin.data_ptr(), dp_last.data_ptr(), jmin_last.data_ptr(),
-            key_last.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
+            key_last.data_ptr(), _ptr(scratch),
             B, C, K, T, P,
         )
     forward_t.launches += 1
@@ -341,6 +431,53 @@ def forward_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None):
 
 
 forward_t.launches = 0
+
+
+def forward_carry_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
+    """Plain torch version of the general-T carry mode: the mirror's
+    checkpoint pass, wmec.forward_carry (forward_scan in its carry mode)."""
+    from .wmec import forward_carry
+
+    return forward_carry(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+
+
+def forward_carry_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
+    """General-T forward scan in the carry mode (the checkpoint pass of the
+    segmented solve): inputs as forward_t with the carry (cost (B, T, 2^K),
+    jmin (B, T, 2^K), key (B, 2^K)) i32 required; writes no tables and
+    returns the carry after the last column, (dp_last (B, T, 2^K), jmin_last
+    (B, T, 2^K), key_last (B, 2^K)) i32, in new tensors (a checkpoint is
+    read again)."""
+    if carry is None:
+        raise ValueError("forward_carry_t: the carry mode needs a carry (cost, jmin, key)")
+    dev = _check_pedigree_inputs(
+        "forward_carry_t", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, None, carry
+    )
+    if dev.type == "cpu":
+        return forward_carry_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+
+    B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
+    dp_last = torch.empty((B, T, S), dtype=torch.int32, device=dev)
+    jmin_last = torch.empty_like(dp_last)
+    key_last = torch.empty((B, S), dtype=torch.int32, device=dev)
+    scratch = None
+    if state_bytes(K, T):
+        scratch = torch.empty((B, _state_words(T, True), S), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(
+            "wmec_forward_t",
+            wdiff.data_ptr(), wbase.data_ptr(), rankw.data_ptr(), acost.data_ptr(),
+            die_prev.data_ptr(), rc.data_ptr(),
+            carry[0].data_ptr(), carry[1].data_ptr(), carry[2].data_ptr(),
+            dp_last.data_ptr(), jmin_last.data_ptr(), key_last.data_ptr(), _ptr(scratch),
+            B, C, K, T, P,
+            fn_name="wmec_forward_carry_t",
+        )
+    forward_carry_t.launches += 1
+    return dp_last, jmin_last, key_last
+
+
+forward_carry_t.launches = 0
 
 
 def forward_m_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
@@ -371,8 +508,7 @@ def forward_m_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
         _launch(
             "wmec_forward_t",
             wdiff.data_ptr(), wbase.data_ptr(), acost.data_ptr(), die_prev.data_ptr(),
-            rc.data_ptr(), dp0.data_ptr(), m.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
+            rc.data_ptr(), dp0.data_ptr(), m.data_ptr(), _ptr(scratch),
             B, C, K, T, P,
             fn_name="wmec_forward_m_t",
         )
@@ -495,4 +631,56 @@ def solve_seeded_batched_cuda(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc,
     return (
         cost_head, m, ips[:, 0], tps[:, 0], fins[:, 0, 1].contiguous(),
         ips[:, 1:], tps[:, 1:], fins[:, 1:, 1].contiguous(),
+    )
+
+
+def _carry_pass(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
+    """wmec.forward_carry's signature on the carry kernels (forward_carry_t1
+    or forward_carry_t).  At T = 1 the carry's jmin planes are zeros and pass
+    through unchanged."""
+    if T == 1:
+        B, S = carry[2].shape
+        dp, key = forward_carry_t1(
+            K, P, wdiff, wbase, rankw, acost, die_prev, rc, (carry[0].view(B, S), carry[2])
+        )
+        return dp.view(B, 1, S), carry[1], key
+    return forward_carry_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+
+
+def _tables_pass(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
+    """wmec.forward_tables's signature on the tables kernels from a carry
+    (forward_t1 or forward_t with carry=)."""
+    if T == 1:
+        B, S = carry[2].shape
+        pidx = forward_t1(
+            K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry=(carry[0].view(B, S), carry[2])
+        )[0]
+        return pidx[:, :, None], None
+    return forward_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry=carry)[:2]
+
+
+def _walk(state, pidx, pjmin):
+    """wmec.walk_segment's signature on the backtrace kernels: backtrace_t1
+    at T = 1 (pjmin None), backtrace_t with one walk per block above.  Their
+    `final` is the state one step through the segment's first column."""
+    if pjmin is None:
+        path, final = backtrace_t1(state[:, 0].contiguous(), pidx[:, :, 0])
+        zero = torch.zeros_like(final)
+        return path, torch.zeros_like(path), torch.stack([final, zero, zero], dim=1)
+    ip, tp, final = backtrace_t(state[:, None].contiguous(), pidx, pjmin)
+    return ip[:, 0], tp[:, 0], final[:, 0]
+
+
+def solve_segmented_cuda(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, seg):
+    """The segmented solve on the kernels, the mirror of
+    wmec_pallas.solve_segmented: the host loop wmec.solve_segmented over the
+    carry kernels (kernel row 9), the tables kernels from a carry (row 10)
+    and the backtraces (rows 2 and 5).  On CUDA tensors it launches only
+    kernels and never waits for the device.  Returns (costs (B,), index
+    paths (B, C), transmission paths (B, C)), int32, matching
+    solve_batched_cuda."""
+    from .wmec import solve_segmented
+
+    return solve_segmented(
+        K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, seg, _carry_pass, _tables_pass, _walk
     )
