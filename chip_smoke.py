@@ -19,11 +19,15 @@ Phases, every one of which must pass:
             at M = 1 and M = T + 1) at T = 4, K = 7, 10, 12, 15, 16 and T =
             16, K = 7, 10, 13 (B = 4 blocks of C = 128 columns); half the
             blocks with weights above 256.  The genotyping kernels (backward
-            and forward) against their float32 plain versions at T = 1, K =
-            7, 12, 15, 16; T = 4, K = 7, 12, 15; T = 16, K = 7, 10 (B = 4
-            simulated instances of C = 128 columns, one with a zero-sum
-            prior column): red and scaling within rtol 1e-4, likelihoods
-            within atol 1e-5, identical NaN patterns.
+            and forward, one thread-block cluster per instance) against
+            their float32 plain versions at T = 1, K = 3, 7, 10, 12, 15, 16,
+            17 (K = 15 and 17 also in clusters of 8 CTAs); T = 4, K = 7, 12,
+            15, 16; T = 16, K = 7, 10, 13 (B = 4 simulated instances of C =
+            128 columns, one with a zero-sum prior column), folds at every
+            level of the state index (register, lane, warp and CTA bits,
+            the top CTA-rank bit included) at K = 15 and 17: red and
+            scaling within rtol 1e-4, likelihoods within atol 1e-5,
+            identical NaN patterns.
 3. slice    the single-sample main path: a chromosome of 256 blocks x 512
             heterozygous variants at coverage 15 (K = 15) phased by
             PedigreeDPTable(device="cuda"), with the kernels' launch counters
@@ -76,7 +80,9 @@ Phases, every one of which must pass:
             kernel at its shape (CUDA events), beside its plain version and
             its bound: the wMEC kernels as before, the general-T tables
             kernel and backtrace also at the trio-single shape, the
-            genotyping kernels at the genotype and genotype-trio shapes,
+            genotyping kernels at the genotype and genotype-trio shapes
+            (with the CTAs per cluster, the SMs used and the share of the
+            bound, and again in clusters of 8 CTAs),
             rows 9 and 10 at the segments' shapes (B = 1; C = 2048, K = 15,
             T = 1 and C = 512, K = 15, T = 4).
 
@@ -1073,21 +1079,38 @@ def _lik_err(lik, ref) -> float:
     return float(np.max(np.abs(lik[~nan] - ref[~nan]), initial=0.0))
 
 
-def compare_geno_kernels(device, shapes=((1, 7), (1, 12), (1, 15), (1, 16), (4, 7), (4, 12),
-                                         (4, 15), (16, 7), (16, 10)), n_blocks=4, n_cols=128):
+GENO_SHAPES = (
+    (1, 3), (1, 7), (1, 10), (1, 12), (1, 13), (1, 14), (1, 15), (1, 16), (1, 17),
+    (4, 7), (4, 12), (4, 15), (4, 16), (16, 7), (16, 10), (16, 13),
+)
+
+
+def compare_geno_kernels(device, shapes=GENO_SHAPES, n_blocks=4, n_cols=128):
     """Phase geno-kernels: both genotyping kernels against their float32
-    plain versions on the same CUDA tensors; red and scaling within
-    rtol=1e-4, likelihoods within atol=1e-5, identical NaN patterns.  As a
-    witness of where beta_store's per-entry differences come from, the
-    kernel's and the float32 plain version's beta_store are both held
-    against the float64 plain version on the same inputs (printed, not
-    gated).  Returns {kernel name: max abs error} (red normalised per
-    column)."""
+    plain versions on the same CUDA tensors, at (T, K); red and scaling
+    within rtol=1e-4, likelihoods within atol=1e-5, identical NaN patterns.
+    Where K is the instances' own (no padded slots) and the cluster has 8
+    or 16 CTAs, both passes must fold bits at every level the layout has,
+    the top CTA-rank bit included.  As a witness of where beta_store's per-entry
+    differences come from, the kernel's and the float32 plain version's
+    beta_store are both held against the float64 plain version on the same
+    inputs (printed, not gated).  Returns {kernel name: max abs error} (red
+    normalised per column)."""
     err = {"geno_backward": 0.0, "geno_forward": 0.0}
     for T, K in shapes:
         P, stacked = geno_bucket(T, K, n_blocks, n_cols, 3000 + 10 * K + T)
         x = genotyping.to_device(stacked, torch.device(device))
         diff, base, passign, trans, birth, die_next, dup = x
+        layout = genotyping_cuda.cluster_layout(K)
+        levels = (genotyping_cuda.fold_levels(K, birth), genotyping_cuda.fold_levels(K, die_next))
+        print(f"geno kernels T={T:2d} K={K:2d}: a cluster of {1 << layout[0]} CTAs of {layout[2]} "
+              f"threads, 2^{layout[1]} states a thread and plane; folds at {sorted(levels[0])} "
+              f"(backward), {sorted(levels[1])} (forward)", flush=True)
+        if layout[0] >= 3 and K % {1: SINGLE, 4: TRIO, 16: QUARTET}[T][0] == 0:
+            has = {"register": layout[1] > 0, "lane": True, "warp": K - layout[0] - layout[1] > 5,
+                   "cta": True, "top": True}
+            full = {level for level, present in has.items() if present}
+            _require(levels[0] == full and levels[1] == full, f"folds at every level at T={T}, K={K}")
         beta, scaling = genotyping_cuda.backward(K, T, P, diff, base, passign, trans, birth, dup)
         beta_p, scaling_p = genotyping_cuda.backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
         red = genotyping_cuda.forward(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
@@ -1237,6 +1260,7 @@ def time_geno_kernels(static, stacked, label, device="cuda"):
           f"{float(red_p.abs().nan_to_num().max()):.3e}, |scaling| "
           f"{float(scaling_p.abs().nan_to_num().max()):.3e})", flush=True)
     _require(rel_bwd <= 1e-4 and rel_fwd <= 1e-4, f"{label}: genotyping kernels agree with plain at the cell")
+    cta, _reg, threads = genotyping_cuda.cluster_layout(K)
     cells = B * C * S
     exps_ms = cells * T * P * 2 / PEAK_EXP_PER_S * 1e3
     adds_ms = cells * T * P * 2 / PEAK_F32_ADDS_PER_S * 1e3
@@ -1253,7 +1277,9 @@ def time_geno_kernels(static, stacked, label, device="cuda"):
                          bound_by="bytes" if bound == bytes_ms else "operations")
         print(f"{label} {name} (B={B} C={C} K={K} T={T} P={P}): {ms:.3f} ms (plain "
               f"{plain_ms:.3f} ms), bound {bound:.4f} ms by {out[name]['bound_by']} (bytes "
-              f"{bytes_ms:.4f}, exp {exps_ms:.4f}, f32 adds {adds_ms:.4f} ms)", flush=True)
+              f"{bytes_ms:.4f}, exp {exps_ms:.4f}, f32 adds {adds_ms:.4f} ms); N = {1 << cta} "
+              f"CTAs of {threads} threads per instance, {min(132, B << cta)} of 132 SMs; "
+              f"{100 * bound / ms:.3f} % of the bound", flush=True)
     return out
 
 

@@ -275,13 +275,22 @@ def _rel_close(x, y, rtol):
 GENO_PEDIGREES = {1: (1, ()), 4: TRIO, 16: QUARTET}
 
 
+ALL_LEVELS = {"register", "lane", "warp", "cta", "top"}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,coverage", [(1, 3), (1, 7), (1, 15), (1, 16), (4, 2), (4, 4), (4, 5), (16, 2), (16, 3)])
+@pytest.mark.parametrize("T,coverage", [
+    (1, 3), (1, 7), (1, 10), (1, 12), (1, 13), (1, 14), (1, 15), (1, 16), (1, 17),
+    (4, 2), (4, 4), (4, 5), (16, 2), (16, 3),
+])
 def test_geno_kernels_match_plain(cuda_device, T, coverage):
     """Both genotyping kernels against their float32 plain versions on the
-    same CUDA tensors, on both sides of the shared-memory limit of the
-    state; instance 0 has a zero-sum prior column, whose NaN fills its
-    instance and no other."""
+    same CUDA tensors, over the cluster layouts: one CTA with idle lanes
+    (K = 3), one CTA (K = 7), two CTAs (K = 10), eight (K = 12), 16 with no
+    register bits (K = 13) and with 1 to 4 (K = 14 to 17: folds at every
+    level of the state index, the top CTA-rank bit included from K = 15);
+    instance 0 has a zero-sum prior column, whose NaN fills its instance and
+    no other."""
     from whatshap_torch.ops import genotyping, genotyping_cuda
 
     n_ind, trios = GENO_PEDIGREES[T]
@@ -296,6 +305,9 @@ def test_geno_kernels_match_plain(cuda_device, T, coverage):
         parts.append(stacked)
     stacked = [np.concatenate(xs) for xs in zip(*parts)]
     diff, base, passign, trans, birth, die_next, dup = genotyping.to_device(stacked, cuda_device)
+    if K >= 15:
+        assert genotyping_cuda.fold_levels(K, birth) == ALL_LEVELS
+        assert genotyping_cuda.fold_levels(K, die_next) == ALL_LEVELS
     before = (genotyping_cuda.backward.launches, genotyping_cuda.forward.launches)
     beta, scaling = genotyping_cuda.backward(K, T, P, diff, base, passign, trans, birth, dup)
     red = genotyping_cuda.forward(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
@@ -334,14 +346,30 @@ def test_genotype_route_on_cuda_matches_cpu(cuda_device, pedigree, atol):
 
 
 @pytest.mark.cuda
+def test_genotype_route_on_cuda_at_k17(cuda_device):
+    """One sample at K = 17, the kernels' ceiling at T = 1 (a cluster of 16
+    CTAs), through GenotypeDPTable on the card: one launch of each kernel,
+    within the reference's f32 bar of the float64 CPU route."""
+    from whatshap_torch.ops import genotyping_cuda
+
+    rs, positions, ped, nsi = _geno_instance(40, 17, 1, (), seed=17)
+    before = (genotyping_cuda.backward.launches, genotyping_cuda.forward.launches)
+    gpu = core.GenotypeDPTable(nsi, rs, [10] * 40, ped, positions)
+    assert gpu._packed.K == 17
+    assert (genotyping_cuda.backward.launches, genotyping_cuda.forward.launches) == (before[0] + 1, before[1] + 1)
+    cpu = core.GenotypeDPTable(nsi, rs, [10] * 40, ped, positions, device="cpu")
+    np.testing.assert_allclose(gpu._likelihoods, cpu._likelihoods, atol=2e-4)
+
+
+@pytest.mark.cuda
 def test_genotype_route_on_cuda_refuses_what_it_cannot_solve(cuda_device):
-    """Three trios (T = 64), or one sample above K = 16, raise on CUDA
+    """Three trios (T = 64), or one sample above K = 17, raise on CUDA
     instead of leaving the card."""
     rs, positions, ped, nsi = _geno_instance(12, 1, 5, ((0, 1, 2), (0, 1, 3), (0, 1, 4)), seed=1)
-    with pytest.raises(NotImplementedError, match="genotyping"):
+    with pytest.raises(NotImplementedError, match="wider envelope"):
         core.GenotypeDPTable(nsi, rs, [10] * 12, ped, positions)
-    rs, positions, ped, nsi = _geno_instance(30, 17, 1, (), seed=2)
-    with pytest.raises(NotImplementedError, match="genotyping"):
+    rs, positions, ped, nsi = _geno_instance(30, 18, 1, (), seed=2)
+    with pytest.raises(NotImplementedError, match="wider envelope"):
         core.GenotypeDPTable(nsi, rs, [10] * 30, ped, positions)
 
 

@@ -222,6 +222,41 @@ def test_plain_f32_likelihoods_match_host_engine(f32_results, name, atol):
     np.testing.assert_allclose(r["lik"], host, atol=atol)
 
 
+def test_plain_f32_matches_pallas_kernels_at_k17():
+    """K = 17 at T = 1, the reference kernel's ceiling (T * 2^P * 2^K = 2^19)
+    and the kernels' since the cluster layout: 17 reads of one sample that
+    all overlap columns 2-4 of 8, starting and ending at seeded columns;
+    the float32 plain versions within rtol=1e-4 of the reference's Pallas
+    kernels in interpret mode."""
+    rng = np.random.RandomState(17)
+    spec = _spec(seed=170, n_ind=1, trios=(), n_pos=8, n_reads=2, gl_phreds=(0.0, 5.0, 20.0, 40.0))
+    pos = spec["positions"]
+    spec["reads"] = [
+        (f"k{i}", 0, [(pos[c], int(rng.randint(0, 2)), int(rng.choice([5, 10, 30])))
+                      for c in range(rng.randint(0, 3), rng.randint(5, 9))])
+        for i in range(17)
+    ]
+    (ref_p, ref_ped), (port_p, port_ped) = _packed(spec)
+    static, stacked = ref_jax.prepare_genotyping_batch([ref_p], ref_ped)
+    K, T, P, _n = static
+    assert (K, T, P) == (17, 1, 2) and ref_pallas.kernel_supported(K, T, P)
+    assert genotyping_cuda.kernel_supported(K, T, P)
+    trans, passign, base, diff, birth, die_next, dup, _gmask = (np.asarray(a) for a in stacked)
+    red_ref, scaling_ref = ref_pallas.forward_backward_pallas(
+        K, T, P, jnp.asarray(diff, jnp.float32), jnp.asarray(base, jnp.float32),
+        jnp.asarray(passign, jnp.float32), jnp.asarray(trans, jnp.float32),
+        jnp.asarray(birth), jnp.asarray(die_next), jnp.asarray(dup, jnp.float32),
+        interpret=True,
+    )
+    f32 = [torch.from_numpy(np.asarray(a, np.float32)) for a in (diff, base, passign, trans)]
+    red, scaling = genotyping.forward_backward_plain(
+        K, T, P, *f32, torch.from_numpy(birth), torch.from_numpy(die_next),
+        torch.from_numpy(dup.astype(np.float32)),
+    )
+    _assert_close(np.asarray(scaling_ref), scaling.numpy(), rtol=1e-4)
+    _assert_close(np.asarray(red_ref), red.numpy(), rtol=1e-4)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_wrappers_on_cpu_run_the_plain_versions(dtype):
     """backward and forward on CPU tensors in the kernels' layout equal the
@@ -256,20 +291,44 @@ def test_wrappers_on_cpu_run_the_plain_versions(dtype):
 
 
 @pytest.mark.parametrize("K,T,P,supported", [
-    (16, 1, 2, True), (17, 1, 2, False), (16, 4, 4, True), (16, 4, 2, True), (13, 16, 4, True),
-    (14, 16, 4, False), (7, 64, 4, False), (7, 4, 6, False), (0, 1, 2, False),
+    (16, 1, 2, True), (17, 1, 2, True), (18, 1, 2, False), (16, 4, 4, True), (16, 4, 2, True),
+    (17, 4, 4, False), (13, 16, 4, True), (14, 16, 4, False), (7, 64, 4, False), (7, 4, 6, False),
+    (0, 1, 2, False),
 ])
 def test_kernel_envelope(K, T, P, supported):
     assert genotyping_cuda.kernel_supported(K, T, P) == supported
 
 
 def test_state_bytes_split_shared_and_global():
-    assert genotyping_cuda.state_bytes(15, 1) == 0
-    assert genotyping_cuda.state_bytes(16, 1) == 4 << 16
-    assert genotyping_cuda.state_bytes(13, 4) == 0
-    assert genotyping_cuda.state_bytes(14, 4) == 16 << 14
-    assert genotyping_cuda.state_bytes(11, 16) == 0
-    assert genotyping_cuda.state_bytes(12, 16) == 64 << 12
+    """Every supported shape keeps its state on chip: split over a cluster of
+    at most 16 CTAs, at most 64 KB of it per CTA, in registers (T * 2^reg_bits
+    <= 32 floats a thread, at most 512 threads); no device-memory scratch.
+    The cluster leaves each CTA 2^9 states or more."""
+    for T, k_max in genotyping_cuda.MAX_K_T.items():
+        for K in range(1, k_max + 1):
+            cta_bits, reg_bits, threads = genotyping_cuda.cluster_layout(K)
+            assert cta_bits == min(4, max(0, K - 9))
+            assert threads <= 512 and T << reg_bits <= 32
+            assert threads << reg_bits << cta_bits == max(1 << K, 32 << reg_bits << cta_bits)
+            assert (T * 4 << K) >> cta_bits <= 64 << 10
+    assert genotyping_cuda.cluster_layout(17) == (4, 4, 512)
+    assert genotyping_cuda.cluster_layout(15) == (4, 2, 512)
+    assert genotyping_cuda.cluster_layout(13) == (4, 0, 512)
+    assert genotyping_cuda.cluster_layout(12) == (3, 0, 512)
+    assert genotyping_cuda.cluster_layout(10) == (1, 0, 512)
+    assert genotyping_cuda.cluster_layout(7) == (0, 0, 128)
+    assert genotyping_cuda.cluster_layout(3) == (0, 0, 32)
+    # K = 15 over 16 CTAs: lanes 0-4, warps 5-8, CTA ranks 9-12, registers 13-14
+    flags = torch.zeros((1, 2, 15), dtype=torch.bool)
+    assert genotyping_cuda.fold_levels(15, flags) == set()
+    flags[0, 1, [4, 5, 12]] = True
+    assert genotyping_cuda.fold_levels(15, flags) == {"lane", "warp", "cta", "top"}
+    flags[0, 0, 13] = True
+    assert genotyping_cuda.fold_levels(15, flags) == {"lane", "warp", "cta", "top", "register"}
+    # K = 12 over 8 CTAs: CTA ranks 9-11, no register bits
+    assert genotyping_cuda.fold_levels(12, flags[..., :12]) == {"lane", "warp"}
+    flags[0, 0, 11] = True
+    assert genotyping_cuda.fold_levels(12, flags[..., :12]) == {"lane", "warp", "cta", "top"}
 
 
 def test_route_chunks_under_the_table_budget(monkeypatch):
@@ -284,7 +343,7 @@ def test_route_chunks_under_the_table_budget(monkeypatch):
     K, T, P, _n = static
     whole = genotyping.launch_genotyping(static, stacked, CPU)
     C = stacked[3].shape[1]
-    per = (C * T * 4 << K) + genotyping_cuda.state_bytes(K, T)
+    per = C * T * 4 << K
     calls = []
     plain = genotyping_cuda.backward_plain
     monkeypatch.setattr(genotyping_cuda, "backward_plain", lambda *a: calls.append(1) or plain(*a))
@@ -293,7 +352,7 @@ def test_route_chunks_under_the_table_budget(monkeypatch):
     assert len(calls) == 2
     np.testing.assert_array_equal(whole, chunked)
     monkeypatch.setattr(wmec, "_table_budget", lambda device: per - 1)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(NotImplementedError, match="table budget"):
         genotyping.launch_genotyping(static, stacked, CPU)
 
 

@@ -4,209 +4,242 @@
 // `_make_emission` and `_sum_fold`), the second pallas_call of
 // forward_backward_pallas.
 //
-// One CTA per instance b walks its columns from 0 to C-1.  The state is the
-// scaled alpha, T planes of S = 2^K floats.  Per column c, with inv =
-// 1 / scaling[c] from the backward pass:
+// Each instance b walks its columns from 0 to C-1.  The state is the scaled
+// alpha, T planes of S = 2^K floats.  Per column c, with inv = 1 /
+// scaling[c] from the backward pass:
 //
 //   trans    sum_prev[ti](i) = 1 at c = 0, else sum_tj alpha[tj](i) *
-//            trans[tj*T + ti], written in place over alpha;
-//   emit     em[t, a](i) as in geno_backward.cu, in registers;
+//            trans[tj*T + ti];
+//   emit     em[t, a](i) as in geno_backward.cu;
 //   fwd      fwd[t, a](i) = sum_prev[t](i) * em[t, a](i) * (passign[t, a] *
 //            inv); alpha[t](i) = sum_a fwd[t, a](i);
 //   red      red[c, t*nA + a] = sum_i fwd[t, a](i) * beta_store[c, t](i),
-//            with an identity beta at the last column: per thread over its
-//            states, then over the warp by shuffles, then over the warps in
-//            a fixed order;
+//            with an identity beta at the last column;
 //   fold     for every slot p that dies after c (die_next[c]), both partners
 //            of the pair (i, i | 1<<p) take their sum.
 //
-// The planes are walked one after another (t outer, states inner), so a
-// thread keeps only nA partial red sums in registers.  Arithmetic is float32
-// in the Pallas kernel's order, except the sums over states and expf; NaN
-// is carried through.
+// Arithmetic is float32 with expf, in the Pallas kernel's order within a
+// state; NaN is carried through.
 //
 // Bound: the kernel reads beta_store, 4*B*C*T*2^K bytes, and needs per state
-// and column K*T*P*2 f32 adds and T*2^P exps, as the backward pass.  The
-// design is the backward kernel's: state in dynamic shared memory while it
-// fits, else a per-instance global scratch; one CTA per instance.
+// and column T*2^P exps and T*P*2 f32 adds, as the backward pass.  Design:
+// the backward kernel's (geno_cluster.cuh: a cluster of N CTAs per
+// instance, the state in registers, folds by level, emission sums of
+// O(LR) adds per state).  The red sums go thread, warp shuffles, warps in
+// order, then CTAs in rank order: each CTA leaves its T * 2^P partials in
+// shared memory behind a split cluster barrier, and CTA 0 adds them up in
+// the next column, so no column waits on the barrier.  A thread's
+// beta_store entries of column c + 1 are loaded as soon as column c is done
+// with its own, in 128-byte rows per warp.  At B = 1 the kernel runs on N of
+// the card's 132 SMs.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "geno_cluster.cuh"
 
 namespace {
 
-constexpr int kMaxK = 16;
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+using namespace geno;
 
 struct Args {
-  const float* diff;        // (B, C, K, T*P*2)
-  const float* base;        // (B, C, T*P*2)
-  const float* passign;     // (B, C, T*2^P)
-  const float* trans;       // (B, C, T*T), index tj*T + ti
-  const uint8_t* die;       // (B, C, K): die_next
-  const float* scaling;     // (B, C)
+  In in;                    // flags = die_next, scal = scaling
   const float* beta_store;  // (B, C, T, S)
   float* red;               // (B, C, T*2^P)
-  float* scratch;           // (B, T, S), or null: state in shared memory
   int C;
   int K;
+  int cbits;
 };
 
-template <int T, int P>
-__global__ void __launch_bounds__(kThreads) geno_forward_kernel(Args a) {
-  constexpr int P2 = 2 * P;
-  constexpr int TP2 = T * P2;
-  constexpr int NA = 1 << P;
+template <int T, int P, int LR>
+__global__ void __launch_bounds__(1 << kThreadBits, 1) geno_forward_kernel(Args a) {
+  using Rc = Rec<T, P>;
+  constexpr int R = 1 << LR, P2 = Rc::P2, NA = Rc::NA, TNA = T * NA;
 
-  extern __shared__ float smem[];
-  __shared__ float s_diff[kMaxK * TP2];
-  __shared__ float s_base[TP2];
-  __shared__ float s_pa[T * NA];
-  __shared__ float s_tr[T * T];
-  __shared__ int s_die[kMaxK];
-  __shared__ float s_part[kWarps * T * NA];
+  extern __shared__ float4 smem4[];
+  const int K = a.K, C = a.C;
+  const Place q = place<LR>(K, a.cbits);
+  const int N = 1 << a.cbits;
+  const int lane = q.tid & 31, warp = q.tid >> 5, n_warps = (q.nthr + 31) >> 5;
+  const size_t S = (size_t)1 << K;
+  const int b = blockIdx.x >> a.cbits;
+  const int W = Rc::words(K), Wp = round4(W);
 
-  const int C = a.C, K = a.K;
-  const int S = 1 << K;
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  float* alpha = a.scratch == nullptr ? smem : a.scratch + (size_t)b * T * S;
+  float* s_in = reinterpret_cast<float*>(smem4);  // [2][Wp] column records
+  float* s_part = s_in + 2 * Wp;                  // [kWarps][T * NA]
+  float* s_cpart = s_part + kWarps * TNA;         // [2][T * NA], by column parity
+  float* xbuf = s_cpart + 2 * TNA;                // [T * R][nthr] fold exchange
 
-  // sum_prev of column 0: ones
-  for (int i = threadIdx.x; i < T * S; i += blockDim.x) alpha[i] = 1.0f;
+  float x[T][R];  // alpha; sum_prev of column 0 is ones
+#pragma unroll
+  for (int t = 0; t < T; ++t)
+#pragma unroll
+    for (int m = 0; m < R; ++m) x[t][m] = 1.0f;
 
+  const size_t col0 = (size_t)b * C;
+  Stage<T, P> st;
+  st.issue(a.in, col0, K, W, q.tid, q.nthr);
+  st.commit(s_in, a.in, col0, K, W, q.tid, q.nthr);
+  float bt[T][R];  // the thread's beta_store entries of the column
+  if (C > 1 && q.active) {
+#pragma unroll
+    for (int t = 0; t < T; ++t)
+#pragma unroll
+      for (int m = 0; m < R; ++m) bt[t][m] = a.beta_store[(col0 * T + t) * S + state_at(q, m)];
+  }
+  __syncthreads();
+
+  bool pending = false;  // a column's CTA partials wait for CTA 0
   for (int c = 0; c < C; ++c) {
-    const size_t col = (size_t)b * C + c;
-    __syncthreads();  // the previous column is done with the staged inputs
-    for (int j = threadIdx.x; j < K * TP2; j += blockDim.x) s_diff[j] = a.diff[col * K * TP2 + j];
-    for (int j = threadIdx.x; j < TP2; j += blockDim.x) s_base[j] = a.base[col * TP2 + j];
-    for (int j = threadIdx.x; j < T * NA; j += blockDim.x) s_pa[j] = a.passign[col * T * NA + j];
-    for (int j = threadIdx.x; j < T * T; j += blockDim.x) s_tr[j] = a.trans[col * T * T + j];
-    for (int k = threadIdx.x; k < K; k += blockDim.x) s_die[k] = a.die[col * K + k];
-    __syncthreads();
-    const float inv = 1.0f / a.scaling[col];
+    const int cur = c & 1;
+    const float* rec = s_in + cur * Wp;
+    const size_t col = col0 + c;
     const bool last = c == C - 1;
+    if (!last) st.issue(a.in, col + 1, K, W, q.tid, q.nthr);
+    const float inv = 1.0f / rec[Rc::scal(K)];
 
-    // ---- sum_prev through the transmission matrix (each thread on its own
-    // states)
+    // ---- sum_prev through the transmission matrix
     if (c > 0) {
-      for (int i = threadIdx.x; i < S; i += blockDim.x) {
+      const float* tr = rec + Rc::tr(K);
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
         float prev[T];
 #pragma unroll
-        for (int t = 0; t < T; ++t) prev[t] = alpha[t * S + i];
+        for (int t = 0; t < T; ++t) prev[t] = x[t][m];
 #pragma unroll
         for (int ti = 0; ti < T; ++ti) {
           float v;
           if (T == 1) {
-            v = prev[0] * s_tr[0];
+            v = prev[0] * tr[0];
           } else {
             v = 0.0f;
 #pragma unroll
-            for (int tj = 0; tj < T; ++tj) v += prev[tj] * s_tr[tj * T + ti];
+            for (int tj = 0; tj < T; ++tj) v += prev[tj] * tr[tj * T + ti];
           }
-          alpha[ti * S + i] = v;
+          x[ti][m] = v;
         }
       }
     }
 
-    // ---- per plane: emission, fwd, the new alpha and the red sums
-#pragma unroll 1
+    // ---- per plane: emission, fwd, the new alpha and the red partials
+#pragma unroll
     for (int t = 0; t < T; ++t) {
+      float u[P2];
+      uniform_sums<T, P>(rec, q.Ku, q.gbase, t, u);
       float part[NA];
 #pragma unroll
-      for (int x = 0; x < NA; ++x) part[x] = 0.0f;
-      const float* beta_t = a.beta_store + (col * T + t) * (size_t)S;
-      for (int i = threadIdx.x; i < S; i += blockDim.x) {
-        float acc[P2];
+      for (int x_ = 0; x_ < NA; ++x_) part[x_] = 0.0f;
 #pragma unroll
-        for (int j = 0; j < P2; ++j) acc[j] = 0.0f;
-        for (int k = 0; k < K; ++k) {
-          if ((i >> k) & 1) {
-#pragma unroll
-            for (int j = 0; j < P2; ++j) acc[j] += s_diff[k * TP2 + t * P2 + j];
-          }
-        }
-        const float sp = alpha[t * S + i];
-        const float bf = last ? 1.0f : beta_t[i];
+      for (int m = 0; m < R; ++m) {
+        float ab[P2];
+        log_sums<T, P, LR>(rec, rec + Rc::base(K), u, q.Ku, m, t, ab);
+        const float sp = x[t][m];
+        const float bf = last ? 1.0f : bt[t][m];
         float alpha_acc = 0.0f;
 #pragma unroll
-        for (int x = 0; x < NA; ++x) {
-          float lem = 0.0f;
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            const int j = 2 * p + ((x >> p) & 1);
-            lem += acc[j] + s_base[t * P2 + j];
-          }
-          const float fwd = sp * expf(lem) * (s_pa[t * NA + x] * inv);
+        for (int x_ = 0; x_ < NA; ++x_) {
+          const float fwd = sp * expf(lem_of<P>(ab, x_)) * (rec[Rc::pa(K) + t * NA + x_] * inv);
           alpha_acc += fwd;
-          part[x] += fwd * bf;
+          part[x_] += fwd * bf;
         }
-        alpha[t * S + i] = alpha_acc;
+        x[t][m] = alpha_acc;
       }
 #pragma unroll
-      for (int x = 0; x < NA; ++x) {
-        float v = part[x];
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (lane == 0) s_part[warp * T * NA + t * NA + x] = v;
+      for (int x_ = 0; x_ < NA; ++x_) {
+        const float v = warp_sum(q.active ? part[x_] : 0.0f);
+        if (lane == 0) s_part[warp * TNA + t * NA + x_] = v;
       }
     }
-    __syncthreads();
-    for (int j = threadIdx.x; j < T * NA; j += blockDim.x) {
+    // the next column's beta_store entries (the identity at the last)
+    if (c + 1 < C - 1 && q.active) {
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+#pragma unroll
+        for (int m = 0; m < R; ++m) bt[t][m] = a.beta_store[((col + 1) * T + t) * S + state_at(q, m)];
+    }
+    __syncthreads();  // s_part
+
+    // ---- CTA 0 adds up the previous column's CTA partials in rank order
+    if (pending) {
+      cluster_wait();
+      pending = false;
+      if (q.rank == 0) {
+        cg::cluster_group cluster = cg::this_cluster();
+        for (int j = q.tid; j < TNA; j += q.nthr) {
+          float v = 0.0f;
+          for (int r = 0; r < N; ++r) v += *cluster.map_shared_rank(s_cpart + (cur ^ 1) * TNA + j, r);
+          a.red[(col - 1) * TNA + j] = v;
+        }
+      }
+    }
+    for (int j = q.tid; j < TNA; j += q.nthr) {
       float v = 0.0f;
-      for (int w = 0; w < n_warps; ++w) v += s_part[w * T * NA + j];
-      a.red[col * T * NA + j] = v;
+      for (int w = 0; w < n_warps; ++w) v += s_part[w * TNA + j];
+      if (N == 1) {
+        a.red[col * TNA + j] = v;
+      } else {
+        s_cpart[cur * TNA + j] = v;
+      }
     }
 
-    // ---- sum-fold the slot bits dying after c (s_die is uniform, so are
-    // the branches)
-    for (int p = 0; p < K; ++p) {
-      if (!s_die[p]) continue;
-      const int lo = (1 << p) - 1;
-      for (int q = threadIdx.x; q < (S >> 1); q += blockDim.x) {
-        const int i0 = ((q & ~lo) << 1) | (q & lo);  // bit p = 0
-        const int i1 = i0 | (1 << p);                 // bit p = 1
-#pragma unroll
-        for (int t = 0; t < T; ++t) {
-          const float s = alpha[t * S + i0] + alpha[t * S + i1];
-          alpha[t * S + i0] = s;
-          alpha[t * S + i1] = s;
-        }
-      }
-      __syncthreads();
+    // ---- sum-fold the slot bits dying after c
+    sum_fold<T, LR>(x, flag_mask(rec + Rc::flag(K), K), xbuf, q);
+
+    if (N > 1) {
+      cluster_arrive();
+      pending = true;
     }
+    if (!last) st.commit(s_in + (cur ^ 1) * Wp, a.in, col + 1, K, W, q.tid, q.nthr);
+    __syncthreads();
+  }
+  if (pending) {
+    cluster_wait();
+    if (q.rank == 0) {
+      cg::cluster_group cluster = cg::this_cluster();
+      const int cur = (C - 1) & 1;
+      for (int j = q.tid; j < TNA; j += q.nthr) {
+        float v = 0.0f;
+        for (int r = 0; r < N; ++r) v += *cluster.map_shared_rank(s_cpart + cur * TNA + j, r);
+        a.red[(col0 + C - 1) * TNA + j] = v;
+      }
+    }
+    cluster_sync();  // no CTA leaves while CTA 0 reads its shared memory
   }
 }
 
-template <int T, int P>
+template <int T, int P, int LR>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  const int S = 1 << a.K;
-  const int threads = S < kThreads ? (S < 32 ? 32 : S) : kThreads;
-  size_t smem = 0;
-  if (a.scratch == nullptr) {
-    smem = (size_t)T * S * sizeof(float);
-    cudaError_t e = cudaFuncSetAttribute(
-        geno_forward_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  using Rc = Rec<T, P>;
+  const int Kc = a.K - a.cbits;
+  const int threads = Kc - LR < 5 ? 32 : 1 << (Kc - LR);
+  const int tna = T << P;
+  const size_t floats = 2 * round4(Rc::words(a.K)) + kWarps * tna + 2 * tna +
+                        (size_t)T * threads * (1 << LR);
+  return launch_clusters(geno_forward_kernel<T, P, LR>, a, B, a.K, a.cbits, LR,
+                         floats * sizeof(float), stream);
+}
+
+template <int T, int P, int LR>
+int by_lr(const Args& a, int B, int lr, cudaStream_t stream) {
+  if (lr == LR) return launch<T, P, LR>(a, B, stream);
+  if constexpr (LR > 0) {
+    return by_lr<T, P, LR - 1>(a, B, lr, stream);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
-  geno_forward_kernel<T, P><<<B, threads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int geno_forward(const float* diff, const float* base, const float* passign,
                             const float* trans, const uint8_t* die, const float* scaling,
-                            const float* beta_store, float* red, float* scratch, int B, int C,
-                            int K, int T, int P, cudaStream_t stream) {
-  if (B < 1 || C < 1 || K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
-  Args a{diff, base, passign, trans, die, scaling, beta_store, red, scratch, C, K};
-  if (T == 1 && P == 2) return launch<1, 2>(a, B, stream);
-  if (T == 4 && P == 2) return launch<4, 2>(a, B, stream);
-  if (T == 4 && P == 4) return launch<4, 4>(a, B, stream);
-  if (T == 16 && P == 2) return launch<16, 2>(a, B, stream);
-  if (T == 16 && P == 4) return launch<16, 4>(a, B, stream);
+                            const float* beta_store, float* red, int B, int C, int K, int T, int P,
+                            cudaStream_t stream) {
+  const int lr = geno::layout_lr(K, T);
+  if (B < 1 || C < 1 || lr < 0) return (int)cudaErrorInvalidValue;
+  Args a{{diff, base, passign, trans, die, scaling}, beta_store, red, C, K, geno::cluster_bits(K)};
+  if (T == 1 && P == 2) return by_lr<1, 2, geno::max_lr(1)>(a, B, lr, stream);
+  if (T == 4 && P == 2) return by_lr<4, 2, geno::max_lr(4)>(a, B, lr, stream);
+  if (T == 4 && P == 4) return by_lr<4, 4, geno::max_lr(4)>(a, B, lr, stream);
+  if (T == 16 && P == 2) return by_lr<16, 2, geno::max_lr(16)>(a, B, lr, stream);
+  if (T == 16 && P == 4) return by_lr<16, 4, geno::max_lr(16)>(a, B, lr, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -203,8 +203,16 @@ def likelihoods_from_red(red: np.ndarray, gmask: np.ndarray) -> np.ndarray:
 def _unsupported(K: int, T: int, P: int) -> NotImplementedError:
     return NotImplementedError(
         f"no CUDA genotyping kernel for K={K}, T={T}, P={P} yet: shapes beyond the "
-        f"kernels' envelope ({genotyping_cuda.ENVELOPE}) or a beta table beyond the "
-        "memory budget need the checkpointed genotyping pass, ROADMAP Queue 1 item 5"
+        f"kernels' envelope ({genotyping_cuda.ENVELOPE}) need kernels with a wider "
+        "envelope, ROADMAP Queue 1 item 5"
+    )
+
+
+def _over_budget(K: int, T: int, need: int, budget: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"one genotyping instance of K={K}, T={T} needs {need} bytes of beta table on the "
+        f"card, above the table budget of {budget} bytes: an instance beyond the memory "
+        "budget needs the checkpointed genotyping pass, ROADMAP Queue 1 item 4"
     )
 
 
@@ -236,11 +244,11 @@ def forward_backward(K, T, P, diff, base, passign, trans, birth, die_next, dup):
     B, C = diff.shape[0], diff.shape[1]
     if diff.is_cuda and not genotyping_cuda.kernel_supported(K, T, P):
         raise _unsupported(K, T, P)
-    per_instance = (C * T * 4 << K) + genotyping_cuda.state_bytes(K, T)
+    per_instance = C * T * 4 << K
     budget = wmec._table_budget(diff.device)
     max_b = B if budget is None else budget // per_instance
     if max_b < 1:
-        raise _unsupported(K, T, P)
+        raise _over_budget(K, T, per_instance, budget)
     arrays = (diff, base, passign, trans, birth, die_next, dup)
     reds = []
     for lo in range(0, B, max_b):

@@ -32,17 +32,17 @@ import torch
 from .wmec_cuda import _check, _check_device, _launch
 
 #: Largest K of the kernels per transmission count T, and the founder
-#: partition counts they are built for (the wMEC kernels' envelope,
-#: wmec_cuda.MAX_K and MAX_K_T).
-MAX_K_T = {1: 16, 4: 16, 16: 13}
+#: partition counts they are built for.  T = 1 reaches K = 17, the
+#: reference kernel's ceiling (genotyping_pallas.MAX_K, T * 2^P * 2^K <=
+#: 2^19).
+MAX_K_T = {1: 17, 4: 16, 16: 13}
 P_OF_T = {1: (2,), 4: (2, 4), 16: (2, 4)}
 ENVELOPE = "; ".join(f"T = {t}, P in {P_OF_T[t]}, K <= {k}" for t, k in MAX_K_T.items())
-#: Dynamic shared memory a CTA may take for its state (T planes of 2^K
-#: float32); a larger state lives in a per-instance global scratch.  The
-#: states are powers of two, so this keeps T = 1 up to K = 15, T = 4 up to
-#: K = 13 and T = 16 up to K = 11 in shared memory, with room for the staged
-#: column inputs and the per-warp partial sums.
-SMEM_STATE_BYTES = 128 * 1024
+#: Most CTAs of a cluster as a power of two (16 is Hopper's non-portable
+#: cluster size), and most threads of a CTA as a power of two
+#: (csrc/geno_cluster.cuh kMaxCtaBits, kThreadBits).
+MAX_CTA_BITS = 4
+THREAD_BITS = 9
 
 
 def kernel_supported(K: int, T: int, P: int) -> bool:
@@ -51,12 +51,32 @@ def kernel_supported(K: int, T: int, P: int) -> bool:
     return T in MAX_K_T and P in P_OF_T[T] and 1 <= K <= MAX_K_T[T]
 
 
-def state_bytes(K: int, T: int) -> int:
-    """Device scratch a kernel needs per instance beyond its outputs: none
-    while its state (T * 2^K float32) fits SMEM_STATE_BYTES, else the whole
-    state."""
-    b = T * 4 << K
-    return 0 if b <= SMEM_STATE_BYTES else b
+def cluster_layout(K: int):
+    """The kernels' launch for one instance of K slots, whatever its T:
+    (cta_bits, reg_bits, threads), a cluster of 2^cta_bits CTAs of `threads`
+    threads, each thread holding 2^reg_bits states of every plane in
+    registers.  A state index holds, from its low bits up, the thread's
+    lane and warp, the CTA's rank and the register bits
+    (csrc/geno_cluster.cuh); the state never leaves the chip.  A cluster
+    has as many CTAs as leave each 2^9 states or more, at most 16."""
+    cta_bits = min(MAX_CTA_BITS, max(0, K - THREAD_BITS))
+    kc = K - cta_bits
+    reg_bits = max(0, kc - THREAD_BITS)
+    return cta_bits, reg_bits, 1 << max(5, kc - reg_bits)
+
+
+def fold_levels(K: int, flags) -> set:
+    """The levels of the state index at which the fold flags (B, C, K)
+    fold a bit in the kernels' cluster layout: "lane", "warp", "cta" and
+    "register", and "top" where the top CTA-rank bit folds."""
+    cta_bits, reg_bits, _threads = cluster_layout(K)
+    kc = K - cta_bits - reg_bits  # thread bits; the register bits are the top ones
+    levels = set()
+    for p in np.flatnonzero(flags.cpu().numpy().any(axis=(0, 1))).tolist():
+        levels.add("lane" if p < min(5, kc) else "warp" if p < kc else "cta" if p < K - reg_bits else "register")
+        if cta_bits and p == K - reg_bits - 1:
+            levels.add("top")
+    return levels
 
 
 def _sum_fold(x, K: int, bits, any_bits):
@@ -173,7 +193,8 @@ def backward(K, T, P, diff, base, passign, trans, birth, dup):
     slot bits born entering each column, dup (B, C) is each column's
     inactive-bit duplicate factor 2^(K - active).  Returns beta_store (B, C,
     T, 2^K), the incoming beta of every column scaled by its sum, and scaling
-    (B, C), in the inputs' dtype, as the Pallas backward kernel does."""
+    (B, C), in the inputs' dtype, as the Pallas backward kernel does.  On
+    CUDA each instance runs as one cluster of CTAs (cluster_layout)."""
     dev = _check_inputs("backward", K, T, P, diff, base, passign, trans, birth, dup)
     if dev.type == "cpu":
         return backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
@@ -181,15 +202,11 @@ def backward(K, T, P, diff, base, passign, trans, birth, dup):
     B, C, S = diff.shape[0], diff.shape[1], 1 << K
     beta_store = torch.empty((B, C, T, S), dtype=torch.float32, device=dev)
     scaling = torch.empty((B, C), dtype=torch.float32, device=dev)
-    scratch = None
-    if state_bytes(K, T):
-        scratch = torch.empty((B, T, S), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _launch(
             "geno_backward",
             diff.data_ptr(), base.data_ptr(), passign.data_ptr(), trans.data_ptr(),
             birth.data_ptr(), dup.data_ptr(), beta_store.data_ptr(), scaling.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
             B, C, K, T, P,
         )
     backward.launches += 1
@@ -204,7 +221,8 @@ def forward(K, T, P, diff, base, passign, trans, die_next, scaling, beta_store):
     die_next (B, C, K) flags the slot bits that die after each column.
     Returns red (B, C, T * 2^P) in the inputs' dtype: red[b, c, t*nA + a] is the sum over
     the bipartitions of forward * beta of transmission t and allele
-    assignment a, as the Pallas forward kernel emits it."""
+    assignment a, as the Pallas forward kernel emits it.  On CUDA each
+    instance runs as one cluster of CTAs, as in backward."""
     dev = _check_inputs("forward", K, T, P, diff, base, passign, trans, die_next, scaling)
     B, C, S = diff.shape[0], diff.shape[1], 1 << K
     _check(beta_store, "beta_store", diff.dtype, (B, C, T, S))
@@ -213,15 +231,11 @@ def forward(K, T, P, diff, base, passign, trans, die_next, scaling, beta_store):
         return forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling, beta_store)
 
     red = torch.empty((B, C, T << P), dtype=torch.float32, device=dev)
-    scratch = None
-    if state_bytes(K, T):
-        scratch = torch.empty((B, T, S), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _launch(
             "geno_forward",
             diff.data_ptr(), base.data_ptr(), passign.data_ptr(), trans.data_ptr(),
             die_next.data_ptr(), scaling.data_ptr(), beta_store.data_ptr(), red.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
             B, C, K, T, P,
         )
     forward.launches += 1

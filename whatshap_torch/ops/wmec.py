@@ -870,7 +870,7 @@ def resolve_device(device=None) -> torch.device:
 def _unsupported(K: int, T: int, P: int) -> NotImplementedError:
     return NotImplementedError(
         f"no CUDA kernel for K={K}, T={T}, P={P} yet: shapes beyond the kernels' envelope "
-        f"({wmec_cuda.ENVELOPE}) need kernels with a wider envelope, ROADMAP Queue 1 item 1"
+        f"({wmec_cuda.ENVELOPE}) need kernels with a wider envelope, ROADMAP Queue 1 item 5"
     )
 
 
@@ -879,7 +879,7 @@ def _over_budget(K: int, T: int, P: int, need: int, budget: int) -> NotImplement
         f"one block of K={K}, T={T}, P={P} needs {need} bytes of tables and state on the "
         f"card, above the table budget of {budget} bytes: the segmented solve takes only "
         "an instance of one read-connected range (and then one segment and the checkpoints "
-        "must fit); an over-budget range among several is ROADMAP Queue 1 item 9"
+        "must fit); an over-budget range among several is ROADMAP Queue 1 item 6"
     )
 
 

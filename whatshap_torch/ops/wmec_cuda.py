@@ -99,8 +99,8 @@ _SIGNATURES = {
     "wmec_forward_carry_t": [_P] * 13 + [_I] * 5 + [_P],
     "wmec_forward_m_t": [_P] * 8 + [_I] * 5 + [_P],
     "wmec_backtrace_t": [_P] * 6 + [_I] * 5 + [_P],
-    "geno_backward": [_P] * 9 + [_I] * 5 + [_P],
-    "geno_forward": [_P] * 9 + [_I] * 5 + [_P],
+    "geno_backward": [_P] * 8 + [_I] * 5 + [_P],
+    "geno_forward": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 
