@@ -14,11 +14,17 @@ Phases, every one of which must pass:
             kernels (kernel row 9) and the tables kernels from a carry (row
             10), from the nonzero state after the first 64 columns of B = 3
             blocks of C = 192, at T = 1, K = 7, 10, 14, 15, 16, 17; T = 4, K
-            = 7, 12, 15, 16; T = 16, K = 7, 13; the general-T
+            = 3, 4, 7, 9, 12, 15, 16; T = 16, K = 4, 7, 9, 13; the general-T
             kernels (tables mode unseeded and seeded, m-only mode, backtrace
-            at M = 1 and M = T + 1) at T = 4, K = 7, 10, 12, 15, 16 and T =
-            16, K = 7, 10, 13 (B = 4 blocks of C = 128 columns); half the
-            blocks with weights above 256.  The genotyping kernels (backward
+            at M = 1 and M = T + 1) at T = 4, K = 3, 4, 7, 9, 10, 12, 15, 16
+            and T = 16, K = 4, 7, 9, 10, 13 (B = 4 blocks of C = 128
+            columns); half the blocks with weights above 256.  Every mode of
+            the general-T forward kernel again on a tie-heavy bucket
+            (weights, rankw and assignment costs in {0, 1}, a quarter of the
+            slots dying each column) at K = 1 to 16 (T = 4) and 1 to 13
+            (T = 16), P = 2 and 4: its cluster layout's boundaries, fewer
+            than 32 states, one CTA, the first cluster, the top of the
+            envelope.  The genotyping kernels (backward
             and forward, one thread-block cluster per instance) against
             their float32 plain versions at T = 1, K = 3, 7, 10, 12, 15, 16,
             17 (K = 15 and 17 also in clusters of 8 CTAs); T = 4, K = 7, 12,
@@ -82,9 +88,10 @@ Phases, every one of which must pass:
             kernel and backtrace also at the trio-single shape, the
             genotyping kernels at the genotype and genotype-trio shapes
             (with the CTAs per cluster, the SMs used and the share of the
-            bound, and again in clusters of 8 CTAs),
-            rows 9 and 10 at the segments' shapes (B = 1; C = 2048, K = 15,
-            T = 1 and C = 512, K = 15, T = 4).
+            bound), rows 9 and 10 at the segments' shapes (B = 1; C = 2048,
+            K = 15, T = 1 and C = 512, K = 15, T = 4); each general-T
+            forward mode with its cluster layout and microseconds per
+            column.
 
 It prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}.  Where there is no CUDA device,
@@ -253,7 +260,8 @@ def _carry_after(K, T, P, head):
 
 
 def compare_carry_kernels(device, shapes=((1, 7), (1, 10), (1, 14), (1, 15), (1, 16), (1, 17),
-                                         (4, 7), (4, 12), (4, 15), (4, 16), (16, 7), (16, 13)),
+                                         (4, 3), (4, 4), (4, 7), (4, 9), (4, 12), (4, 15), (4, 16),
+                                         (16, 4), (16, 7), (16, 9), (16, 13)),
                           n_blocks=3, n_cols=192, head_cols=64):
     """Phase 2, rows 9 and 10: the carry kernel and the tables kernel from a
     carry against their plain versions, bit for bit, over the last
@@ -523,8 +531,9 @@ def _walk_inits(K, T, tables_out, die_next):
     return torch.cat([head[:, None], torch.stack([s_star, t_ids, jmin_star], dim=2)], dim=1).contiguous()
 
 
-def compare_pedigree_kernels(device, shapes=((4, 7), (4, 10), (4, 12), (4, 15), (4, 16),
-                                            (16, 7), (16, 10), (16, 13)), n_blocks=4, n_cols=128):
+def compare_pedigree_kernels(device, shapes=((4, 3), (4, 4), (4, 7), (4, 9), (4, 10), (4, 12), (4, 15),
+                                            (4, 16), (16, 4), (16, 7), (16, 9), (16, 10), (16, 13)),
+                             n_blocks=4, n_cols=128):
     """Phase 2, general T: each mode of the forward kernel and the backtrace
     at M = 1 and M = T + 1 against their plain versions, bit for bit.
     Returns {kernel name: max abs error}."""
@@ -561,6 +570,74 @@ def compare_pedigree_kernels(device, shapes=((4, 7), (4, 10), (4, 12), (4, 15), 
         err["wmec_forward_m_t"] = max(err["wmec_forward_m_t"], e_m)
         err["wmec_backtrace_t"] = max(err["wmec_backtrace_t"], e_bt)
     return err
+
+
+def tie_bucket(n_blocks, n_cols, K, T, P, seed, device):
+    """Stacked block arrays at exactly K slots, drawn so that ties abound:
+    weights, base costs, rankw and assignment costs in {0, 1},
+    recombination costs in {0, 1, 2}, a quarter of the slots dying before
+    each column, so folds at every level of the forward kernel's cluster
+    layout meet equal costs and equal keys."""
+    rng = np.random.RandomState(seed)
+    B, C = n_blocks, n_cols
+    arrays = [
+        rng.randint(0, 2, (B, C, K, T * P * 2)).astype(np.float32),
+        rng.randint(0, 2, (B, C, T, P, 2)).astype(np.int32),
+        rng.randint(0, 2, (B, C, K)).astype(np.float32),
+        rng.randint(0, 2, (B, C, T, 1 << P)).astype(np.int32),
+        rng.rand(B, C, K) < 0.25,
+        rng.randint(0, 3, (B, C)).astype(np.int32),
+    ]
+    return blocks.to_device(arrays, device)
+
+
+def compare_tie_kernels(device, shapes=((4, 1, 4), (4, 4, 4), (4, 5, 4), (4, 9, 2), (4, 10, 4), (4, 13, 4),
+                                        (4, 15, 4), (4, 16, 4), (16, 1, 4), (16, 9, 4), (16, 13, 2), (16, 13, 4)),
+                        n_blocks=3, n_cols=96, head_cols=32):
+    """Phase 2, general T on the tie-heavy bucket: every mode of the forward
+    kernel (tables unseeded and seeded, m-only, carry, tables from the
+    carry) against its plain version, bit for bit, at (T, K, P) from fewer
+    than 32 states to the top of the envelope.  Returns {entry: max abs
+    error}."""
+    err = {}
+    for T, K, P in shapes:
+        arrays = tie_bucket(n_blocks, n_cols, K, T, P, 6000 + 100 * T + 10 * K + P, device)
+        dp0 = torch.from_numpy(np.random.RandomState(K).randint(0, 2, (n_blocks, T)).astype(np.int32)).to(device)
+        head = [a[:, :head_cols].contiguous() for a in arrays]
+        tail = [a[:, head_cols:].contiguous() for a in arrays]
+        carry = _carry_after(K, T, P, head)
+        runs = {
+            "wmec_forward_t": [(lambda s=s: wmec_cuda.forward_t(K, T, P, *arrays, s),
+                                lambda s=s: wmec_cuda.forward_t_plain(K, T, P, *arrays, s)) for s in (None, dp0)],
+            "wmec_forward_m_t": [(lambda: [wmec_cuda.forward_m_t(K, T, P, *arrays, dp0)],
+                                  lambda: [wmec_cuda.forward_m_t_plain(K, T, P, *arrays, dp0)])],
+            "wmec_forward_carry_t": [(lambda: wmec_cuda.forward_carry_t(K, T, P, *tail, carry),
+                                      lambda: wmec_cuda.forward_carry_t_plain(K, T, P, *tail, carry))],
+            "wmec_forward_t:carry_in": [(lambda: wmec_cuda.forward_t(K, T, P, *tail, carry=carry),
+                                         lambda: wmec_cuda.forward_t_plain(K, T, P, *tail, carry=carry))],
+        }
+        e = {}
+        for name, pairs in runs.items():
+            for kern_fn, plain_fn in pairs:
+                kern, plain = kern_fn(), plain_fn()
+                torch.cuda.synchronize()
+                e[name] = max(e.get(name, 0), _max_err(zip(kern, plain)))
+                del kern, plain
+        print(f"kernels tie-heavy T={T:2d} K={K:2d} P={P} B={n_blocks} C={n_cols}: "
+              + " ".join(f"{n} max|err|={v}" for n, v in e.items()), flush=True)
+        _require(all(v == 0 for v in e.values()), f"general-T forward bit-equal on the tie-heavy bucket at T={T}, K={K}")
+        for name, v in e.items():
+            err[name] = max(err.get(name, 0), v)
+    return err
+
+
+def _layout(K, T, P, tables, ms, C, B):
+    """The forward kernel's cluster layout at a shape and its microseconds
+    per column (of all B blocks of the launch), for the timing lines."""
+    lay = wmec_cuda.forward_t_layout(K, T, P, tables)
+    return (f"[{B} clusters of {1 << lay['cta_bits']} CTAs x {lay['threads']} threads, "
+            f"{1 << lay['loop_bits']} states a thread, {lay['smem_bytes']} B shared a CTA; "
+            f"{ms * 1e3 / C:.2f} us per column]")
 
 
 def _time(fn, reps: int) -> float:
@@ -726,9 +803,11 @@ def time_pedigree_kernels(packed, device="cuda"):
     )
     del kern, pidx, pjmin
     _require(all(r["max_abs_err"] == 0 for r in out.values()), "general-T kernels bit-equal at the trio's bucket")
+    notes = {"wmec_forward_m_t": _layout(K, T, P, False, m_ms, C, B * len(reps)),
+             "wmec_forward_t": _layout(K, T, P, True, fwd_ms, C, B)}
     for name, r in out.items():
         print(f"{name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms), bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']}", flush=True)
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} {notes.get(name, '')}", flush=True)
     return out
 
 
@@ -756,7 +835,7 @@ def time_trio_single_kernels(packed, device="cuda"):
     bt_bound = 4 * B * (3 + 4 * C + 3) / PEAK_BYTES_PER_S * 1e3
     print(f"trio-single kernels (B={B} C={C} K={K} T={T} P={P}): wmec_forward_t unseeded "
           f"{fwd_ms:.3f} ms (plain {fwd_plain_ms:.3f} ms), bound {fwd_bound[0]:.4f} ms by "
-          f"{fwd_bound[1]}, max|err|={fwd_err}; wmec_backtrace_t M=1 {bt_ms:.3f} ms (plain "
+          f"{fwd_bound[1]}, max|err|={fwd_err} {_layout(K, T, P, True, fwd_ms, C, B)}; wmec_backtrace_t M=1 {bt_ms:.3f} ms (plain "
           f"{bt_plain_ms:.3f} ms), bound {bt_bound:.6f} ms by bytes, max|err|={bt_err}", flush=True)
     _require(fwd_err == 0 and bt_err == 0, "general-T kernels bit-equal at the trio-single shape")
 
@@ -926,8 +1005,9 @@ def time_carry_kernels(packed, seg, label, device="cuda"):
                          bound_ms=bound[0], bound_by=bound[1])
         del kern, plain
         r = out[name]
+        note = "" if T == 1 else " " + _layout(K, T, P, name != "wmec_forward_carry_t", ms, seg, 1)
         print(f"{label} {name} (B=1 C={seg} K={K} T={T} P={P}): {ms:.3f} ms (plain {plain_ms:.3f} ms), "
-              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, max|err|={r['max_abs_err']}", flush=True)
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, max|err|={r['max_abs_err']}{note}", flush=True)
     _require(all(r["max_abs_err"] == 0 for r in out.values()), f"{label}: rows 9 and 10 bit-equal at the segment")
     return out
 
@@ -1304,6 +1384,8 @@ def main() -> int:
     errs = compare_kernels("cuda")
     errs.update(compare_carry_kernels("cuda"))
     errs.update(compare_pedigree_kernels("cuda"))
+    for name, e in compare_tie_kernels("cuda").items():
+        errs[name] = max(errs.get(name, 0), e)
     errs.update(compare_geno_kernels("cuda"))
     print(f"phases 1-2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 

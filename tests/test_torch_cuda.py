@@ -149,11 +149,15 @@ def _pedigree_bucket(K, T, n_blocks=3, n_cols=64, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,K", [(4, 7), (4, 12), (4, 13), (4, 15), (16, 7), (16, 10), (16, 11), (16, 13)])
+@pytest.mark.parametrize("T,K", [
+    (4, 1), (4, 4), (4, 7), (4, 9), (4, 12), (4, 13), (4, 15), (4, 16),
+    (16, 1), (16, 7), (16, 9), (16, 10), (16, 11), (16, 13),
+])
 def test_pedigree_kernels_match_plain(cuda_device, T, K):
     """The general-T forward kernel (tables unseeded and seeded, m-only) and
-    backtrace kernel (M = 1 and M = T + 1) against their plain versions,
-    on both sides of the shared-memory limit of the state."""
+    backtrace kernel (M = 1 and M = T + 1) against their plain versions, at
+    the boundaries of the forward kernel's cluster layout (fewer than 32
+    states, one CTA, the first cluster, the top of the envelope)."""
     P = 4
     arrays = _pedigree_bucket(K, T, seed=7 * K + T)
     K = arrays[0].shape[2]
@@ -182,6 +186,58 @@ def test_pedigree_kernels_match_plain(cuda_device, T, K):
         ref = wmec_cuda.backtrace_t_plain(init, pidx, pjmin)
         torch.cuda.synchronize()
         for x, y in zip(out, ref):
+            assert torch.equal(x, y)
+
+
+def _tie_bucket(K, T, P, device, n_blocks=3, n_cols=48, seed=0):
+    """Stacked block arrays at exactly K slots, drawn so that ties abound:
+    weights, base costs, rankw and assignment costs in {0, 1},
+    recombination costs in {0, 1, 2}, a quarter of the slots dying before
+    each column (folds at every level of the cluster layout)."""
+    rng = np.random.RandomState(seed)
+    B, C = n_blocks, n_cols
+    arrays = [
+        rng.randint(0, 2, (B, C, K, T * P * 2)).astype(np.float32),
+        rng.randint(0, 2, (B, C, T, P, 2)).astype(np.int32),
+        rng.randint(0, 2, (B, C, K)).astype(np.float32),
+        rng.randint(0, 2, (B, C, T, 1 << P)).astype(np.int32),
+        rng.rand(B, C, K) < 0.25,
+        rng.randint(0, 3, (B, C)).astype(np.int32),
+    ]
+    return blocks.to_device(arrays, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K,P", [
+    (4, 1, 4), (4, 4, 4), (4, 5, 4), (4, 9, 2), (4, 10, 4), (4, 13, 4), (4, 15, 4), (4, 16, 4),
+    (16, 1, 4), (16, 9, 4), (16, 13, 2), (16, 13, 4),
+])
+def test_pedigree_kernels_break_ties_as_plain(cuda_device, T, K, P):
+    """Every mode of the general-T forward kernel on a tie-heavy bucket:
+    tables unseeded and seeded, m-only, carry and tables from that carry,
+    bit-equal to the plain versions in pidx, pjmin, dp_last, jmin_last,
+    key_last and m, so every fold, across lanes, warps, CTAs and loop bits,
+    breaks its ties as the reference does."""
+    ta = _tie_bucket(K, T, P, cuda_device, seed=100 * T + 10 * K + P)
+    B = ta[0].shape[0]
+    dp0 = torch.from_numpy(np.random.RandomState(K).randint(0, 2, (B, T)).astype(np.int32)).to(cuda_device)
+    for seed in (None, dp0):
+        kern = wmec_cuda.forward_t(K, T, P, *ta, seed)
+        plain = wmec_cuda.forward_t_plain(K, T, P, *ta, seed)
+        torch.cuda.synchronize()
+        for x, y in zip(kern, plain):
+            assert torch.equal(x, y)
+    assert torch.equal(wmec_cuda.forward_m_t(K, T, P, *ta, dp0), wmec_cuda.forward_m_t_plain(K, T, P, *ta, dp0))
+    head = [a[:, :16].contiguous() for a in ta]
+    tail = [a[:, 16:].contiguous() for a in ta]
+    carry = tuple(wmec_cuda.forward_t(K, T, P, *head)[2:])
+    pairs = [
+        (wmec_cuda.forward_carry_t(K, T, P, *tail, carry), wmec_cuda.forward_carry_t_plain(K, T, P, *tail, carry)),
+        (wmec_cuda.forward_t(K, T, P, *tail, carry=carry), wmec_cuda.forward_t_plain(K, T, P, *tail, carry=carry)),
+    ]
+    torch.cuda.synchronize()
+    for kern, plain in pairs:
+        for x, y in zip(kern, plain):
             assert torch.equal(x, y)
 
 
@@ -423,12 +479,14 @@ def _carry_bucket(T, K, device, n_blocks=3, n_cols=96, head_cols=32):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,K", [(1, 7), (1, 14), (1, 15), (1, 17), (4, 7), (4, 13), (4, 16), (16, 7), (16, 13)])
+@pytest.mark.parametrize("T,K", [
+    (1, 7), (1, 14), (1, 15), (1, 17), (4, 7), (4, 12), (4, 13), (4, 16), (16, 7), (16, 10), (16, 13),
+])
 def test_carry_kernels_match_plain(cuda_device, T, K):
     """Rows 9 and 10, the carry kernel and the tables kernel from a carry,
     against their plain versions from a nonzero carry, on both sides of the
-    shared-memory limit of the state; the carry they read is left as it
-    was."""
+    T = 1 kernel's shared-memory limit and of the general-T kernel's first
+    cluster; the carry they read is left as it was."""
     K, P, tail, carry = _carry_bucket(T, K, cuda_device)
     saved = [c.clone() for c in carry]
     if T == 1:

@@ -276,13 +276,37 @@ def test_kernel_envelope():
     assert wmec_cuda.state_bytes(14) == 0
     assert wmec_cuda.state_bytes(15) == 12 << 15
     assert wmec_cuda.state_bytes(17) == 12 << 17
-    # general T: (2T + 3) words with tables, T words in the m-only mode
-    assert wmec_cuda.state_bytes(12, 4) == 0
-    assert wmec_cuda.state_bytes(13, 4) == 44 << 13
-    assert wmec_cuda.state_bytes(13, 4, tables=False) == 0
-    assert wmec_cuda.state_bytes(10, 16) == 0
-    assert wmec_cuda.state_bytes(11, 16) == 140 << 11
-    assert wmec_cuda.state_bytes(12, 16, tables=False) == 64 << 12
+    # general T: no scratch at any shape of the envelope, in any mode; the
+    # state stays in the shared memory of the block's cluster
+    assert all(wmec_cuda.state_bytes(k, 4) == 0 for k in range(1, 17))
+    assert all(wmec_cuda.state_bytes(k, 16) == 0 for k in range(1, 14))
+
+
+@pytest.mark.parametrize("K,T,P", [
+    (K, T, P) for T, k_max in sorted(wmec_cuda.MAX_K_T.items()) for P in wmec_cuda.PEDIGREE_P
+    for K in range(1, k_max + 1)
+])
+def test_forward_t_layout(K, T, P):
+    """The general-T forward kernel's layout, as its C entries compute it
+    (csrc/wmec_forward_t.cu): at every shape of the envelope, in every mode,
+    the cluster's CTAs, their threads and the loop bits hold each of the 2^K
+    states exactly once (lane | warp | CTA rank | loop bits), a CTA's state,
+    staged columns and sums tables fit the 227 KB of shared memory it may
+    use, and a cluster takes at most 16 CTAs (16 from K = 13)."""
+    assert wmec_cuda.kernel_supported(K, T, P)
+    for tables in (True, False):
+        lay = wmec_cuda.forward_t_layout(K, T, P, tables)
+        tb, cb, lb = lay["thread_bits"], lay["cta_bits"], lay["loop_bits"]
+        held = [
+            (m << (tb + cb)) | (r << tb) | tid
+            for m in range(1 << lb) for r in range(1 << cb) for tid in range(min(lay["threads"], 1 << tb))
+        ]
+        assert sorted(held) == list(range(1 << K))
+        assert 32 <= lay["threads"] <= 512 and lay["threads"] == max(32, 1 << tb)
+        assert lb <= (3 if T == 4 else 0)  # the loop bits the kernel is built for
+        assert lay["smem_bytes"] <= 227 * 1024
+        assert (1 << cb) <= 16 and ((1 << cb) == 16) == (K >= 13)
+        assert K < 9 or 1 << (K - cb) >= 512
 
 
 def test_launch_chunking_is_exact(monkeypatch):
@@ -302,12 +326,13 @@ def test_launch_chunking_is_exact(monkeypatch):
 
 
 def _port_files():
-    return sorted((REPO / "whatshap_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted((REPO / "whatshap_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "profile_forward_t.py"]
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """(f) No module of the port, and not chip_smoke.py, imports jax or the
-    reference package (AST scan of every import statement)."""
+    """(f) No module of the port, and neither chip_smoke.py nor
+    profile_forward_t.py, imports jax or the reference package (AST scan of
+    every import statement)."""
     banned = ("jax", "jaxlib", "whatshap_tpu", "tools")
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))

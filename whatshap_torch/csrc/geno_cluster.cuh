@@ -1,7 +1,8 @@
 // Shared pieces of the genotyping forward-backward kernels (geno_backward.cu,
 // geno_forward.cu): the layout of an instance's state over a thread-block
-// cluster, the staged per-column inputs, the emission sums, the sum-folds by
-// level of the state index and the cluster launch.
+// cluster, the staged per-column inputs, the emission sums and the sum-folds
+// by level of the state index (the cluster barriers and launch are in
+// cluster.cuh).
 //
 // Layout.  An instance's state is T planes of S = 2^K floats, split over a
 // cluster of N = 2^cbits CTAs.  A state index i has, from its low bits up:
@@ -32,19 +33,22 @@
 
 #pragma once
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cluster.cuh"
 
 namespace geno {
 
 namespace cg = cooperative_groups;
+using clusters::cluster_arrive;
+using clusters::cluster_bits;
+using clusters::cluster_sync;
+using clusters::cluster_wait;
+using clusters::kMaxCtaBits;
+using clusters::kThreadBits;
+using clusters::launch_clusters;
 
 constexpr int kMaxK = 17;
-constexpr int kThreadBits = 9;  // at most 512 threads a CTA
 constexpr int kWarps = (1 << kThreadBits) / 32;
-constexpr int kMaxCtaBits = 4;  // at most 16 CTAs a cluster (non-portable above 8)
-constexpr int kPre = 4;         // staged input words a thread prefetches per column
+constexpr int kPre = 4;  // staged input words a thread prefetches per column
 
 // Largest LR per transmission count, K - kMaxCtaBits - kThreadBits at the
 // top K of the envelope (17, 16, 13): T * 2^LR <= 32 registers of state.
@@ -174,19 +178,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Split cluster barrier (release on arrive, acquire on wait); every thread of
-// every CTA of the cluster takes part, and waits before it arrives again.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  cluster_arrive();
-  cluster_wait();
-}
-
 // Where the thread sits in the instance's state.
 struct Place {
   int K, Ku, Kc, lb;  // state bits, bits below the register bits, thread bits, lane bits
@@ -286,49 +277,6 @@ __device__ __forceinline__ void sum_fold(float (&x)[T][1 << LR], uint32_t mask, 
       }
     }
   }
-}
-
-// Launch `kernel` as B clusters of 2^cbits CTAs of max(32, 2^(K - cbits -
-// LR)) threads with `smem` bytes of dynamic shared memory.  Returns a CUDA
-// error code; cudaErrorInvalidClusterSize where the card cannot schedule one
-// such cluster.
-template <typename Kernel, typename Args>
-int launch_clusters(Kernel kernel, const Args& a, int B, int K, int cbits, int LR, size_t smem,
-                    cudaStream_t stream) {
-  const int n = 1 << cbits;
-  const int threads = K - cbits - LR < 5 ? 32 : 1 << (K - cbits - LR);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  if (n > 8) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)B * n);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (e != cudaSuccess) return (int)e;
-  if (clusters < 1) return (int)cudaErrorInvalidClusterSize;
-  e = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-// The CTA bits of an instance's cluster: as many CTAs as leave each 2^9
-// states or more, at most 2^kMaxCtaBits.
-inline int cluster_bits(int K) {
-  const int cbits = K - kThreadBits;
-  return cbits < 0 ? 0 : cbits > kMaxCtaBits ? kMaxCtaBits : cbits;
 }
 
 // The shape checks of both C entry points: 1 <= K <= kMaxK and the register

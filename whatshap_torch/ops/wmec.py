@@ -928,7 +928,7 @@ def forward_m_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
     """Pass 1 of the pedigree route, forward_m_batched's signature, through
     the m-only kernel wmec_cuda.forward_m_t where it takes the shape."""
     fwd = _pick(K, T, P, wdiff.device, wmec_cuda.forward_m_t, forward_m_batched)
-    per_block = wmec_cuda.state_bytes(K, T, tables=False) if fwd is not forward_m_batched else 0
+    per_block = wmec_cuda.state_bytes(K, T) if fwd is not forward_m_batched else 0
     return _launch_batched(
         fwd, K, T, P, (wdiff, wbase, rankw, acost, die_prev, rc, dp0), per_block
     )

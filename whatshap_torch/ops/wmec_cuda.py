@@ -16,7 +16,9 @@ Replaces whatshap_tpu/ops/wmec_pallas.py:
   unseeded, seeded or from a carry (forward_scan_pallas, solve_batched_pallas
   at T = 4/16, forward_tables_seeded_pallas, forward_tables_pallas), and in
   the seeded m-only mode of the seam pass (forward_m_seeded_pallas);
-  forward_carry_t launches its carry mode (forward_carry_pallas);
+  forward_carry_t launches its carry mode (forward_carry_pallas); each
+  launch runs one thread-block cluster per block with the block's state in
+  the cluster's shared memory (forward_t_layout);
 - backtrace_t launches csrc/wmec_backtrace_t.cu, the general-T walk of
   (index, transmission, preceding transmission) that replaces
   _make_backtrace_kernel_t, M walks per block over its tables
@@ -55,9 +57,9 @@ PEDIGREE_P = (2, 4)
 ENVELOPE = f"T = 1, P = 2, K <= {MAX_K}; " + "; ".join(
     f"T = {t}, P in {PEDIGREE_P}, K <= {k}" for t, k in MAX_K_T.items()
 )
-#: Dynamic shared memory a forward CTA may take for its state (of the 227 KB
-#: a Hopper CTA can use, leaving room for the staged column inputs); a larger
-#: state lives in a per-block global scratch.
+#: Dynamic shared memory the T=1 forward CTA may take for its state (of the
+#: 227 KB a Hopper CTA can use, leaving room for the staged column inputs); a
+#: larger state lives in a per-block global scratch.
 SMEM_STATE_BYTES = 200 * 1024
 
 
@@ -70,23 +72,47 @@ def kernel_supported(K: int, T: int, P: int) -> bool:
     return T in MAX_K_T and P in PEDIGREE_P and 1 <= K <= MAX_K_T[T]
 
 
-def _state_words(T: int, tables: bool) -> int:
-    """int32 words of forward state per bipartition: cost, tie key and
-    projection index at T = 1; cost and jmin per transmission plane plus the
-    key, the fold's key and the fold's index for T > 1 (cost planes only in
-    the m-only mode)."""
-    if T == 1:
-        return 3
-    return 2 * T + 3 if tables else T
-
-
-def state_bytes(K: int, T: int = 1, tables: bool = True) -> int:
-    """Device scratch a forward kernel needs per block beyond its outputs:
-    none while its state fits shared memory (SMEM_STATE_BYTES; at T = 1 up
-    to K = 14), else the whole state.  The carry mode keeps the state of the
-    tables mode (tables=True)."""
-    b = _state_words(T, tables) * 4 << K
+def state_bytes(K: int, T: int = 1) -> int:
+    """Device scratch a forward kernel needs per block beyond its outputs.
+    At T = 1 none while its state (cost, tie key and projection index, 12
+    bytes a bipartition) fits shared memory (SMEM_STATE_BYTES: up to K = 14),
+    else the whole state.  For T > 1 none at any shape of the envelope: the
+    state stays in the shared memory of the block's cluster
+    (forward_t_layout)."""
+    if T > 1:
+        return 0
+    b = 12 << K
     return 0 if b <= SMEM_STATE_BYTES else b
+
+
+def forward_t_layout(K: int, T: int, P: int, tables: bool) -> dict:
+    """The layout of one block's state in csrc/wmec_forward_t.cu, computed as
+    its C entries compute it (clusters::cluster_bits, layout_lr and
+    smem_bytes there): a cluster of 2^cta_bits CTAs (16 from K = 13, fewer
+    below so that each CTA keeps 2^9 states), `threads` threads a CTA of
+    which 2^thread_bits hold states, and 2^loop_bits states a thread; a
+    state index is lane | warp | CTA rank | loop bits from the bottom up.
+    smem_bytes is a CTA's shared memory: its states' words ((2T + 3) with
+    tables, T in the carry and m-only modes, tables=False), two staged
+    column records, the column's sums tables and the m-only reduction."""
+    cta_bits = min(max(K - 9, 0), 4)
+    kl = K - cta_bits
+    thread_bits = min(kl, 9)
+    loop_bits = kl - thread_bits
+    lane_bits = min(5, thread_bits)
+    hbits = thread_bits - lane_bits + loop_bits
+    tp2 = T * 2 * P
+    state = (2 * T + 3 if tables else T) << kl
+    rec = 2 * (-(-(K * tp2 + tp2 + (T << P) + 2 * K + 1) // 4) * 4)
+    sums = tp2 * 32 + (tp2 << hbits) + 32 + (1 << hbits)
+    red = 16 * T + T
+    return {
+        "cta_bits": cta_bits,
+        "thread_bits": thread_bits,
+        "threads": 1 << max(thread_bits, 5),
+        "loop_bits": loop_bits,
+        "smem_bytes": 4 * (state + rec + sums + red),
+    }
 
 
 _P = ctypes.c_void_p
@@ -95,9 +121,9 @@ _SIGNATURES = {
     "wmec_forward_t1": [_P] * 11 + [_I] * 3 + [_P],
     "wmec_forward_carry_t1": [_P] * 10 + [_I] * 3 + [_P],
     "wmec_backtrace_t1": [_P] * 4 + [_I] * 3 + [_P],
-    "wmec_forward_t": [_P] * 16 + [_I] * 5 + [_P],
-    "wmec_forward_carry_t": [_P] * 13 + [_I] * 5 + [_P],
-    "wmec_forward_m_t": [_P] * 8 + [_I] * 5 + [_P],
+    "wmec_forward_t": [_P] * 15 + [_I] * 5 + [_P],
+    "wmec_forward_carry_t": [_P] * 12 + [_I] * 5 + [_P],
+    "wmec_forward_m_t": [_P] * 7 + [_I] * 5 + [_P],
     "wmec_backtrace_t": [_P] * 6 + [_I] * 5 + [_P],
     "geno_backward": [_P] * 8 + [_I] * 5 + [_P],
     "geno_forward": [_P] * 8 + [_I] * 5 + [_P],
@@ -414,16 +440,13 @@ def forward_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None, carry
     dp_last = torch.empty((B, T, S), dtype=torch.int32, device=dev)
     jmin_last = torch.empty_like(dp_last)
     key_last = torch.empty((B, S), dtype=torch.int32, device=dev)
-    scratch = None
-    if state_bytes(K, T):
-        scratch = torch.empty((B, _state_words(T, True), S), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch(
             "wmec_forward_t",
             wdiff.data_ptr(), wbase.data_ptr(), rankw.data_ptr(), acost.data_ptr(),
             die_prev.data_ptr(), rc.data_ptr(), _ptr(dp0), _ptr(cost0), _ptr(jmin0), _ptr(key0),
             pidx.data_ptr(), pjmin.data_ptr(), dp_last.data_ptr(), jmin_last.data_ptr(),
-            key_last.data_ptr(), _ptr(scratch),
+            key_last.data_ptr(),
             B, C, K, T, P,
         )
     forward_t.launches += 1
@@ -460,16 +483,13 @@ def forward_carry_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
     dp_last = torch.empty((B, T, S), dtype=torch.int32, device=dev)
     jmin_last = torch.empty_like(dp_last)
     key_last = torch.empty((B, S), dtype=torch.int32, device=dev)
-    scratch = None
-    if state_bytes(K, T):
-        scratch = torch.empty((B, _state_words(T, True), S), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch(
             "wmec_forward_t",
             wdiff.data_ptr(), wbase.data_ptr(), rankw.data_ptr(), acost.data_ptr(),
             die_prev.data_ptr(), rc.data_ptr(),
             carry[0].data_ptr(), carry[1].data_ptr(), carry[2].data_ptr(),
-            dp_last.data_ptr(), jmin_last.data_ptr(), key_last.data_ptr(), _ptr(scratch),
+            dp_last.data_ptr(), jmin_last.data_ptr(), key_last.data_ptr(),
             B, C, K, T, P,
             fn_name="wmec_forward_carry_t",
         )
@@ -499,16 +519,13 @@ def forward_m_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
     if dev.type == "cpu":
         return forward_m_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
 
-    B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
+    B, C = wdiff.shape[0], wdiff.shape[1]
     m = torch.empty((B, T), dtype=torch.int32, device=dev)
-    scratch = None
-    if state_bytes(K, T, tables=False):
-        scratch = torch.empty((B, _state_words(T, False), S), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch(
             "wmec_forward_t",
             wdiff.data_ptr(), wbase.data_ptr(), acost.data_ptr(), die_prev.data_ptr(),
-            rc.data_ptr(), dp0.data_ptr(), m.data_ptr(), _ptr(scratch),
+            rc.data_ptr(), dp0.data_ptr(), m.data_ptr(),
             B, C, K, T, P,
             fn_name="wmec_forward_m_t",
         )
