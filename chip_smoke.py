@@ -9,8 +9,9 @@ Phases, every one of which must pass:
 1. build    nvcc builds every kernel from whatshap_torch/csrc, one process per
             source, all started together.
 2. kernels  on the card, each kernel is held bit-equal against its plain
-            torch version on the same CUDA tensors: the T=1 kernels at K = 7,
-            10, 14, 15, 16, 17 (B = 4 blocks of C = 256 columns); the carry
+            torch version on the same CUDA tensors: the T=1 kernels at K = 7
+            to 17 (B = 4 blocks of C = 256 columns: the forward kernel's
+            narrow layout) and K = 12, 15, 17 (B = 12: its wide one); the carry
             kernels (kernel row 9) and the tables kernels from a carry (row
             10), from the nonzero state after the first 64 columns of B = 3
             blocks of C = 192, at T = 1, K = 7, 10, 14, 15, 16, 17; T = 4, K
@@ -24,7 +25,10 @@ Phases, every one of which must pass:
             slots dying each column) at K = 1 to 16 (T = 4) and 1 to 13
             (T = 16), P = 2 and 4: its cluster layout's boundaries, fewer
             than 32 states, one CTA, the first cluster, the top of the
-            envelope.  The genotyping kernels (backward
+            envelope; likewise both modes of the T=1 forward kernel (tables
+            from zero, carry, tables from the carry) at K = 1, 4, 5, 9, 10,
+            13 to 17 (B = 3, narrow layout) and 11, 12, 15, 16, 17 (B = 9,
+            wide layout).  The genotyping kernels (backward
             and forward, one thread-block cluster per instance) against
             their float32 plain versions at T = 1, K = 3, 7, 10, 12, 15, 16,
             17 (K = 15 and 17 also in clusters of 8 CTAs); T = 4, K = 7, 12,
@@ -84,14 +88,15 @@ Phases, every one of which must pass:
             is printed.
 10. timing  the main paths' largest buckets copied to the card, and each
             kernel at its shape (CUDA events), beside its plain version and
-            its bound: the wMEC kernels as before, the general-T tables
+            its bound: the T=1 kernels at the slice's bucket and at the
+            single block (B = 1, C = 4096), each with its cluster layout and
+            microseconds per column, the general-T tables
             kernel and backtrace also at the trio-single shape, the
             genotyping kernels at the genotype and genotype-trio shapes
             (with the CTAs per cluster, the SMs used and the share of the
             bound), rows 9 and 10 at the segments' shapes (B = 1; C = 2048,
-            K = 15, T = 1 and C = 512, K = 15, T = 4); each general-T
-            forward mode with its cluster layout and microseconds per
-            column.
+            K = 15, T = 1 and C = 512, K = 15, T = 4); each forward mode
+            with its cluster layout and microseconds per column.
 
 It prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}.  Where there is no CUDA device,
@@ -228,12 +233,14 @@ def _max_err(pairs) -> int:
     return worst
 
 
-def compare_kernels(device, ks=(7, 10, 14, 15, 16, 17), n_blocks=4, n_cols=256):
-    """Phase 2: both kernels against their plain versions, bit for bit.
-    Returns {kernel name: max abs error}."""
+def compare_kernels(device, shapes=tuple((K, 4) for K in range(7, 18)) + ((12, 12), (15, 12), (17, 12)),
+                    n_cols=256):
+    """Phase 2: both kernels against their plain versions, bit for bit, at
+    (K, B): the forward kernel's narrow layout (B = 4) and its wide one (B =
+    12).  Returns {kernel name: max abs error}."""
     err = {"wmec_forward_t1": 0, "wmec_backtrace_t1": 0}
-    for K in ks:
-        arrays = packed_bucket(n_blocks, n_cols, K, 1000 + 10 * K, device)
+    for K, n_blocks in shapes:
+        arrays = packed_bucket(n_blocks, n_cols, K, 1000 + 10 * K + n_blocks, device)
         kern = wmec_cuda.forward_t1(K, 2, *arrays)
         plain = wmec_cuda.forward_t1_plain(K, 2, *arrays)
         torch.cuda.synchronize()
@@ -631,6 +638,51 @@ def compare_tie_kernels(device, shapes=((4, 1, 4), (4, 4, 4), (4, 5, 4), (4, 9, 
     return err
 
 
+def compare_tie_kernels_t1(device, shapes=tuple((K, 3) for K in (1, 4, 5, 9, 10, 13, 14, 15, 16, 17))
+                           + tuple((K, 9) for K in (11, 12, 15, 16, 17)), n_cols=64, head_cols=24):
+    """Phase 2, T = 1 on the tie-heavy bucket: both modes of the T=1 forward
+    kernel (tables from a zero state, carry, tables from that carry) against
+    their plain versions, bit for bit, at (K, B) from fewer than 32 states to
+    K = 17, in the narrow layout (B = 3) and the wide one (B = 9).  Returns
+    {entry: max abs error}."""
+    err = {}
+    for K, B in shapes:
+        arrays = tie_bucket(B, n_cols, K, 1, 2, 7000 + 10 * K + B, device)
+        head = [a[:, :head_cols].contiguous() for a in arrays]
+        tail = [a[:, head_cols:].contiguous() for a in arrays]
+        carry = _carry_after(K, 1, 2, head)
+        runs = {
+            "wmec_forward_t1": (lambda: wmec_cuda.forward_t1(K, 2, *arrays),
+                                lambda: wmec_cuda.forward_t1_plain(K, 2, *arrays)),
+            "wmec_forward_carry_t1": (lambda: wmec_cuda.forward_carry_t1(K, 2, *tail, carry),
+                                      lambda: wmec_cuda.forward_carry_t1_plain(K, 2, *tail, carry)),
+            "wmec_forward_t1:carry_in": (lambda: wmec_cuda.forward_t1(K, 2, *tail, carry=carry),
+                                         lambda: wmec_cuda.forward_t1_plain(K, 2, *tail, carry)),
+        }
+        e = {}
+        for name, (kern_fn, plain_fn) in runs.items():
+            kern, plain = kern_fn(), plain_fn()
+            torch.cuda.synchronize()
+            e[name] = _max_err(zip(kern, plain))
+            del kern, plain
+        lay = wmec_cuda.forward_t1_layout(K, B)
+        print(f"kernels tie-heavy T= 1 K={K:2d} B={B} C={n_cols} ({1 << lay['cta_bits']} CTAs a block): "
+              + " ".join(f"{n} max|err|={v}" for n, v in e.items()), flush=True)
+        _require(all(v == 0 for v in e.values()), f"T=1 forward bit-equal on the tie-heavy bucket at K={K}, B={B}")
+        for name, v in e.items():
+            err[name] = max(err.get(name, 0), v)
+    return err
+
+
+def _layout_t1(K, B, tables, ms, C):
+    """The T=1 forward kernel's cluster layout in a launch of B blocks and
+    its microseconds per column (of all B blocks), for the timing lines."""
+    lay = wmec_cuda.forward_t1_layout(K, B, tables)
+    return (f"[{B} clusters of {1 << lay['cta_bits']} CTAs x {lay['threads']} threads, "
+            f"{1 << lay['loop_bits']} states a thread, {lay['smem_bytes']} B shared a CTA; "
+            f"{ms * 1e3 / C:.2f} us per column]")
+
+
 def _layout(K, T, P, tables, ms, C, B):
     """The forward kernel's cluster layout at a shape and its microseconds
     per column (of all B blocks of the launch), for the timing lines."""
@@ -654,8 +706,9 @@ def _time(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def time_kernels(packed):
-    """Phase 8, T = 1: each kernel at the slice's largest bucket."""
+def time_kernels(packed, label="slice"):
+    """Phase 10, T = 1: each kernel at the largest bucket of the path
+    (slice: B = 256 blocks; single: the one 4096-column block)."""
     (c_pad, K), members, _ri = main_bucket(packed)
     stacked = blocks.stack_blocks(members)
     torch.cuda.synchronize()
@@ -664,7 +717,7 @@ def time_kernels(packed):
     torch.cuda.synchronize()
     h2d_ms = (time.perf_counter() - t0) * 1e3
     B, C, S = len(members), c_pad, 1 << K
-    print(f"timing at the main bucket: B={B} C={C} K={K}; its copy to the card "
+    print(f"timing at the {label}'s main bucket: B={B} C={C} K={K}; its copy to the card "
           f"{h2d_ms:.3f} ms", flush=True)
 
     fwd_ms = _time(lambda: wmec_cuda.forward_t1(K, 2, *arrays), reps=3)
@@ -684,7 +737,7 @@ def time_kernels(packed):
     torch.cuda.synchronize()
     bt_plain_ms = (time.perf_counter() - t0) * 1e3
     bt_err = _max_err([(path, path_p), (final, final_p)])
-    _require(fwd_err == 0 and bt_err == 0, "kernels bit-equal to plain at the main bucket")
+    _require(fwd_err == 0 and bt_err == 0, f"kernels bit-equal to plain at the {label}'s bucket")
 
     # bounds: each input read once and each output written once, against
     # the adds the function needs: its four cost sums and its key sum change
@@ -707,9 +760,10 @@ def time_kernels(packed):
             "bound_ms": bt_bytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
         },
     }
+    notes = {"wmec_forward_t1": " " + _layout_t1(K, B, True, fwd_ms, C)}
     for name, r in out.items():
-        print(f"{name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms), bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']}", flush=True)
+        print(f"{label} {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms), bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}{notes.get(name, '')}", flush=True)
     return out
 
 
@@ -1005,7 +1059,10 @@ def time_carry_kernels(packed, seg, label, device="cuda"):
                          bound_ms=bound[0], bound_by=bound[1])
         del kern, plain
         r = out[name]
-        note = "" if T == 1 else " " + _layout(K, T, P, name != "wmec_forward_carry_t", ms, seg, 1)
+        if T == 1:
+            note = " " + _layout_t1(K, 1, name != "wmec_forward_carry_t1", ms, seg)
+        else:
+            note = " " + _layout(K, T, P, name != "wmec_forward_carry_t", ms, seg, 1)
         print(f"{label} {name} (B=1 C={seg} K={K} T={T} P={P}): {ms:.3f} ms (plain {plain_ms:.3f} ms), "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, max|err|={r['max_abs_err']}{note}", flush=True)
     _require(all(r["max_abs_err"] == 0 for r in out.values()), f"{label}: rows 9 and 10 bit-equal at the segment")
@@ -1384,7 +1441,7 @@ def main() -> int:
     errs = compare_kernels("cuda")
     errs.update(compare_carry_kernels("cuda"))
     errs.update(compare_pedigree_kernels("cuda"))
-    for name, e in compare_tie_kernels("cuda").items():
+    for name, e in [*compare_tie_kernels("cuda").items(), *compare_tie_kernels_t1("cuda").items()]:
         errs[name] = max(errs.get(name, 0), e)
     errs.update(compare_geno_kernels("cuda"))
     print(f"phases 1-2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1411,7 +1468,7 @@ def main() -> int:
         rs1, pos1, het1, [1] * len(pos1), (truth1[0], both(truth1[1])), "cuda", "single",
         ("wmec_forward_t1", "wmec_backtrace_t1"),
     )
-    del rs1, packed1
+    del rs1
     print(f"phases 3-4 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 5. the pedigree path: a 64-block trio chromosome at coverage 5 each
@@ -1482,6 +1539,8 @@ def main() -> int:
     times = time_kernels(packed)
     del packed
     torch.cuda.empty_cache()
+    time_kernels(packed1, "single")
+    del packed1
     packed_t = wmec.pack_problem(rs_t, [10] * len(pos_t), ped_t, False, pos_t)
     times.update(time_pedigree_kernels(packed_t))
     time_trio_single_kernels(packed_s)

@@ -36,13 +36,17 @@ VARIANTS = {
 }
 
 
-def build_variants():
-    src = (_build.CSRC / "wmec_forward_t.cu").read_text()
-    out = _build.BUILD_DIR / "parts"
+def build_variants(source="wmec_forward_t", variants=VARIANTS, fns=("wmec_forward_t", "wmec_forward_carry_t"),
+                   parts="parts"):
+    """Build each variant of csrc/<source>.cu (its text substitutions applied)
+    under build/whatshap_torch/<parts>/, one nvcc each, all started together;
+    returns {variant: the loaded library, with the C entries `fns` bound}."""
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    out = _build.BUILD_DIR / parts
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     procs = {}
-    for i, (name, subs) in enumerate(VARIANTS.items()):
+    for i, (name, subs) in enumerate(variants.items()):
         text = src
         for a, b in subs:
             if a not in text:
@@ -58,7 +62,7 @@ def build_variants():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name!r}:\n{log}")
         lib = ctypes.CDLL(str(so))
-        for fn in ("wmec_forward_t", "wmec_forward_carry_t"):
+        for fn in fns:
             getattr(lib, fn).argtypes = wmec_cuda._SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib

@@ -61,7 +61,7 @@ def _chromosome(n_blocks, n_cols, coverage, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [1, 3, 5, 7, 10, 14, 15, 16])
+@pytest.mark.parametrize("K", [1, 3, 5, 7, 9, 10, 13, 14, 15, 16, 17])
 def test_kernels_match_plain(cuda_device, K):
     arrays = blocks.to_device(_bucket(K, seed=10 * K), cuda_device)
     kern = wmec_cuda.forward_t1(K, 2, *arrays)
@@ -236,6 +236,35 @@ def test_pedigree_kernels_break_ties_as_plain(cuda_device, T, K, P):
         (wmec_cuda.forward_t(K, T, P, *tail, carry=carry), wmec_cuda.forward_t_plain(K, T, P, *tail, carry=carry)),
     ]
     torch.cuda.synchronize()
+    for kern, plain in pairs:
+        for x, y in zip(kern, plain):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B", [(K, 3) for K in (1, 4, 5, 9, 10, 13, 14, 15, 16, 17)] + [
+    (K, wmec_cuda.T1_WIDE_B + 1) for K in (11, 12, 13, 14, 15, 16, 17)
+])
+def test_t1_kernels_break_ties_as_plain(cuda_device, K, B):
+    """Both modes of the T=1 forward kernel on a tie-heavy bucket, in its
+    narrow layout (B = 3) and its wide one (B above T1_WIDE_B): tables from a
+    zero state, carry, and tables from that nonzero carry, bit-equal to the
+    plain versions in pidx, dp_last and key_last, so every fold, across
+    lanes, warps, CTAs and loop bits, breaks its ties as the reference
+    does."""
+    ta = _tie_bucket(K, 1, 2, cuda_device, n_blocks=B, n_cols=48 if B < 8 else 24, seed=10 * K + B)
+    kern = wmec_cuda.forward_t1(K, 2, *ta)
+    plain = wmec_cuda.forward_t1_plain(K, 2, *ta)
+    head = [a[:, :12].contiguous() for a in ta]
+    tail = [a[:, 12:].contiguous() for a in ta]
+    carry = wmec_cuda.forward_t1(K, 2, *head)[1:]
+    pairs = [
+        (kern, plain),
+        (wmec_cuda.forward_carry_t1(K, 2, *tail, carry), wmec_cuda.forward_carry_t1_plain(K, 2, *tail, carry)),
+        (wmec_cuda.forward_t1(K, 2, *tail, carry=carry), wmec_cuda.forward_t1_plain(K, 2, *tail, carry)),
+    ]
+    torch.cuda.synchronize()
+    assert bool((carry[0] != 0).any())
     for kern, plain in pairs:
         for x, y in zip(kern, plain):
             assert torch.equal(x, y)
@@ -480,13 +509,13 @@ def _carry_bucket(T, K, device, n_blocks=3, n_cols=96, head_cols=32):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,K", [
-    (1, 7), (1, 14), (1, 15), (1, 17), (4, 7), (4, 12), (4, 13), (4, 16), (16, 7), (16, 10), (16, 13),
+    (1, 7), (1, 13), (1, 14), (1, 15), (1, 16), (1, 17), (4, 7), (4, 12), (4, 13), (4, 16), (16, 7), (16, 10), (16, 13),
 ])
 def test_carry_kernels_match_plain(cuda_device, T, K):
     """Rows 9 and 10, the carry kernel and the tables kernel from a carry,
-    against their plain versions from a nonzero carry, on both sides of the
-    T = 1 kernel's shared-memory limit and of the general-T kernel's first
-    cluster; the carry they read is left as it was."""
+    against their plain versions from a nonzero carry, at the first cluster
+    of 16 CTAs and at every count of loop bits of both kernels; the carry
+    they read is left as it was."""
     K, P, tail, carry = _carry_bucket(T, K, cuda_device)
     saved = [c.clone() for c in carry]
     if T == 1:

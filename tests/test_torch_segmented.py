@@ -144,15 +144,27 @@ def _lanes(x, T):
     return x.reshape(x.shape[0], T, -1, LANES)
 
 
-@pytest.mark.parametrize("T", [1, 4])
-def test_carry_wrappers_match_pallas(T):
-    """Rows 9 and 10 through their wrappers (the plain versions, on CPU
-    tensors) against forward_carry_pallas and forward_tables_pallas in
-    interpret mode, from a nonzero carry, at the kernels' padded K."""
-    K, P, arrays = _bucket(T, seed=20 + T, c_pad=12, n_pos=12, k_min=ref_pallas.LANE_BITS)
-    head, tail = _split(arrays, 7)
+def _t1_tie_bucket(K, C=32, B=3):
+    """Stacked T=1 block arrays at exactly K slots, drawn so that ties
+    abound: weights, base costs, rankw and assignment costs in {0, 1}, a
+    quarter of the slots dying before each column."""
+    rng = np.random.RandomState(70 + K)
+    return [
+        rng.randint(0, 2, (B, C, K, 4)).astype(np.float32),
+        rng.randint(0, 2, (B, C, 1, 2, 2)).astype(np.int32),
+        rng.randint(0, 2, (B, C, K)).astype(np.float32),
+        rng.randint(0, 2, (B, C, 1, 4)).astype(np.int32),
+        rng.rand(B, C, K) < 0.25,
+        rng.randint(0, 3, (B, C)).astype(np.int32),
+    ]
+
+
+def _check_carry_wrappers(K, T, P, arrays, at):
+    """Rows 9 and 10 through their wrappers over the columns from `at`, from
+    the state after the columns before it, against the Pallas kernels."""
+    head, tail = _split(arrays, at)
     tail = _t([np.ascontiguousarray(a) for a in tail])
-    B, C, S = arrays[0].shape[0], 5, 1 << K
+    B, C, S = arrays[0].shape[0], arrays[0].shape[1] - at, 1 << K
     if T == 1:
         _pidx, dp, key = wmec_cuda.forward_t1(K, P, *_t([np.ascontiguousarray(a) for a in head]))
         carry = (dp, key)
@@ -179,6 +191,19 @@ def test_carry_wrappers_match_pallas(T):
             assert _eq(x, r.reshape(x.shape))
         assert _eq(port_pjmin, np.asarray(ref_pjmin).reshape(B, C, T, S))
     assert _eq(port_pidx, np.asarray(ref_pidx).reshape(B, C, T, S))
+
+
+@pytest.mark.parametrize("T", [1, 4])
+def test_carry_wrappers_match_pallas(T):
+    """Rows 9 and 10 through their wrappers (the plain versions, on CPU
+    tensors) against forward_carry_pallas and forward_tables_pallas in
+    interpret mode, from a nonzero carry, at the kernels' padded K; at T = 1
+    also on tie-heavy buckets at K = 7 and 9."""
+    K, P, arrays = _bucket(T, seed=20 + T, c_pad=12, n_pos=12, k_min=ref_pallas.LANE_BITS)
+    _check_carry_wrappers(K, T, P, arrays, 7)
+    if T == 1:
+        for K in (7, 9):
+            _check_carry_wrappers(K, T, P, _t1_tie_bucket(K), 16)
 
 
 @pytest.mark.parametrize("T", [1, 4])

@@ -107,9 +107,27 @@ def _wl_quartet():
     return (*_stack(pl, 8), 16, 4)
 
 
+def _wl_t1_ties(K, C=32, B=3):
+    # tie-heavy: weights, base costs, rankw and assignment costs in {0, 1},
+    # a quarter of the slots dying before each column, so folds meet equal
+    # costs and equal keys
+    rng = np.random.RandomState(50 + K)
+    arrays = [
+        rng.randint(0, 2, (B, C, K, 4)).astype(np.float32),
+        rng.randint(0, 2, (B, C, 1, 2, 2)).astype(np.int32),
+        rng.randint(0, 2, (B, C, K)).astype(np.float32),
+        rng.randint(0, 2, (B, C, 1, 4)).astype(np.int32),
+        rng.rand(B, C, K) < 0.25,
+        rng.randint(0, 3, (B, C)).astype(np.int32),
+    ]
+    return K, arrays, 1, 2
+
+
 WORKLOADS = {
     "t1": _wl_synthetic,
     "t1_heavy": _wl_heavy,
+    "t1_ties_k7": lambda: _wl_t1_ties(7),
+    "t1_ties_k9": lambda: _wl_t1_ties(9),
     "trio": _wl_trio,
     "trio_heavy": _wl_trio_heavy,
     "quartet": _wl_quartet,
@@ -130,10 +148,11 @@ def _jax(arrays):
     return [jnp.asarray(a) for a in arrays]
 
 
-@pytest.mark.parametrize("name", ["t1", "t1_heavy"])
+@pytest.mark.parametrize("name", ["t1", "t1_heavy", "t1_ties_k7", "t1_ties_k9"])
 def test_forward_scan_t1_matches_reference(name):
     """(a) The T=1 forward scan: the wrapper's plain version and the torch
-    mirror against the Pallas kernel (interpret) and the XLA scan."""
+    mirror against the Pallas kernel (interpret) and the XLA scan, tie-heavy
+    buckets included."""
     K, T, P, arrays = _load(name)
     assert wmec_cuda.kernel_supported(K, T, P)
     ref_p = ref_pallas.forward_scan_pallas(K, T, P, *_jax(arrays), interpret=True)
@@ -272,12 +291,9 @@ def test_kernel_envelope():
     assert not wmec_cuda.kernel_supported(14, 16, 4)
     assert not wmec_cuda.kernel_supported(10, 64, 4)
     assert not wmec_cuda.kernel_supported(10, 16, 6)
-    # the forward state leaves shared memory above K = 14 (12 B per state)
-    assert wmec_cuda.state_bytes(14) == 0
-    assert wmec_cuda.state_bytes(15) == 12 << 15
-    assert wmec_cuda.state_bytes(17) == 12 << 17
-    # general T: no scratch at any shape of the envelope, in any mode; the
-    # state stays in the shared memory of the block's cluster
+    # no scratch at any shape of the envelope, in any mode: the state stays
+    # in the shared memory of the block's cluster (T = 1 and general T)
+    assert all(wmec_cuda.state_bytes(k, 1) == 0 for k in range(1, 18))
     assert all(wmec_cuda.state_bytes(k, 4) == 0 for k in range(1, 17))
     assert all(wmec_cuda.state_bytes(k, 16) == 0 for k in range(1, 14))
 
@@ -309,6 +325,42 @@ def test_forward_t_layout(K, T, P):
         assert K < 9 or 1 << (K - cb) >= 512
 
 
+@pytest.mark.parametrize("K", range(1, wmec_cuda.MAX_K + 1))
+def test_forward_t1_layout(K):
+    """The T=1 forward kernel's layout, as its C entries compute it
+    (csrc/wmec_forward_t1.cu), on both sides of its switch at T1_WIDE_B
+    blocks: in both modes the cluster's CTAs, their threads and the loop bits
+    hold each of the 2^K states exactly once (lane | warp | CTA rank | loop
+    bits), a CTA's state, staged columns and sums tables fit the 227 KB of
+    shared memory it may use, and a thread holds at most 16 states.  The
+    narrow layout takes 16 CTAs from K = 13; the wide one 4 CTAs from K = 11
+    (8 at K = 16, 16 at K = 17) and the narrow one's below."""
+    assert wmec_cuda.kernel_supported(K, 1, 2)
+    wide_b = wmec_cuda.T1_WIDE_B
+    for B in (1, wide_b, wide_b + 1, 256):
+        for tables in (True, False):
+            lay = wmec_cuda.forward_t1_layout(K, B, tables)
+            tb, cb, lb = lay["thread_bits"], lay["cta_bits"], lay["loop_bits"]
+            held = [
+                (m << (tb + cb)) | (r << tb) | tid
+                for m in range(1 << lb) for r in range(1 << cb) for tid in range(min(lay["threads"], 1 << tb))
+            ]
+            assert sorted(held) == list(range(1 << K))
+            assert 32 <= lay["threads"] <= 512 and lay["threads"] == max(32, 1 << tb)
+            assert lb <= 4
+            assert lay["smem_bytes"] <= 227 * 1024
+            if B <= wide_b:
+                assert (1 << cb) <= 16 and ((1 << cb) == 16) == (K >= 13)
+                assert K < 9 or 1 << (K - cb) >= 512
+            else:
+                assert cb == {16: 3, 17: 4}.get(K, min(max(K - 9, 0), 2))
+        # the state words a CTA keeps: cost, key and fold index with
+        # tables, the cost alone in the carry mode
+        lay = wmec_cuda.forward_t1_layout(K, B)
+        gap = lay["smem_bytes"] - wmec_cuda.forward_t1_layout(K, B, False)["smem_bytes"]
+        assert gap == 8 << (K - lay["cta_bits"])
+
+
 def test_launch_chunking_is_exact(monkeypatch):
     """A table budget below the batch splits the launch into sequential
     chunks with identical results; below one block it raises."""
@@ -326,13 +378,15 @@ def test_launch_chunking_is_exact(monkeypatch):
 
 
 def _port_files():
-    return sorted((REPO / "whatshap_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "profile_forward_t.py"]
+    return sorted((REPO / "whatshap_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "profile_forward_t.py", REPO / "profile_forward_t1.py"
+    ]
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """(f) No module of the port, and neither chip_smoke.py nor
-    profile_forward_t.py, imports jax or the reference package (AST scan of
-    every import statement)."""
+    """(f) No module of the port, and not chip_smoke.py or the profile
+    scripts, imports jax or the reference package (AST scan of every import
+    statement)."""
     banned = ("jax", "jaxlib", "whatshap_tpu", "tools")
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))

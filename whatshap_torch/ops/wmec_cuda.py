@@ -8,7 +8,9 @@ Replaces whatshap_tpu/ops/wmec_pallas.py:
   replaces _make_kernel in its T=1, table-emitting form, from a zero state
   (as solve_batched_pallas launches it) or from a carried one
   (forward_tables_pallas); forward_carry_t1 launches its carry mode, the
-  final state without tables (forward_carry_pallas);
+  final state without tables (forward_carry_pallas); each launch runs one
+  thread-block cluster per block with the block's state on chip
+  (forward_t1_layout);
 - backtrace_t1 launches csrc/wmec_backtrace_t1.cu, the index-path walk that
   replaces _make_backtrace_kernel (via backtrace_pallas);
 - forward_t and forward_m_t launch csrc/wmec_forward_t.cu, the general-T
@@ -57,10 +59,6 @@ PEDIGREE_P = (2, 4)
 ENVELOPE = f"T = 1, P = 2, K <= {MAX_K}; " + "; ".join(
     f"T = {t}, P in {PEDIGREE_P}, K <= {k}" for t, k in MAX_K_T.items()
 )
-#: Dynamic shared memory the T=1 forward CTA may take for its state (of the
-#: 227 KB a Hopper CTA can use, leaving room for the staged column inputs); a
-#: larger state lives in a per-block global scratch.
-SMEM_STATE_BYTES = 200 * 1024
 
 
 def kernel_supported(K: int, T: int, P: int) -> bool:
@@ -73,53 +71,88 @@ def kernel_supported(K: int, T: int, P: int) -> bool:
 
 
 def state_bytes(K: int, T: int = 1) -> int:
-    """Device scratch a forward kernel needs per block beyond its outputs.
-    At T = 1 none while its state (cost, tie key and projection index, 12
-    bytes a bipartition) fits shared memory (SMEM_STATE_BYTES: up to K = 14),
-    else the whole state.  For T > 1 none at any shape of the envelope: the
-    state stays in the shared memory of the block's cluster
-    (forward_t_layout)."""
-    if T > 1:
-        return 0
-    b = 12 << K
-    return 0 if b <= SMEM_STATE_BYTES else b
+    """Device memory a forward kernel needs per block beyond its outputs:
+    none at any shape of the envelope, in any mode.  Both forward kernels
+    keep the block's state in the shared memory of its cluster
+    (forward_t1_layout, forward_t_layout)."""
+    return 0
 
 
-def forward_t_layout(K: int, T: int, P: int, tables: bool) -> dict:
-    """The layout of one block's state in csrc/wmec_forward_t.cu, computed as
-    its C entries compute it (clusters::cluster_bits, layout_lr and
-    smem_bytes there): a cluster of 2^cta_bits CTAs (16 from K = 13, fewer
-    below so that each CTA keeps 2^9 states), `threads` threads a CTA of
-    which 2^thread_bits hold states, and 2^loop_bits states a thread; a
-    state index is lane | warp | CTA rank | loop bits from the bottom up.
-    smem_bytes is a CTA's shared memory: its states' words ((2T + 3) with
-    tables, T in the carry and m-only modes, tables=False), two staged
-    column records, the column's sums tables and the m-only reduction."""
-    cta_bits = min(max(K - 9, 0), 4)
+#: Launches of the T=1 forward kernel above this many blocks take its wide
+#: layout (forward_t1_layout).
+T1_WIDE_B = 8
+
+
+def _cluster_bits(K: int, cta_bits: int = None) -> dict:
+    """The state index bits of one block in the forward kernels, as their
+    layout functions compute them: 2^cta_bits CTAs (by default
+    clusters::cluster_bits: 16 from K = 13, fewer below so that each CTA
+    keeps 2^9 states), 2^thread_bits threads holding states in `threads` a
+    CTA, 2^loop_bits states a thread, and hi_bits, the warp and loop bits
+    (the rows of the column's hi sums table)."""
+    if cta_bits is None:
+        cta_bits = min(max(K - 9, 0), 4)
     kl = K - cta_bits
     thread_bits = min(kl, 9)
     loop_bits = kl - thread_bits
-    lane_bits = min(5, thread_bits)
-    hbits = thread_bits - lane_bits + loop_bits
-    tp2 = T * 2 * P
-    state = (2 * T + 3 if tables else T) << kl
-    rec = 2 * (-(-(K * tp2 + tp2 + (T << P) + 2 * K + 1) // 4) * 4)
-    sums = tp2 * 32 + (tp2 << hbits) + 32 + (1 << hbits)
-    red = 16 * T + T
     return {
         "cta_bits": cta_bits,
         "thread_bits": thread_bits,
         "threads": 1 << max(thread_bits, 5),
         "loop_bits": loop_bits,
-        "smem_bytes": 4 * (state + rec + sums + red),
+        "hi_bits": thread_bits - min(5, thread_bits) + loop_bits,
     }
+
+
+def _record_words(K: int, tp2: int, n_acost: int) -> int:
+    """Two staged column records (wdiff, wbase, acost, rankw, die, rc),
+    each rounded up to 4 words."""
+    return 2 * (-(-(K * tp2 + tp2 + n_acost + 2 * K + 1) // 4) * 4)
+
+
+def forward_t1_layout(K: int, B: int, tables: bool = True) -> dict:
+    """The layout of one block's state in csrc/wmec_forward_t1.cu in a launch
+    of B blocks, computed as its C entries compute it (cta_bits, layout_lr
+    and smem_bytes there): a cluster of 2^cta_bits CTAs, `threads` threads a
+    CTA of which 2^thread_bits hold states, and 2^loop_bits states a thread
+    (at most 4 loop bits); a state index is lane | warp | CTA rank | loop bits
+    from the bottom up.  Up to T1_WIDE_B blocks take the narrow layout (16
+    CTAs from K = 13, fewer below so that each CTA keeps 2^9 states); more
+    take clusters of 4 CTAs, or as few more as 4 loop bits allow (8 at K =
+    16).  smem_bytes is a CTA's shared memory: its states' words (cost, key
+    and the fold's index with tables, the cost alone in the carry mode,
+    tables=False; the fold's exchange planes, rounded up to 4 words), two
+    staged column records and two columns' sums tables (32 + 2^hi_bits rows
+    of 4 words each)."""
+    narrow = min(max(K - 9, 0), 4)
+    lay = _cluster_bits(K, narrow if B <= T1_WIDE_B else min(narrow, max(K - 9 - 4, 2)))
+    hbits = lay.pop("hi_bits")
+    state = -(-((3 if tables else 1) << (K - lay["cta_bits"])) // 4) * 4
+    sums = 2 * 4 * (32 + (1 << hbits))
+    return {**lay, "smem_bytes": 4 * (state + _record_words(K, 4, 4) + sums)}
+
+
+def forward_t_layout(K: int, T: int, P: int, tables: bool) -> dict:
+    """The layout of one block's state in csrc/wmec_forward_t.cu, computed as
+    its C entries compute it (clusters::cluster_bits, layout_lr and
+    smem_bytes there), in forward_t1_layout's terms.  smem_bytes is a CTA's
+    shared memory: its states' words ((2T + 3) with tables, T in the carry
+    and m-only modes, tables=False), two staged column records, the column's
+    sums tables and the m-only reduction."""
+    lay = _cluster_bits(K)
+    hbits = lay.pop("hi_bits")
+    tp2 = T * 2 * P
+    state = (2 * T + 3 if tables else T) << (K - lay["cta_bits"])
+    sums = tp2 * 32 + (tp2 << hbits) + 32 + (1 << hbits)
+    red = 16 * T + T
+    return {**lay, "smem_bytes": 4 * (state + _record_words(K, tp2, T << P) + sums + red)}
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "wmec_forward_t1": [_P] * 11 + [_I] * 3 + [_P],
-    "wmec_forward_carry_t1": [_P] * 10 + [_I] * 3 + [_P],
+    "wmec_forward_t1": [_P] * 10 + [_I] * 3 + [_P],
+    "wmec_forward_carry_t1": [_P] * 9 + [_I] * 3 + [_P],
     "wmec_backtrace_t1": [_P] * 4 + [_I] * 3 + [_P],
     "wmec_forward_t": [_P] * 15 + [_I] * 5 + [_P],
     "wmec_forward_carry_t": [_P] * 12 + [_I] * 5 + [_P],
@@ -239,15 +272,12 @@ def forward_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry=None):
     pidx = torch.empty((B, C, S), dtype=torch.int32, device=dev)
     dp_last = torch.empty((B, S), dtype=torch.int32, device=dev)
     key_last = torch.empty((B, S), dtype=torch.int32, device=dev)
-    scratch = None
-    if state_bytes(K):
-        scratch = torch.empty((B, 3, S), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch(
             "wmec_forward_t1",
             wdiff.data_ptr(), wbase.data_ptr(), rankw.data_ptr(), acost.data_ptr(),
             die_prev.data_ptr(), _ptr(cost0), _ptr(key0),
-            pidx.data_ptr(), dp_last.data_ptr(), key_last.data_ptr(), _ptr(scratch),
+            pidx.data_ptr(), dp_last.data_ptr(), key_last.data_ptr(),
             B, C, K,
         )
     forward_t1.launches += 1
@@ -283,15 +313,12 @@ def forward_carry_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
     B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
     dp_last = torch.empty((B, S), dtype=torch.int32, device=dev)
     key_last = torch.empty((B, S), dtype=torch.int32, device=dev)
-    scratch = None
-    if state_bytes(K):
-        scratch = torch.empty((B, 3, S), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch(
             "wmec_forward_t1",
             wdiff.data_ptr(), wbase.data_ptr(), rankw.data_ptr(), acost.data_ptr(),
             die_prev.data_ptr(), carry[0].data_ptr(), carry[1].data_ptr(),
-            dp_last.data_ptr(), key_last.data_ptr(), _ptr(scratch),
+            dp_last.data_ptr(), key_last.data_ptr(),
             B, C, K,
             fn_name="wmec_forward_carry_t1",
         )
