@@ -37,7 +37,12 @@ Phases, every one of which must pass:
             level of the state index (register, lane, warp and CTA bits,
             the top CTA-rank bit included) at K = 15 and 17: red and
             scaling within rtol 1e-4, likelihoods within atol 1e-5,
-            identical NaN patterns.
+            identical NaN patterns.  Both backtraces, bit for bit, also on
+            random tables that break the forward's shape (whole, or in 5 %
+            of the entries of shaped ones; random masks, half of them
+            empty) at T = 1, 4, 16, K up to 17, M = 1 and T + 1, narrow and
+            wide launches, and on forward tables of tie-heavy buckets where
+            2 % of the slots die before each column.
 3. slice    the single-sample main path: a chromosome of 256 blocks x 512
             heterozygous variants at coverage 15 (K = 15) phased by
             PedigreeDPTable(device="cuda"), with the kernels' launch counters
@@ -96,7 +101,13 @@ Phases, every one of which must pass:
             (with the CTAs per cluster, the SMs used and the share of the
             bound), rows 9 and 10 at the segments' shapes (B = 1; C = 2048,
             K = 15, T = 1 and C = 512, K = 15, T = 4); each forward mode
-            with its cluster layout and microseconds per column.
+            with its cluster layout and microseconds per column.  Both
+            backtraces at every shape the cells launch them at (the slice's
+            and the trio's buckets, the single block, trio-single, the
+            quartet's bucket, a segment of each segmented cell), warm and
+            from a flushed L2, each beside its bytes bound, the card's
+            gather latency (profile_backtrace.py's probe) and the round
+            trips a column its walk takes (wmec_cuda.backtrace_rounds).
 
 It prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}.  Where there is no CUDA device,
@@ -246,8 +257,9 @@ def compare_kernels(device, shapes=tuple((K, 4) for K in range(7, 18)) + ((12, 1
         torch.cuda.synchronize()
         e_fwd = _max_err(zip(kern, plain))
         _m, _t, opt = wmec_cuda._select_optimum(K, 1, kern[1], kern[2])
-        path, final = wmec_cuda.backtrace_t1(opt.contiguous(), kern[0])
-        path_p, final_p = wmec_cuda.backtrace_t1_plain(opt, kern[0])
+        die = wmec_cuda.pack_die(arrays[4])
+        path, final = wmec_cuda.backtrace_t1(opt.contiguous(), kern[0], die)
+        path_p, final_p = wmec_cuda.backtrace_t1_plain(opt, kern[0], die)
         torch.cuda.synchronize()
         e_bt = _max_err([(path, path_p), (final, final_p)])
         print(f"kernels K={K:2d} B={n_blocks} C={n_cols}: forward max|err|={e_fwd} "
@@ -562,10 +574,11 @@ def compare_pedigree_kernels(device, shapes=((4, 3), (4, 4), (4, 7), (4, 9), (4,
         e_m = _max_err([(m, m_plain)])
         die_next = torch.rand((n_blocks, K), generator=torch.Generator().manual_seed(K)) < 0.7
         inits = _walk_inits(K, T, kern, die_next.to(device))
+        die = wmec_cuda.pack_die(arrays[4])
         e_bt = 0
         for init in (inits[:, :1].contiguous(), inits):
-            out = wmec_cuda.backtrace_t(init, kern[0], kern[1])
-            ref = wmec_cuda.backtrace_t_plain(init, kern[0], kern[1])
+            out = wmec_cuda.backtrace_t(init, kern[0], kern[1], die)
+            ref = wmec_cuda.backtrace_t_plain(init, kern[0], kern[1], die)
             torch.cuda.synchronize()
             e_bt = max(e_bt, _max_err(zip(out, ref)))
         del kern
@@ -576,6 +589,77 @@ def compare_pedigree_kernels(device, shapes=((4, 3), (4, 4), (4, 7), (4, 9), (4,
         err["wmec_forward_t"] = max(err["wmec_forward_t"], e_fwd)
         err["wmec_forward_m_t"] = max(err["wmec_forward_m_t"], e_m)
         err["wmec_backtrace_t"] = max(err["wmec_backtrace_t"], e_bt)
+    return err
+
+
+def _walk_pair(T, tables, start, die):
+    """The backtrace kernel and its plain version on the same inputs; returns
+    the max abs error between them."""
+    if T == 1:
+        out = wmec_cuda.backtrace_t1(start, tables[0], die)
+        ref = wmec_cuda.backtrace_t1_plain(start, tables[0], die)
+    else:
+        out = wmec_cuda.backtrace_t(start, tables[0], tables[1], die)
+        ref = wmec_cuda.backtrace_t_plain(start, tables[0], tables[1], die)
+    torch.cuda.synchronize()
+    return _max_err(zip(out, ref))
+
+
+def compare_walks(device, random_shapes=((1, 7, 3, 1), (1, 15, 12, 1), (1, 17, 2, 1), (4, 9, 3, 1), (4, 9, 3, 5),
+                                         (4, 16, 1, 1), (16, 7, 2, 17), (16, 13, 1, 1)),
+                  free_shapes=((1, 12, 3, 1), (1, 15, 12, 1), (4, 10, 3, 1), (4, 10, 3, 5)), n_cols=200):
+    """Phase 2, the backtraces beyond the tables of the main paths, against
+    their plain versions, bit for bit, in narrow launches (up to 8 walks)
+    and wide ones, at (T, K, B, M): on random tables, which break the shape
+    the walks' guesses rest on (an index that changes outside its column's
+    dying bits, pjmin not constant along them), whole or in 5 % of the
+    entries of tables that have that shape, with random masks, a half of
+    them empty: the guesses miss, and at T > 1 the checks of the
+    transmission fail and the walk goes back; and on forward tables of
+    tie-heavy buckets where 2 % of the slots die before each column, so
+    that most columns are free.  Returns {kernel: max abs error}."""
+    err = {"wmec_backtrace_t1": 0, "wmec_backtrace_t": 0}
+    rng = np.random.RandomState(91)
+    for T, K, B, M in random_shapes:
+        S, C = 1 << K, n_cols
+        die = (rng.randint(0, S, (B, C)) * (rng.rand(B, C) < 0.5)).astype(np.int32)
+        shaped = np.arange(S, dtype=np.int32) ^ (rng.randint(0, S, (B, C, T, S), dtype=np.int32) & die[:, :, None, None])
+        broken = np.where(rng.rand(B, C, T, S) < 0.05, rng.randint(0, S, (B, C, T, S), dtype=np.int32), shaped)
+        whole = rng.randint(0, S, (B, C, T, S), dtype=np.int32)
+        pjmin = torch.from_numpy(rng.randint(0, T, (B, C, T, S), dtype=np.int32)).to(device) if T > 1 else None
+        if T == 1:
+            start = torch.from_numpy(rng.randint(0, S, B).astype(np.int32)).to(device)
+        else:
+            start = torch.from_numpy(np.stack([rng.randint(0, S, (B, M)), rng.randint(0, T, (B, M)),
+                                               rng.randint(0, T, (B, M))], axis=2).astype(np.int32)).to(device)
+        e = 0
+        for pidx in (broken, whole):
+            pidx = torch.from_numpy(pidx).to(device)
+            tables = (pidx[:, :, 0].contiguous(),) if T == 1 else (pidx, pjmin)
+            e = max(e, _walk_pair(T, tables, start, torch.from_numpy(die).to(device)))
+        del shaped, broken, whole
+        name = "wmec_backtrace_t1" if T == 1 else "wmec_backtrace_t"
+        print(f"kernels random tables T={T:2d} K={K:2d} B={B} M={M} C={C} "
+              f"({B * M} walks): {name} max|err|={e}", flush=True)
+        _require(e == 0, f"{name} bit-equal to plain on random tables at T={T}, K={K}, B={B}, M={M}")
+        err[name] = max(err[name], e)
+    for T, K, B, M in free_shapes:
+        P = 2 if T == 1 else 4
+        arrays = list(tie_bucket(B, n_cols, K, T, P, 8000 + 10 * K + B, device))
+        arrays[4] = torch.from_numpy(np.random.RandomState(K + B).rand(B, n_cols, K) < 0.02).to(device)
+        die = wmec_cuda.pack_die(arrays[4])
+        if T == 1:
+            pidx, dp, key = wmec_cuda.forward_t1(K, P, *arrays)
+            e = _walk_pair(T, (pidx,), wmec_cuda._select_optimum(K, 1, dp, key)[2].contiguous(), die)
+        else:
+            kern = wmec_cuda.forward_t(K, T, P, *arrays)
+            inits = _walk_inits(K, T, kern, torch.ones((B, K), dtype=torch.bool, device=device))
+            e = _walk_pair(T, kern[:2], inits[:, :M].contiguous(), die)
+        name = "wmec_backtrace_t1" if T == 1 else "wmec_backtrace_t"
+        print(f"kernels few dying slots T={T:2d} K={K:2d} B={B} M={M} C={n_cols} "
+              f"({float((die == 0).float().mean()):.2f} of the columns free): {name} max|err|={e}", flush=True)
+        _require(e == 0, f"{name} bit-equal to plain where few slots die at T={T}, K={K}, B={B}, M={M}")
+        err[name] = max(err[name], e)
     return err
 
 
@@ -706,6 +790,95 @@ def _time(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+_LATENCY = {}
+
+
+def gather_latency() -> dict:
+    """The card's dependent-gather latency in ns, from L2 and from device
+    memory (profile_backtrace's pointer-chase probe), measured once."""
+    if not _LATENCY:
+        import profile_backtrace
+
+        _LATENCY.update(profile_backtrace.latencies())
+        print(f"gather latency (pointer chase, one thread): {_LATENCY['L2']:.1f} ns from L2, "
+              f"{_LATENCY['HBM']:.1f} ns from device memory", flush=True)
+    return _LATENCY
+
+
+def _time_cold(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over `reps` runs, by CUDA events around each
+    run alone, with the L2 cache flushed before each (a 256 MiB write): the
+    tables as a caller meets them that did not just read them."""
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.fill_(1)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps
+
+
+def walk_rounds(T, out, die) -> float:
+    """The mean over a launch's walks of the memory round trips the
+    backtrace kernels take (wmec_cuda.backtrace_rounds), from its outputs:
+    T = 1 (path (B, C), final (B,)), else (path, tpath (B, M, C), final (B,
+    M, 3)); die (B, C)."""
+    die = die.cpu().numpy()
+    if T == 1:
+        path, final = (x.cpu().numpy() for x in out)
+        walks = [(path[b], None, final[b], die[b]) for b in range(len(path))]
+    else:
+        path, tpath, final = (x.cpu().numpy() for x in out)
+        walks = [(path[b, m], tpath[b, m], final[b, m], die[b])
+                 for b in range(path.shape[0]) for m in range(path.shape[1])]
+    return sum(wmec_cuda.backtrace_rounds(p, t, f, d, T, len(walks)) for p, t, f, d in walks) / len(walks)
+
+
+def walk_timing(label, name, T, K, tables, start, die, reps=10):
+    """Time a backtrace kernel at its shape (CUDA events) beside its plain
+    version, hold it bit-equal, and print its bytes bound (the start, one
+    table entry and one path entry a column and walk, twice at T > 1, and
+    the final state), the card's gather latency, the walk's layout and its
+    round trips a column (wmec_cuda.backtrace_rounds over these walks):
+    rounds times latency is what the walk should take a column, beside the
+    time a column measured, warm (runs retracing the same walk, as the
+    parent's numbers were taken) and from a flushed L2.  Returns the kernels
+    line's numbers (warm)."""
+    B, C = tables[0].shape[0], tables[0].shape[1]
+    if T == 1:
+        W = B
+        fn = lambda: wmec_cuda.backtrace_t1(start, tables[0], die)  # noqa: E731
+        plain_fn = lambda: wmec_cuda.backtrace_t1_plain(start, tables[0], die)  # noqa: E731
+        bound_bytes = 4 * (B + B * C + B * C + B)
+    else:
+        W = start.shape[0] * start.shape[1]
+        fn = lambda: wmec_cuda.backtrace_t(start, *tables, die)  # noqa: E731
+        plain_fn = lambda: wmec_cuda.backtrace_t_plain(start, *tables, die)  # noqa: E731
+        bound_bytes = 4 * W * (3 + 4 * C + 3)
+    ms = _time(fn, reps=reps)
+    cold_ms = _time_cold(fn, reps=reps)
+    out = fn()
+    ref, plain_ms = _plain_ms(plain_fn)
+    err = _max_err(zip(out, ref))
+    bound_ms = bound_bytes / PEAK_BYTES_PER_S * 1e3
+    lat = gather_latency()
+    rounds = walk_rounds(T, out, die) / C
+    lay = wmec_cuda.backtrace_layout(W, T)
+    print(f"{label} {name} (walks={W} C={C} K={K} T={T}): {ms:.4f} ms (plain {plain_ms:.3f} ms), "
+          f"{cold_ms:.4f} ms from a flushed L2, bound {bound_ms:.6f} ms by bytes, max|err|={err} "
+          f"[a warp a walk, row 0 of {lay['row0']} lanes, {lay['guessed_rows']} guessed rows; {rounds:.3f} round trips a "
+          f"column, x {lat['L2']:.1f} ns L2 latency = {rounds * lat['L2']:.1f} ns, x {lat['HBM']:.1f} ns "
+          f"device-memory latency = {rounds * lat['HBM']:.1f} ns; measured {ms * 1e6 / C:.1f} ns a column, "
+          f"{cold_ms * 1e6 / C:.1f} from a flushed L2]", flush=True)
+    _require(err == 0, f"{label}: {name} bit-equal to plain")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
 def time_kernels(packed, label="slice"):
     """Phase 10, T = 1: each kernel at the largest bucket of the path
     (slice: B = 256 blocks; single: the one 4096-column block)."""
@@ -728,16 +901,7 @@ def time_kernels(packed, label="slice"):
     fwd_plain_ms = (time.perf_counter() - t0) * 1e3
     fwd_err = _max_err(zip((pidx, dp_last, key_last), plain))
     del plain
-    _m, _t, opt = wmec_cuda._select_optimum(K, 1, dp_last, key_last)
-    opt = opt.contiguous()
-    bt_ms = _time(lambda: wmec_cuda.backtrace_t1(opt, pidx), reps=10)
-    path, final = wmec_cuda.backtrace_t1(opt, pidx)
-    t0 = time.perf_counter()
-    path_p, final_p = wmec_cuda.backtrace_t1_plain(opt, pidx)
-    torch.cuda.synchronize()
-    bt_plain_ms = (time.perf_counter() - t0) * 1e3
-    bt_err = _max_err([(path, path_p), (final, final_p)])
-    _require(fwd_err == 0 and bt_err == 0, f"kernels bit-equal to plain at the {label}'s bucket")
+    _require(fwd_err == 0, f"forward kernel bit-equal to plain at the {label}'s bucket")
 
     # bounds: each input read once and each output written once, against
     # the adds the function needs: its four cost sums and its key sum change
@@ -748,22 +912,19 @@ def time_kernels(packed, label="slice"):
     fwd_ops = 5.0 * B * C * S
     fwd_bytes_ms = (fwd_in + fwd_out) / PEAK_BYTES_PER_S * 1e3
     fwd_ops_ms = fwd_ops / PEAK_INT32_ADDS_PER_S * 1e3
-    bt_bytes = 4 * (B + B * C + B * C + B)  # opt, gathered entries, path, final
     out = {
         "wmec_forward_t1": {
             "ms": fwd_ms, "plain_ms": fwd_plain_ms, "max_abs_err": fwd_err,
             "bound_ms": max(fwd_bytes_ms, fwd_ops_ms),
             "bound_by": "operations" if fwd_ops_ms >= fwd_bytes_ms else "bytes",
         },
-        "wmec_backtrace_t1": {
-            "ms": bt_ms, "plain_ms": bt_plain_ms, "max_abs_err": bt_err,
-            "bound_ms": bt_bytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        },
     }
-    notes = {"wmec_forward_t1": " " + _layout_t1(K, B, True, fwd_ms, C)}
-    for name, r in out.items():
-        print(f"{label} {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms), bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']}{notes.get(name, '')}", flush=True)
+    r = out["wmec_forward_t1"]
+    print(f"{label} wmec_forward_t1: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms), bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']} {_layout_t1(K, B, True, fwd_ms, C)}", flush=True)
+    opt = wmec_cuda._select_optimum(K, 1, dp_last, key_last)[2].contiguous()
+    out["wmec_backtrace_t1"] = walk_timing(
+        label, "wmec_backtrace_t1", 1, K, (pidx,), opt, wmec_cuda.pack_die(arrays[4]))
     return out
 
 
@@ -841,28 +1002,53 @@ def time_pedigree_kernels(packed, device="cuda"):
             _nbytes(*arrays, dp0), _nbytes(*kern), (2 * T * P + 1 + T * T) * B * C * S))),
     )
 
-    # the head and T seam walks per block over the pass-2 tables
-    die_next = torch.ones((B, K), dtype=torch.bool, device=device)
-    inits = _walk_inits(K, T, kern, die_next)
-    pidx, pjmin = kern[0], kern[1]
-    bt_ms = _time(lambda: wmec_cuda.backtrace_t(inits, pidx, pjmin), reps=10)
-    walks = wmec_cuda.backtrace_t(inits, pidx, pjmin)
-    ref, bt_plain_ms = _plain_ms(lambda: wmec_cuda.backtrace_t_plain(inits, pidx, pjmin))
-    W = B * (T + 1)
-    out["wmec_backtrace_t"] = dict(
-        ms=bt_ms, plain_ms=bt_plain_ms, max_abs_err=_max_err(zip(walks, ref)),
-        # start and final triples, two gathered entries and two path
-        # entries per column and walk
-        bound_ms=4 * W * (3 + 4 * C + 3) / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
-    )
-    del kern, pidx, pjmin
     _require(all(r["max_abs_err"] == 0 for r in out.values()), "general-T kernels bit-equal at the trio's bucket")
     notes = {"wmec_forward_m_t": _layout(K, T, P, False, m_ms, C, B * len(reps)),
              "wmec_forward_t": _layout(K, T, P, True, fwd_ms, C, B)}
     for name, r in out.items():
         print(f"{name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms), bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']} {notes.get(name, '')}", flush=True)
+
+    # the head and T seam walks per block over the pass-2 tables
+    inits = _walk_inits(K, T, kern, torch.ones((B, K), dtype=torch.bool, device=device))
+    out["wmec_backtrace_t"] = walk_timing(
+        "trio", "wmec_backtrace_t", T, K, kern[:2], inits, wmec_cuda.pack_die(arrays[4]))
+    del kern
     return out
+
+
+def time_quartet_walks(packed, device="cuda"):
+    """The general-T backtrace at the quartet's main bucket as pass 2 of the
+    pedigree route launches it (the head and T seam walks of each block),
+    over tables of a seeded scan (zero seeds)."""
+    (c_pad, K), members, _ri = main_bucket(packed)
+    T, P = packed.T, packed.P
+    arrays = blocks.to_device(blocks.stack_blocks(members), device)
+    B = len(members)
+    kern = wmec_cuda.forward_t(K, T, P, *arrays, torch.zeros((B, T), dtype=torch.int32, device=device))
+    inits = _walk_inits(K, T, kern, torch.ones((B, K), dtype=torch.bool, device=device))
+    walk_timing("quartet", "wmec_backtrace_t", T, K, kern[:2], inits, wmec_cuda.pack_die(arrays[4]))
+
+
+def time_segment_walk(packed, seg, label, device="cuda"):
+    """A backtrace at a segment's shape (B = 1, C = seg) as the segmented
+    route launches it: over segment 1's tables from the checkpoint after
+    segment 0, from that pass's optimum."""
+    K, T, P = packed.K, packed.T, packed.P
+    c_pad = -(-packed.n_cols // seg) * seg
+    arrays = blocks.to_device(blocks.stack_blocks([blocks.pad_block(packed, c_pad)]), device)
+    head = [a[:, :seg].contiguous() for a in arrays]
+    tail = [a[:, seg : 2 * seg].contiguous() for a in arrays]
+    carry = _carry_after(K, T, P, head)
+    die = wmec_cuda.pack_die(tail[4])
+    if T == 1:
+        pidx, dp, key = wmec_cuda.forward_t1(K, P, *tail, carry=carry)
+        opt = wmec_cuda._select_optimum(K, 1, dp, key)[2].contiguous()
+        walk_timing(label, "wmec_backtrace_t1", 1, K, (pidx,), opt, die)
+    else:
+        kern = wmec_cuda.forward_t(K, T, P, *tail, carry=carry)
+        init = wmec_cuda._head_init(K, T, *kern[2:])[1][:, None].contiguous()
+        walk_timing(label, "wmec_backtrace_t", T, K, kern[:2], init, die)
 
 
 def time_trio_single_kernels(packed, device="cuda"):
@@ -879,19 +1065,13 @@ def time_trio_single_kernels(packed, device="cuda"):
     plain, fwd_plain_ms = _plain_ms(lambda: wmec_cuda.forward_t_plain(K, T, P, *arrays))
     fwd_err = _max_err(zip(kern, plain))
     del plain
-    _m, init = wmec_cuda._head_init(K, T, *kern[2:])
-    init = init[:, None].contiguous()
-    bt_ms = _time(lambda: wmec_cuda.backtrace_t(init, kern[0], kern[1]), reps=10)
-    walks = wmec_cuda.backtrace_t(init, kern[0], kern[1])
-    ref, bt_plain_ms = _plain_ms(lambda: wmec_cuda.backtrace_t_plain(init, kern[0], kern[1]))
-    bt_err = _max_err(zip(walks, ref))
     fwd_bound = _bound(_nbytes(*arrays), _nbytes(*kern), (2 * T * P + 1 + T * T) * B * C * S)
-    bt_bound = 4 * B * (3 + 4 * C + 3) / PEAK_BYTES_PER_S * 1e3
     print(f"trio-single kernels (B={B} C={C} K={K} T={T} P={P}): wmec_forward_t unseeded "
           f"{fwd_ms:.3f} ms (plain {fwd_plain_ms:.3f} ms), bound {fwd_bound[0]:.4f} ms by "
-          f"{fwd_bound[1]}, max|err|={fwd_err} {_layout(K, T, P, True, fwd_ms, C, B)}; wmec_backtrace_t M=1 {bt_ms:.3f} ms (plain "
-          f"{bt_plain_ms:.3f} ms), bound {bt_bound:.6f} ms by bytes, max|err|={bt_err}", flush=True)
-    _require(fwd_err == 0 and bt_err == 0, "general-T kernels bit-equal at the trio-single shape")
+          f"{fwd_bound[1]}, max|err|={fwd_err} {_layout(K, T, P, True, fwd_ms, C, B)}", flush=True)
+    _require(fwd_err == 0, "general-T forward kernel bit-equal at the trio-single shape")
+    init = wmec_cuda._head_init(K, T, *kern[2:])[1][:, None].contiguous()
+    walk_timing("trio-single", "wmec_backtrace_t", T, K, kern[:2], init, wmec_cuda.pack_die(arrays[4]))
 
 
 # ---------------------------------------------------------------------------
@@ -1441,6 +1621,8 @@ def main() -> int:
     errs = compare_kernels("cuda")
     errs.update(compare_carry_kernels("cuda"))
     errs.update(compare_pedigree_kernels("cuda"))
+    for name, e in compare_walks("cuda").items():
+        errs[name] = max(errs[name], e)
     for name, e in [*compare_tie_kernels("cuda").items(), *compare_tie_kernels_t1("cuda").items()]:
         errs[name] = max(errs.get(name, 0), e)
     errs.update(compare_geno_kernels("cuda"))
@@ -1498,6 +1680,7 @@ def main() -> int:
     phase_instance(
         rs_q, pos_q, ped_q, [10] * len(pos_q), None, "cuda", "quartet", pedigree_kernels
     )
+    packed_q = wmec.pack_problem(rs_q, [10] * len(pos_q), ped_q, False, pos_q)
     del rs_q
     print(f"phases 5-7 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -1527,7 +1710,7 @@ def main() -> int:
     )
     del rs_gt
     rs_k, pos_k, truth_k = chromosome(1, 2048, 17, seed=31)
-    segmented_instance(
+    _l, packed_k = segmented_instance(
         rs_k, pos_k, _het_pedigree(len(pos_k)), [1] * len(pos_k), (truth_k[0], both(truth_k[1])),
         "segmented-k17", K=17, T=1, n_seg=2,
     )
@@ -1544,6 +1727,7 @@ def main() -> int:
     packed_t = wmec.pack_problem(rs_t, [10] * len(pos_t), ped_t, False, pos_t)
     times.update(time_pedigree_kernels(packed_t))
     time_trio_single_kernels(packed_s)
+    time_quartet_walks(packed_q)
     del packed_t, packed_s
     torch.cuda.empty_cache()
     times.update(time_geno_kernels(geno_static, geno_stacked, "genotype"))
@@ -1552,7 +1736,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     times.update(time_carry_kernels(packed_g, 2048, "segmented"))
     times.update(time_carry_kernels(packed_gt, 512, "segmented-trio"))
-    del packed_g, packed_gt
+    for packed_x, seg, label in ((packed_g, 2048, "segmented"), (packed_k, 1024, "segmented-k17"),
+                                 (packed_gt, 512, "segmented-trio")):
+        time_segment_walk(packed_x, seg, label)
+    del packed_g, packed_gt, packed_k, packed_q
     launches.update({k: trio_launches[k] for k in pedigree_kernels})
     launches.update({k: geno_launches[k] for k in ("geno_backward", "geno_forward")})
     launches["wmec_forward_carry_t1"] = seg_launches["wmec_forward_carry_t1"]

@@ -70,10 +70,88 @@ def test_kernels_match_plain(cuda_device, K):
     for x, y in zip(kern, plain):
         assert torch.equal(x, y)
     _m, _t, opt = wmec_cuda._select_optimum(K, 1, kern[1], kern[2])
-    path, final = wmec_cuda.backtrace_t1(opt.contiguous(), kern[0])
-    path_p, final_p = wmec_cuda.backtrace_t1_plain(opt, kern[0])
+    die = wmec_cuda.pack_die(arrays[4])
+    path, final = wmec_cuda.backtrace_t1(opt.contiguous(), kern[0], die)
+    path_p, final_p = wmec_cuda.backtrace_t1_plain(opt, kern[0], die)
     torch.cuda.synchronize()
     assert torch.equal(path, path_p) and torch.equal(final, final_p)
+
+
+def _walks_equal(T, tables, start, die):
+    if T == 1:
+        out = wmec_cuda.backtrace_t1(start, tables[0], die)
+        ref = wmec_cuda.backtrace_t1_plain(start, tables[0], die)
+    else:
+        out = wmec_cuda.backtrace_t(start, *tables, die)
+        ref = wmec_cuda.backtrace_t_plain(start, *tables, die)
+    torch.cuda.synchronize()
+    return all(torch.equal(x, y) for x, y in zip(out, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K,B,M", [
+    (1, 5, 2, 1), (1, 12, 9, 1), (1, 17, 1, 1), (4, 9, 3, 1), (4, 9, 2, 5), (16, 7, 1, 17), (16, 13, 1, 1),
+])
+def test_backtraces_match_plain_on_random_tables(cuda_device, T, K, B, M):
+    """Both backtrace kernels against their plain versions on tables that
+    break the shape their guesses rest on: random entries, whole or in 5 %
+    of a table shaped like the forward's, under random masks (half of them
+    empty), from random starts; in narrow launches (up to 8 walks) and
+    wide ones."""
+    rng = np.random.RandomState(100 * T + K)
+    S, C = 1 << K, 150
+    die = (rng.randint(0, S, (B, C)) * (rng.rand(B, C) < 0.5)).astype(np.int32)
+    shaped = np.arange(S, dtype=np.int32) ^ (rng.randint(0, S, (B, C, T, S), dtype=np.int32) & die[:, :, None, None])
+    broken = np.where(rng.rand(B, C, T, S) < 0.05, rng.randint(0, S, (B, C, T, S), dtype=np.int32), shaped)
+    whole = rng.randint(0, S, (B, C, T, S), dtype=np.int32)
+    dev = cuda_device
+    if T == 1:
+        start = torch.from_numpy(rng.randint(0, S, B).astype(np.int32)).to(dev)
+    else:
+        start = torch.from_numpy(np.stack([rng.randint(0, S, (B, M)), rng.randint(0, T, (B, M)),
+                                           rng.randint(0, T, (B, M))], axis=2).astype(np.int32)).to(dev)
+    pjmin = torch.from_numpy(rng.randint(0, T, (B, C, T, S), dtype=np.int32)).to(dev)
+    for pidx in (broken, whole):
+        pidx = torch.from_numpy(pidx).to(dev)
+        tables = (pidx[:, :, 0].contiguous(),) if T == 1 else (pidx, pjmin)
+        assert _walks_equal(T, tables, start, torch.from_numpy(die).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K,B,M", [(1, 12, 3, 1), (1, 15, 10, 1), (4, 10, 2, 1), (4, 10, 2, 5)])
+def test_backtraces_match_plain_where_few_slots_die(cuda_device, T, K, B, M):
+    """Both backtrace kernels against their plain versions on forward tables
+    of a bucket where 2 % of the slots die before each column (most columns
+    free: at T = 1 the walk assumes the index carries over there)."""
+    rng = np.random.RandomState(K + B)
+    C, P = 160, 2 if T == 1 else 4
+    arrays = blocks.to_device([
+        rng.randint(0, 3, (B, C, K, T * P * 2)).astype(np.float32),
+        rng.randint(0, 3, (B, C, T, P, 2)).astype(np.int32),
+        rng.randint(0, 2, (B, C, K)).astype(np.float32),
+        rng.randint(0, 2, (B, C, T, 1 << P)).astype(np.int32),
+        rng.rand(B, C, K) < 0.02,
+        rng.randint(0, 3, (B, C)).astype(np.int32),
+    ], cuda_device)
+    die = wmec_cuda.pack_die(arrays[4])
+    assert float((die == 0).float().mean()) > 0.5
+    if T == 1:
+        pidx, dp, key = wmec_cuda.forward_t1(K, P, *arrays)
+        assert _walks_equal(T, (pidx,), wmec_cuda._select_optimum(K, 1, dp, key)[2].contiguous(), die)
+    else:
+        pidx, pjmin, dp, jm, key = wmec_cuda.forward_t(K, T, P, *arrays)
+        head = wmec_cuda._head_init(K, T, dp, jm, key)[1]
+        assert _walks_equal(T, (pidx, pjmin), head[:, None].expand(B, M, 3).contiguous(), die)
+
+
+@pytest.mark.cuda
+def test_backtrace_t1_walks_4096_columns(cuda_device):
+    """A single block's walk of 4096 columns (B = 1: one warp) against the
+    plain walk, from the optimum."""
+    arrays = blocks.to_device(_bucket(12, n_blocks=1, n_cols=4096, seed=5), cuda_device)
+    pidx, dp, key = wmec_cuda.forward_t1(12, 2, *arrays)
+    opt = wmec_cuda._select_optimum(12, 1, dp, key)[2].contiguous()
+    assert _walks_equal(1, (pidx,), opt, wmec_cuda.pack_die(arrays[4]))
 
 
 @pytest.mark.cuda
@@ -181,9 +259,10 @@ def test_pedigree_kernels_match_plain(cuda_device, T, K):
     rand = torch.from_numpy(np.stack(
         [rng.randint(0, S, (B, T + 1)), rng.randint(0, T, (B, T + 1)), rng.randint(0, T, (B, T + 1))], axis=2
     ).astype(np.int32)).to(cuda_device)
+    die = wmec_cuda.pack_die(ta[4])
     for init in (head[:, None].contiguous(), rand):
-        out = wmec_cuda.backtrace_t(init, pidx, pjmin)
-        ref = wmec_cuda.backtrace_t_plain(init, pidx, pjmin)
+        out = wmec_cuda.backtrace_t(init, pidx, pjmin, die)
+        ref = wmec_cuda.backtrace_t_plain(init, pidx, pjmin, die)
         torch.cuda.synchronize()
         for x, y in zip(out, ref):
             assert torch.equal(x, y)

@@ -197,7 +197,9 @@ def test_backtrace_matches_reference(multi):
     and M = T + 1 (backtrace_pallas_t_multi), from the optimum and from
     arbitrary starts."""
     K, T, P, arrays = _bucket(seed=31, c_pad=16)
-    pidx, pjmin, dp_last, jmin_last, key_last = wmec_cuda.forward_t(K, T, P, *_t(arrays))
+    ta = _t(arrays)
+    die = wmec_cuda.pack_die(ta[4])
+    pidx, pjmin, dp_last, jmin_last, key_last = wmec_cuda.forward_t(K, T, P, *ta)
     B, C, S = pidx.shape[0], pidx.shape[1], 1 << K
     _m, head = wmec_cuda._head_init(K, T, dp_last, jmin_last, key_last)
     rng = np.random.RandomState(8)
@@ -208,7 +210,7 @@ def test_backtrace_matches_reference(multi):
     pidx_r = jnp.asarray(pidx.numpy()).reshape(B, C, T, S >> 7, 128)
     pjmin_r = jnp.asarray(pjmin.numpy()).reshape(B, C, T, S >> 7, 128)
     for init in (torch.from_numpy(rand), head[:, None].expand(B, M, 3).contiguous()):
-        path, tpath, final = wmec_cuda.backtrace_t(init.contiguous(), pidx, pjmin)
+        path, tpath, final = wmec_cuda.backtrace_t(init.contiguous(), pidx, pjmin, die)
         if multi:
             ref = ref_pallas.backtrace_pallas_t_multi(K, T, M, jnp.asarray(init.numpy()), pidx_r, pjmin_r, interpret=True)
         else:
@@ -360,10 +362,21 @@ def test_pedigree_wrappers_check_inputs():
     with pytest.raises(ValueError):
         wmec_cuda.forward_m_t(K, T, P, *ta, torch.zeros((B, T), dtype=torch.int64))
     pidx, pjmin, *_ = wmec_cuda.forward_t(K, T, P, *ta)
+    die = wmec_cuda.pack_die(ta[4])
+    init = torch.zeros((B, 1, 3), dtype=torch.int32)
     with pytest.raises(ValueError):
-        wmec_cuda.backtrace_t(torch.zeros((B, 2), dtype=torch.int32), pidx, pjmin)
+        wmec_cuda.backtrace_t(torch.zeros((B, 2), dtype=torch.int32), pidx, pjmin, die)
     with pytest.raises(ValueError):
-        wmec_cuda.backtrace_t(torch.zeros((B, 1, 3), dtype=torch.int32), pidx, pjmin[..., :-1])
+        wmec_cuda.backtrace_t(init, pidx, pjmin[..., :-1], die)
+    # the dying masks: (B, C) int32, contiguous, beside the tables
+    with pytest.raises(ValueError):
+        wmec_cuda.backtrace_t(init, pidx, pjmin, ta[4])
+    with pytest.raises(ValueError):
+        wmec_cuda.backtrace_t(init, pidx, pjmin, die.long())
+    with pytest.raises(ValueError):
+        wmec_cuda.backtrace_t(init, pidx, pjmin, die[:1])
+    with pytest.raises(ValueError):
+        wmec_cuda.backtrace_t(init, pidx, pjmin, die.t().contiguous().t())
 
 
 def test_pedigree_wrappers_count_kernel_launches_only():

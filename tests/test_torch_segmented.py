@@ -191,6 +191,15 @@ def _check_carry_wrappers(K, T, P, arrays, at):
             assert _eq(x, r.reshape(x.shape))
         assert _eq(port_pjmin, np.asarray(ref_pjmin).reshape(B, C, T, S))
     assert _eq(port_pidx, np.asarray(ref_pidx).reshape(B, C, T, S))
+    # what the backtrace kernels' guesses rest on, in the reference's tables
+    # from a carry: an index changes only in the slots dying before its
+    # column, and pjmin is constant along those bits
+    die = wmec_cuda.pack_die(tail[4]).numpy()[:, :, None, None].astype(np.int64)
+    v = np.arange(S)
+    assert not np.any((np.asarray(ref_pidx).reshape(B, C, T, S) ^ v) & ~die)
+    if T > 1:
+        pj = np.asarray(ref_pjmin).reshape(B, C, T, S)
+        assert np.array_equal(pj, np.take_along_axis(pj, np.broadcast_to(v & ~die, pj.shape), axis=-1))
 
 
 @pytest.mark.parametrize("T", [1, 4])
@@ -198,7 +207,9 @@ def test_carry_wrappers_match_pallas(T):
     """Rows 9 and 10 through their wrappers (the plain versions, on CPU
     tensors) against forward_carry_pallas and forward_tables_pallas in
     interpret mode, from a nonzero carry, at the kernels' padded K; at T = 1
-    also on tie-heavy buckets at K = 7 and 9."""
+    also on tie-heavy buckets at K = 7 and 9.  The reference's tables from
+    the carry must also have the shape the backtrace kernels' guesses rest
+    on (an index changes only in its column's dying bits)."""
     K, P, arrays = _bucket(T, seed=20 + T, c_pad=12, n_pos=12, k_min=ref_pallas.LANE_BITS)
     _check_carry_wrappers(K, T, P, arrays, 7)
     if T == 1:
@@ -237,8 +248,9 @@ def test_segment_walk_final_matches_pallas(T):
             K, T, jnp.asarray(state.numpy()), jnp.asarray(pidx.numpy()).reshape(B, C, T, -1, LANES),
             jnp.asarray(pjmin.numpy()).reshape(B, C, T, -1, LANES), interpret=True,
         )
+    die_prev = _t([np.ascontiguousarray(a) for a in tail])[4]
     for walk in (wmec.walk_segment, wmec_cuda._walk):
-        ip, tp, final = walk(state, pidx, pjmin)
+        ip, tp, final = walk(state, pidx, pjmin, die_prev)
         assert _eq(ip, ref_ip) and _eq(tp, ref_tp) and _eq(final, ref_final), walk.__name__
 
 

@@ -177,12 +177,13 @@ def test_backtrace_t1_matches_reference(name):
     """(b) The T=1 backtrace walk against backtrace_pallas (interpret), from
     the selected optimum and from arbitrary start states."""
     K, T, P, arrays = _load(name)
-    pidx, dp_last, key_last = wmec_cuda.forward_t1(K, P, *_torch(arrays))
+    ta = _torch(arrays)
+    pidx, dp_last, key_last = wmec_cuda.forward_t1(K, P, *ta)
     B = pidx.shape[0]
     _m, _t, opt = wmec_cuda._select_optimum(K, 1, dp_last, key_last)
     starts = [opt, torch.from_numpy(np.random.RandomState(3).randint(0, 1 << K, B).astype(np.int32))]
     for start in starts:
-        path, final = wmec_cuda.backtrace_t1(start, pidx)
+        path, final = wmec_cuda.backtrace_t1(start, pidx, wmec_cuda.pack_die(ta[4]))
         path_r, final_r = ref_pallas.backtrace_pallas(
             K, jnp.asarray(start.numpy()), jnp.asarray(pidx.numpy()).reshape(B, -1, (1 << K) >> 7, 128),
             interpret=True,
@@ -263,10 +264,21 @@ def test_wrappers_check_inputs():
     with pytest.raises(ValueError):
         wmec_cuda.forward_t1(wmec_cuda.MAX_K + 1, P, *ta)
     pidx, _dp, _key = wmec_cuda.forward_t1(K, P, *ta)
+    die = wmec_cuda.pack_die(ta[4])
+    opt = torch.zeros(pidx.shape[0], dtype=torch.int32)
     with pytest.raises(ValueError):
-        wmec_cuda.backtrace_t1(torch.zeros(pidx.shape[0], dtype=torch.int64), pidx)
+        wmec_cuda.backtrace_t1(opt.long(), pidx, die)
     with pytest.raises(ValueError):
-        wmec_cuda.backtrace_t1(torch.zeros(pidx.shape[0], dtype=torch.int32), pidx[..., :-1])
+        wmec_cuda.backtrace_t1(opt, pidx[..., :-1], die)
+    # the dying masks: (B, C) int32, contiguous, beside the tables
+    with pytest.raises(ValueError):
+        wmec_cuda.backtrace_t1(opt, pidx, ta[4])
+    with pytest.raises(ValueError):
+        wmec_cuda.backtrace_t1(opt, pidx, die.long())
+    with pytest.raises(ValueError):
+        wmec_cuda.backtrace_t1(opt, pidx, die[:, :-1])
+    with pytest.raises(ValueError):
+        wmec_cuda.backtrace_t1(opt, pidx, die.t().contiguous().t())
     with pytest.raises(ValueError):
         wmec_cuda.solve_batched_cuda(K, 4, P, *ta)
 
@@ -277,6 +289,73 @@ def test_wrappers_count_kernel_launches_only():
     before = (wmec_cuda.forward_t1.launches, wmec_cuda.backtrace_t1.launches)
     wmec_cuda.solve_batched_cuda(K, T, P, *_torch(arrays))
     assert (wmec_cuda.forward_t1.launches, wmec_cuda.backtrace_t1.launches) == before
+
+
+def test_pack_die_matches_die_prev():
+    """The backtraces' dying masks: bit k of die[b, c] is die_prev[b, c, k],
+    at every K of the envelope (K = 17 included)."""
+    rng = np.random.RandomState(4)
+    for K in (1, 5, 15, 17):
+        die_prev = torch.from_numpy(rng.rand(3, 7, K) < 0.3)
+        die = wmec_cuda.pack_die(die_prev)
+        assert die.dtype == torch.int32 and die.shape == (3, 7) and die.is_contiguous()
+        bits = (die[..., None] >> torch.arange(K, dtype=torch.int32)) & 1
+        assert torch.equal(bits.bool(), die_prev)
+        assert int(die.min()) >= 0 and int(die.max()) < 1 << K
+
+
+def _assert_fold_shape(pidx, pjmin, die):
+    """What the backtrace kernels' guesses rest on: pidx[b, c, t, v] differs
+    from v only in the dying bits die[b, c], and pjmin[b, c, t, .] is
+    constant along them.  pidx, pjmin (B, C, T, S) numpy (pjmin may be None),
+    die (B, C) packed masks."""
+    S = pidx.shape[-1]
+    v = np.arange(S)
+    m = np.asarray(die)[:, :, None, None].astype(np.int64)
+    assert not np.any((pidx ^ v) & ~m)
+    if pjmin is not None:
+        off = np.broadcast_to(v & ~m, pjmin.shape)
+        assert np.array_equal(pjmin, np.take_along_axis(pjmin, off, axis=-1))
+
+
+@pytest.mark.parametrize("name", ["t1", "t1_ties_k7", "trio", "quartet"])
+def test_forward_tables_change_only_dying_bits(name):
+    """The invariant the backtrace kernels' guesses use, on the reference's
+    own tables (forward_scan_pallas in interpret mode at T = 1, 4 and 16,
+    the XLA scan where K is below the Pallas kernel's lane bits) and on the
+    port's plain tables."""
+    K, T, P, arrays = _load(name)
+    die = wmec_cuda.pack_die(torch.from_numpy(arrays[4])).numpy()
+    if K >= ref_pallas.LANE_BITS:
+        ref = ref_pallas.forward_scan_pallas(K, T, P, *_jax(arrays), interpret=True)[3:5]
+    else:
+        scans = [ref_wmec._forward_scan(K, T, P, *_jax([a[b] for a in arrays])) for b in range(len(die))]
+        ref = [np.stack([np.asarray(x[i]) for x in scans]) for i in (3, 4)]
+    # the reference's tables are (B, C, S, T)
+    pidx_r, pjmin_r = (np.asarray(x).transpose(0, 1, 3, 2) for x in ref)
+    _assert_fold_shape(pidx_r, pjmin_r if T > 1 else None, die)
+    _dp, _jmin, _key, pidx, pjmin = wmec.forward_scan(K, T, P, *_torch(arrays))
+    _assert_fold_shape(pidx.numpy(), None if pjmin is None else pjmin.numpy(), die)
+
+
+def test_backtrace_layout_and_rounds():
+    """The backtraces' launch layout (a warp a walk; the lanes of row 0 by T
+    and by the launch's width) and the round trips their walk takes, from
+    the walk's outputs and masks."""
+    assert wmec_cuda.backtrace_layout(9)["row0"] == 6
+    assert [wmec_cuda.backtrace_layout(W, 4)["row0"] for W in (8, 9)] == [8, 3]
+    assert wmec_cuda.backtrace_layout(9, 4)["guessed_rows"] == 0
+    # a state that never changes: row 0's lanes a round
+    assert wmec_cuda.backtrace_rounds([5] * 64, None, 5, [0] * 64, 1) == -(-64 // 6)
+    # slot 0's bit flips at every column: without masks a round ends at
+    # each change; with slot 0 dying there, the row that guessed the change
+    # resolves the next column too
+    path = [c % 2 for c in range(8)]
+    assert wmec_cuda.backtrace_rounds(path, None, 1, [0] * 8, 1) == 8
+    assert wmec_cuda.backtrace_rounds(path, None, 1, [1] * 8, 1) == 4
+    # T = 4 guesses no rows: a round a change, and one more load to check
+    # the last change's transmission
+    assert wmec_cuda.backtrace_rounds(path, [0] * 8, (1, 0, 0), [1] * 8, 4) == 9
 
 
 def test_kernel_envelope():
@@ -379,7 +458,8 @@ def test_launch_chunking_is_exact(monkeypatch):
 
 def _port_files():
     return sorted((REPO / "whatshap_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "profile_forward_t.py", REPO / "profile_forward_t1.py"
+        REPO / "chip_smoke.py", REPO / "profile_forward_t.py", REPO / "profile_forward_t1.py",
+        REPO / "profile_backtrace.py",
     ]
 
 

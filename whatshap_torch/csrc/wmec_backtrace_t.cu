@@ -11,59 +11,65 @@
 //
 // and writes the triple after the step through column 0 to final[w] (its
 // middle element is the transmission before the block's first column, which
-// the host stitch of the pedigree route chains on).
+// the host stitch of the pedigree route chains on).  die[b, c] holds the
+// slots that die before column c (bit k: slot k).
 //
-// Bound: the walk moves B*M*C*16 bytes (two gathered table entries and two
-// path entries per column), but each gather depends on the one before, so a
-// walk is a chain of 2*C memory latencies.  One thread walks one path and all
-// B*M walks run at once, as in the T=1 backtrace.
+// Bound: the walk needs two table entries and two path entries a column,
+// B*M*C*16 bytes, but each gather depends on the one before (two a column),
+// so what bounds it is the card's gather latency times the dependent round
+// trips.  Design (the walk itself is in wmec_walk.cuh): a warp a walk;
+// pidx and pjmin gathered in the same round trip at the state before the
+// step; each round guesses that (index, transmission) carries over for the
+// next 8 columns (3 in a launch of more than 8 walks), so that a round trip
+// resolves the columns up to the first change, and the pjmin entry after an
+// index change is checked by one more load of the next round; path and
+// tpath stored as the lanes resolve them, a round's entries contiguous.
+// The masks `die` are taken as the T=1 walk takes them, but no guess here
+// reads them: guessing the state after a change did not pay at T > 1.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wmec_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using namespace wmec_walk;
 
-__global__ void backtrace_t_kernel(const int* __restrict__ init,   // (W, 3)
-                                   const int* __restrict__ pidx,   // (B, C, T, S)
-                                   const int* __restrict__ pjmin,  // (B, C, T, S)
-                                   int* __restrict__ path,         // (W, C)
-                                   int* __restrict__ tpath,        // (W, C)
-                                   int* __restrict__ final_state,  // (W, 3)
-                                   int W, int M, int C, int T, int K) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= W) return;
-  const size_t S = (size_t)1 << K;
-  const size_t block = (size_t)(w / M) * C * T * S;
-  const int* pi = pidx + block;
-  const int* pj = pjmin + block;
-  int* out = path + (size_t)w * C;
-  int* tout = tpath + (size_t)w * C;
+template <bool kWide>
+__global__ void __launch_bounds__(32)
+    backtrace_t_kernel(const int* __restrict__ init,   // (W, 3)
+                       const int* __restrict__ pidx,   // (B, C, T, S)
+                       const int* __restrict__ pjmin,  // (B, C, T, S)
+                       const int* __restrict__ die,    // (B, C)
+                       int* __restrict__ path,         // (W, C)
+                       int* __restrict__ tpath,        // (W, C)
+                       int* __restrict__ final_state,  // (W, 3)
+                       int M, int C, int lt, int K) {
+  const int w = blockIdx.x;
+  const size_t blk = (size_t)(w / M) * C;
+  const size_t table = (blk << lt) << K;
   int v = init[3 * w], vt = init[3 * w + 1], pt = init[3 * w + 2];
-  for (int c = C - 1; c >= 0; --c) {
-    out[c] = v;
-    tout[c] = vt;
-    const size_t col = (size_t)c * T;
-    v = __ldg(pi + (col + pt) * S + v);
-    vt = pt;
-    pt = __ldg(pj + (col + vt) * S + v);
+  walk<false, kWide>(pidx + table, pjmin + table, die + blk, path + (size_t)w * C,
+                     tpath + (size_t)w * C, C, K, lt, v, vt, pt);
+  if (threadIdx.x == 0) {
+    final_state[3 * w] = v;
+    final_state[3 * w + 1] = vt;
+    final_state[3 * w + 2] = pt;
   }
-  final_state[3 * w] = v;
-  final_state[3 * w + 1] = vt;
-  final_state[3 * w + 2] = pt;
 }
 
 }  // namespace
 
-extern "C" int wmec_backtrace_t(const int* init, const int* pidx, const int* pjmin, int* path,
-                                int* tpath, int* final_state, int B, int M, int C, int T, int K,
-                                cudaStream_t stream) {
-  if (B < 1 || M < 1 || C < 1 || T < 1 || K < 1 || K > 30) return (int)cudaErrorInvalidValue;
-  const int W = B * M;
-  const int blocks = (W + kThreads - 1) / kThreads;
-  backtrace_t_kernel<<<blocks, kThreads, 0, stream>>>(init, pidx, pjmin, path, tpath,
-                                                      final_state, W, M, C, T, K);
+extern "C" int wmec_backtrace_t(const int* init, const int* pidx, const int* pjmin, const int* die,
+                                int* path, int* tpath, int* final_state, int B, int M, int C, int T,
+                                int K, cudaStream_t stream) {
+  if (B < 1 || M < 1 || C < 1 || T < 2 || T > 16 || (T & (T - 1)) || K < 1 || K > 30)
+    return (int)cudaErrorInvalidValue;
+  const int W = B * M, lt = __builtin_ctz(T);
+  if (W <= kNarrowWalks)
+    backtrace_t_kernel<false><<<W, 32, 0, stream>>>(
+        init, pidx, pjmin, die, path, tpath, final_state, M, C, lt, K);
+  else
+    backtrace_t_kernel<true><<<W, 32, 0, stream>>>(
+        init, pidx, pjmin, die, path, tpath, final_state, M, C, lt, K);
   return (int)cudaGetLastError();
 }
 

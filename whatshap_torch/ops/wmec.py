@@ -723,11 +723,12 @@ def forward_tables(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
     )[3:]
 
 
-def walk_segment(state, pidx, pjmin):
+def walk_segment(state, pidx, pjmin, die_prev=None):
     """The backtrace of one segment on the torch mirror.  state (B, 3) holds
     each block's (index, transmission, preceding transmission) at the
     segment's last column; pidx and pjmin (pjmin None at T == 1) are the
-    segment's tables.  Returns the index and transmission paths (B, seg) and
+    segment's tables; die_prev, the segment's dying slots, is not read (the
+    kernels' walk takes it as a guide).  Returns the index and transmission paths (B, seg) and
     the state one step through the segment's first column: the state at the
     preceding segment's last column, where its walk starts."""
     ip, tp, seam = _backtrace_from(state[:, 0], state[:, 1], state[:, 2], pidx, pjmin)
@@ -752,8 +753,9 @@ def solve_segmented(
       2. the optimum of the last carry (wmec_cuda._head_init: min cost,
          Gray key, transmission, index) and its jmin entry start the walk;
       3. from the last segment to the first, `tables_pass` re-runs the
-         segment from its checkpoint with tables and `walk` backtraces it,
-         handing on its state at the preceding segment's last column.
+         segment from its checkpoint with tables and `walk` backtraces it
+         (given the segment's die_prev), handing on its state at the
+         preceding segment's last column.
 
     One segment's tables live at a time.  The functions (by default the
     torch mirror: forward_carry, forward_tables, walk_segment) take the
@@ -777,8 +779,9 @@ def solve_segmented(
 
     ips, tps = [], []
     for i in reversed(range(C // seg)):
-        pidx, pjmin = tables_pass(K, T, P, *seg_args(i), checkpoints.pop())
-        ip, tp, state = walk(state, pidx, pjmin)
+        args = seg_args(i)
+        pidx, pjmin = tables_pass(K, T, P, *args, checkpoints.pop())
+        ip, tp, state = walk(state, pidx, pjmin, args[4])
         del pidx, pjmin  # free this segment's tables before the next one's
         ips.append(ip)
         tps.append(tp)

@@ -12,7 +12,10 @@ Replaces whatshap_tpu/ops/wmec_pallas.py:
   thread-block cluster per block with the block's state on chip
   (forward_t1_layout);
 - backtrace_t1 launches csrc/wmec_backtrace_t1.cu, the index-path walk that
-  replaces _make_backtrace_kernel (via backtrace_pallas);
+  replaces _make_backtrace_kernel (via backtrace_pallas): a warp a walk,
+  several columns a memory round trip (csrc/wmec_walk.cuh), guided by the
+  columns' dying masks (pack_die; backtrace_layout and backtrace_rounds
+  mirror its rounds);
 - forward_t and forward_m_t launch csrc/wmec_forward_t.cu, the general-T
   (pedigree) forward scan that replaces _make_kernel for T > 1: with tables,
   unseeded, seeded or from a carry (forward_scan_pallas, solve_batched_pallas
@@ -24,7 +27,8 @@ Replaces whatshap_tpu/ops/wmec_pallas.py:
 - backtrace_t launches csrc/wmec_backtrace_t.cu, the general-T walk of
   (index, transmission, preceding transmission) that replaces
   _make_backtrace_kernel_t, M walks per block over its tables
-  (backtrace_pallas_t at M = 1, backtrace_pallas_t_multi at M = T + 1);
+  (backtrace_pallas_t at M = 1, backtrace_pallas_t_multi at M = T + 1), on
+  the same walk;
 - _select_optimum picks the tie-broken optimum between them, in torch ops,
   as the JAX side leaves it to XLA;
 - solve_batched_cuda is forward -> select -> backtrace, the mirror of
@@ -148,16 +152,94 @@ def forward_t_layout(K: int, T: int, P: int, tables: bool) -> dict:
     return {**lay, "smem_bytes": 4 * (state + _record_words(K, tp2, T << P) + sums + red)}
 
 
+#: The backtraces' rounds (csrc/wmec_walk.cuh: kNarrowWalks, kRowCols,
+#: kGuessO/kGuessJ, row0_lanes): launches of at most BT_NARROW_WALKS walks
+#: take the narrow layout; a T = 1 round's guessed rows, (o, j): a change at
+#: the o-th column of the round to the index with subset j of the column's
+#: mask flipped (1 its lowest bit, 2 the next, 3 both), BT_ROW_COLS columns
+#: each.
+BT_NARROW_WALKS = 8
+BT_ROW_COLS = 4
+BT_GUESSES = ((0, 1), (1, 1), (0, 2), (2, 1))
+
+
+def backtrace_layout(W: int, T: int = 1) -> dict:
+    """The layout of a backtrace launch of W walks (a warp a walk), as the C
+    entries and csrc/wmec_walk.cuh compute it: `row0` lanes gather the next
+    columns at the state each round (6 at T = 1; at T > 1 8 in a narrow
+    launch, 3 in a wide one), and at T = 1 the BT_GUESSES rows guess the
+    state after a change."""
+    row0 = 6 if T == 1 else (8 if W <= BT_NARROW_WALKS else 3)
+    return {"row0": row0, "guessed_rows": len(BT_GUESSES) if T == 1 else 0}
+
+
+def _subset(D: int, j: int) -> int:
+    low1 = D & -D
+    low2 = (D ^ low1) & -(D ^ low1)
+    if j > 1 and not low2:
+        return 0
+    return (low1 if j & 1 else 0) | (low2 if j & 2 else 0)
+
+
+def backtrace_rounds(path, tpath, final, die, T: int, W: int = 1) -> int:
+    """The memory round trips the backtrace kernels take for one walk of a
+    launch of W walks, as csrc/wmec_walk.cuh's rounds go over it: a round
+    resolves the columns up to the first change of the state within its
+    first `row0` (backtrace_layout) and, at T = 1 where a guessed row
+    (BT_GUESSES) guessed that change, the next BT_ROW_COLS columns up to the
+    next change; at T > 1 a last change of the index is checked with one
+    more load after the last round.  The walk is given by its outputs:
+    path, tpath (C,) and final (3,) (T = 1: final (1,) or an int), die (C,)
+    its masks (pack_die); the tables are taken to have the forward's shape
+    (no check fails)."""
+    path = [int(x) for x in path]
+    C = len(path)
+    tpath = [int(x) for x in tpath] if T > 1 else [0] * C
+    fin = [int(x) for x in (final if hasattr(final, "__len__") else [final])] + [0, 0]
+    die = [int(x) for x in die]
+
+    def state_after(x):  # (index, preceding transmission) after column x
+        if x == 0:
+            return fin[0], fin[2] if T > 1 else 0
+        return path[x - 1], (tpath[x - 2] if x >= 2 else fin[1]) if T > 1 else 0
+
+    def pt_entering(x):
+        return (tpath[x - 1] if x >= 1 else fin[1]) if T > 1 else 0
+
+    row0 = backtrace_layout(W, T)["row0"]
+    rounds, pending, c = 0, False, C - 1
+    while c >= 0:
+        rounds += 1
+        pending = False
+        v, pt = path[c], pt_entering(c)
+        n0 = min(row0, c + 1)
+        f = next((i for i in range(n0) if state_after(c - i) != (v, pt)), None)
+        if f is None:
+            c -= n0
+            continue
+        d = c - f
+        v1, pt1 = state_after(d)
+        c = d - 1
+        s = v1 ^ v
+        if T > 1 or not (d >= 1 and s and any(o == f and _subset(die[d], j) == s for o, j in BT_GUESSES)):
+            pending = T > 1 and s != 0
+            continue
+        n1 = min(BT_ROW_COLS, d)
+        e = next((e for e in range(n1) if state_after(d - 1 - e)[0] != v1), None)
+        c = d - 1 - (n1 if e is None else e + 1)
+    return rounds + pending
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "wmec_forward_t1": [_P] * 10 + [_I] * 3 + [_P],
     "wmec_forward_carry_t1": [_P] * 9 + [_I] * 3 + [_P],
-    "wmec_backtrace_t1": [_P] * 4 + [_I] * 3 + [_P],
+    "wmec_backtrace_t1": [_P] * 5 + [_I] * 3 + [_P],
     "wmec_forward_t": [_P] * 15 + [_I] * 5 + [_P],
     "wmec_forward_carry_t": [_P] * 12 + [_I] * 5 + [_P],
     "wmec_forward_m_t": [_P] * 7 + [_I] * 5 + [_P],
-    "wmec_backtrace_t": [_P] * 6 + [_I] * 5 + [_P],
+    "wmec_backtrace_t": [_P] * 7 + [_I] * 5 + [_P],
     "geno_backward": [_P] * 8 + [_I] * 5 + [_P],
     "geno_forward": [_P] * 8 + [_I] * 5 + [_P],
 }
@@ -329,10 +411,19 @@ def forward_carry_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
 forward_carry_t1.launches = 0
 
 
-def backtrace_t1_plain(opt_idx, pidx):
+def pack_die(die_prev):
+    """The dying masks the backtraces take: die_prev (B, C, K) bool packed
+    into (B, C) int32, bit k set where slot k dies before column c (the
+    slots the forward fold of column c visits)."""
+    K = die_prev.shape[-1]
+    weights = torch.tensor([1 << k for k in range(K)], dtype=torch.int32, device=die_prev.device)
+    return (die_prev * weights).sum(dim=-1, dtype=torch.int32)
+
+
+def backtrace_t1_plain(opt_idx, pidx, die=None):
     """Plain torch version of the T=1 backtrace (see backtrace_t1): the torch
     mirror's walk (wmec._backtrace_from) with no transmission state, then the
-    step through column 0."""
+    step through column 0.  The dying masks `die` are not read."""
     from .wmec import _backtrace_from
 
     zero = torch.zeros_like(opt_idx)
@@ -341,22 +432,25 @@ def backtrace_t1_plain(opt_idx, pidx):
     return path, pidx[rows, 0, path[:, 0].long()]
 
 
-def backtrace_t1(opt_idx, pidx):
+def backtrace_t1(opt_idx, pidx, die):
     """T=1 backtrace.  opt_idx (B,) i32 is the selected last-column
-    bipartition, pidx (B, C, 2^K) i32 the tables from forward_t1.  Walks
-    v <- pidx[b, c, v] from the last column to the first, recording v at
-    each column before the step.  Returns the index paths (B, C) i32 and the
-    state one step through column 0, final (B,) i32, as backtrace_pallas
-    does (the segmented solve chains on it)."""
+    bipartition, pidx (B, C, 2^K) i32 the tables from forward_t1, die (B, C)
+    i32 the dying masks of the columns (pack_die).  Walks v <- pidx[b, c, v]
+    from the last column to the first, recording v at each column before the
+    step.  Returns the index paths (B, C) i32 and the state one step through
+    column 0, final (B,) i32, as backtrace_pallas does (the segmented solve
+    chains on it).  The masks only guide the kernel's guesses: the result is
+    the walk of pidx whatever they hold."""
     B, C = pidx.shape[0], pidx.shape[1]
     S = pidx.shape[2] if pidx.dim() == 3 else 0
     if S < 2 or S & (S - 1) or not 1 <= S.bit_length() - 1 <= MAX_K:
         raise ValueError(f"backtrace_t1: pidx must be (B, C, 2^K) with 1 <= K <= {MAX_K}")
     _check(opt_idx, "opt_idx", torch.int32, (B,))
     _check(pidx, "pidx", torch.int32, (B, C, S))
-    dev = _check_device(opt_idx, pidx)
+    _check(die, "die", torch.int32, (B, C))
+    dev = _check_device(opt_idx, pidx, die)
     if dev.type == "cpu":
-        return backtrace_t1_plain(opt_idx, pidx)
+        return backtrace_t1_plain(opt_idx, pidx, die)
 
     path = torch.empty((B, C), dtype=torch.int32, device=dev)
     final = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -365,6 +459,7 @@ def backtrace_t1(opt_idx, pidx):
             "wmec_backtrace_t1",
             opt_idx.data_ptr(),
             pidx.data_ptr(),
+            die.data_ptr(),
             path.data_ptr(),
             final.data_ptr(),
             B,
@@ -563,10 +658,10 @@ def forward_m_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
 forward_m_t.launches = 0
 
 
-def backtrace_t_plain(init, pidx, pjmin):
+def backtrace_t_plain(init, pidx, pjmin, die=None):
     """Plain torch version of the general-T backtrace (see backtrace_t): the
     torch mirror's walk (wmec._backtrace_from), walk w on block w // M, then
-    the step through column 0."""
+    the step through column 0.  The dying masks `die` are not read."""
     from .wmec import _backtrace_from
 
     B, M = init.shape[0], init.shape[1]
@@ -579,14 +674,16 @@ def backtrace_t_plain(init, pidx, pjmin):
     return path.reshape(B, M, C), tpath.reshape(B, M, C), final.reshape(B, M, 3)
 
 
-def backtrace_t(init, pidx, pjmin):
+def backtrace_t(init, pidx, pjmin, die):
     """General-T backtrace, M walks per block over the block's tables.
 
     init (B, M, 3) i32 holds each walk's start (index v, transmission vt,
     preceding transmission prev_t); pidx and pjmin (B, C, T, 2^K) i32 are
-    forward_t's tables.  From column C-1 down to 0 each walk records (v, vt),
-    then steps v <- pidx[c, prev_t, v], vt <- prev_t, prev_t <- pjmin[c, vt,
-    v].  Returns the index paths and transmission paths (B, M, C) and the
+    forward_t's tables, die (B, C) i32 the dying masks of the columns
+    (pack_die; the kernel's guesses at T > 1 read none of them, so they
+    cannot change the result).  From column C-1 down to 0 each walk records
+    (v, vt), then steps v <- pidx[c, prev_t, v], vt <- prev_t, prev_t <-
+    pjmin[c, vt, v].  Returns the index paths and transmission paths (B, M, C) and the
     triple after the step through column 0, final (B, M, 3), all int32, as
     backtrace_pallas_t (M = 1) and backtrace_pallas_t_multi do."""
     B, C = pidx.shape[0], pidx.shape[1]
@@ -600,11 +697,12 @@ def backtrace_t(init, pidx, pjmin):
     _check(init, "init", torch.int32, (B, M, 3))
     _check(pidx, "pidx", torch.int32, (B, C, T, S))
     _check(pjmin, "pjmin", torch.int32, (B, C, T, S))
+    _check(die, "die", torch.int32, (B, C))
     if M < 1:
         raise ValueError("backtrace_t: needs at least one walk per block")
-    dev = _check_device(init, pidx, pjmin)
+    dev = _check_device(init, pidx, pjmin, die)
     if dev.type == "cpu":
-        return backtrace_t_plain(init, pidx, pjmin)
+        return backtrace_t_plain(init, pidx, pjmin, die)
 
     path = torch.empty((B, M, C), dtype=torch.int32, device=dev)
     tpath = torch.empty_like(path)
@@ -612,7 +710,7 @@ def backtrace_t(init, pidx, pjmin):
     with torch.cuda.device(dev):
         _launch(
             "wmec_backtrace_t",
-            init.data_ptr(), pidx.data_ptr(), pjmin.data_ptr(),
+            init.data_ptr(), pidx.data_ptr(), pjmin.data_ptr(), die.data_ptr(),
             path.data_ptr(), tpath.data_ptr(), final.data_ptr(),
             B, M, C, T, K,
         )
@@ -640,13 +738,15 @@ def solve_batched_cuda(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
     if T == 1:
         pidx, dp_last, key_last = forward_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc)
         m, _opt_trans, opt_idx = _select_optimum(K, 1, dp_last, key_last)
-        index_path, _final = backtrace_t1(opt_idx.contiguous(), pidx)
+        index_path, _final = backtrace_t1(opt_idx.contiguous(), pidx, pack_die(die_prev))
         return m, index_path, torch.zeros_like(index_path)
     pidx, pjmin, dp_last, jmin_last, key_last = forward_t(
         K, T, P, wdiff, wbase, rankw, acost, die_prev, rc
     )
     m, init = _head_init(K, T, dp_last, jmin_last, key_last)
-    index_path, trans_path, _final = backtrace_t(init[:, None].contiguous(), pidx, pjmin)
+    index_path, trans_path, _final = backtrace_t(
+        init[:, None].contiguous(), pidx, pjmin, pack_die(die_prev)
+    )
     return m, index_path[:, 0], trans_path[:, 0]
 
 
@@ -669,7 +769,7 @@ def solve_seeded_batched_cuda(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc,
     B = dp_last.shape[0]
     t_ids = torch.arange(T, dtype=torch.int32, device=dp_last.device).expand(B, T)
     inits = torch.cat([head[:, None], torch.stack([s_star, t_ids, jmin_star], dim=2)], dim=1)
-    ips, tps, fins = backtrace_t(inits.contiguous(), pidx, pjmin)
+    ips, tps, fins = backtrace_t(inits.contiguous(), pidx, pjmin, pack_die(die_prev))
     # the walk's final triple is one step through column 0: its middle
     # element is the transmission before the block's first column
     return (
@@ -703,15 +803,17 @@ def _tables_pass(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
     return forward_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry=carry)[:2]
 
 
-def _walk(state, pidx, pjmin):
+def _walk(state, pidx, pjmin, die_prev):
     """wmec.walk_segment's signature on the backtrace kernels: backtrace_t1
-    at T = 1 (pjmin None), backtrace_t with one walk per block above.  Their
-    `final` is the state one step through the segment's first column."""
+    at T = 1 (pjmin None), backtrace_t with one walk per block above, both
+    given the segment's dying masks.  Their `final` is the state one step
+    through the segment's first column."""
+    die = pack_die(die_prev)
     if pjmin is None:
-        path, final = backtrace_t1(state[:, 0].contiguous(), pidx[:, :, 0])
+        path, final = backtrace_t1(state[:, 0].contiguous(), pidx[:, :, 0], die)
         zero = torch.zeros_like(final)
         return path, torch.zeros_like(path), torch.stack([final, zero, zero], dim=1)
-    ip, tp, final = backtrace_t(state[:, None].contiguous(), pidx, pjmin)
+    ip, tp, final = backtrace_t(state[:, None].contiguous(), pidx, pjmin, die)
     return ip[:, 0], tp[:, 0], final[:, 0]
 
 
