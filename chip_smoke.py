@@ -91,11 +91,29 @@ Phases, every one of which must pass:
             second run splits the time into pack / carry pass / tables +
             backtrace pass / d2h / extract; both routes' peak device memory
             is printed.
-10. timing  the main paths' largest buckets copied to the card, and each
+10. phase-cli  the phase CLI on files, as a user runs it: a synthetic
+            chromosome of 100,000 heterozygous SNVs (spacing 150, coverage
+            14, ~30 variants a read, 2 % allele errors, a break every 64
+            variants; reference FASTA, BAM and VCF written by this script
+            with the port's BAM writer) phased by
+            whatshap_torch.cli.phase.run_whatshap(device="cuda") with
+            realignment against the FASTA.  It prints variants phased/s over
+            the whole call, the stage times, the PedigreeDPTable calls and
+            the kernel launches per call, and the switch-error rate against
+            the simulated haplotypes (below 5 %); the VCF must be
+            byte-identical to a second run with the plain torch route handed
+            in through run_dp's seams (no kernel launched in it).
+11. phase-cli-trio  the same for a trio of 8,192 variants at coverage 5 a
+            sample (one BAM with three read groups, a PED file; the child
+            inherits with a crossover at a window boundary with probability
+            0.2), through the seam route.
+12. timing  the main paths' largest buckets copied to the card, and each
             kernel at its shape (CUDA events), beside its plain version and
-            its bound: the T=1 kernels at the slice's bucket and at the
-            single block (B = 1, C = 4096), each with its cluster layout and
-            microseconds per column, the general-T tables
+            its bound: the T=1 kernels at the phase CLI's bucket (the
+            kernels line's rows 1-2), the slice's bucket and the single block
+            (B = 1, C = 4096), each with its cluster layout and microseconds
+            per column; the general-T kernels at the phase-cli-trio's bucket
+            (the kernels line's rows 6-8) and the trio's, the tables
             kernel and backtrace also at the trio-single shape, the
             genotyping kernels at the genotype and genotype-trio shapes
             (with the CTAs per cluster, the SMs used and the share of the
@@ -118,6 +136,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -170,6 +189,10 @@ ENTRIES = [
     ("geno_forward", "geno_forward", "whatshap_tpu/ops/genotyping_pallas.py:182"),
 ]
 CARRY_KERNELS = ("wmec_forward_carry_t1", "wmec_forward_carry_t")
+# the phase CLI cells: the chr1-style chromosome of BASELINE.json (100,000
+# SNVs at coverage 14) and a trio of 8,192 SNVs at coverage 5 a sample
+CLI_VARIANTS = 100_000
+CLI_TRIO_VARIANTS = 8192
 SINGLE = (1, ())
 TRIO = (3, ((0, 1, 2),))
 QUARTET = (4, ((0, 1, 2), (0, 1, 3)))
@@ -880,8 +903,9 @@ def walk_timing(label, name, T, K, tables, start, die, reps=10):
 
 
 def time_kernels(packed, label="slice"):
-    """Phase 10, T = 1: each kernel at the largest bucket of the path
-    (slice: B = 256 blocks; single: the one 4096-column block)."""
+    """Phase 12, T = 1: each kernel at the largest bucket of the path
+    (slice: B = 256 blocks; single: the one 4096-column block; phase-cli:
+    the chromosome's 64-variant windows at K = 15)."""
     (c_pad, K), members, _ri = main_bucket(packed)
     stacked = blocks.stack_blocks(members)
     torch.cuda.synchronize()
@@ -929,13 +953,15 @@ def time_kernels(packed, label="slice"):
 
 
 def main_bucket(packed):
-    """The bucket of the most blocks on the route: ((c_pad, K), its
-    PaddedArrays, their range indices)."""
+    """The bucket of the most work on the route (blocks x columns x 2^K; a
+    pedigree CLI run also has many read-less ranges of the genetic
+    haplotyping at K = 1): ((c_pad, K), its PaddedArrays, their range
+    indices)."""
     ranges = wmec.connected_column_ranges(packed)
     buckets = {}
     for ri, (c_pad, k_b, arrs) in enumerate(wmec._slice_ranges(packed, ranges)):
         buckets.setdefault((c_pad, k_b), []).append((ri, arrs))
-    key, members = max(buckets.items(), key=lambda kv: len(kv[1]))
+    key, members = max(buckets.items(), key=lambda kv: len(kv[1]) * kv[0][0] << kv[0][1])
     return key, [a for _ri, a in members], [ri for ri, _a in members]
 
 
@@ -959,8 +985,8 @@ def _bound(in_bytes, out_bytes, ops):
     return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def time_pedigree_kernels(packed, device="cuda"):
-    """Phase 8, general T: each kernel at the trio path's main bucket, at
+def time_pedigree_kernels(packed, device="cuda", label="trio"):
+    """Phase 12, general T: each kernel at a pedigree path's main bucket, at
     the shapes the route gives it: the m-only scan as pass 1 (unit seeds,
     R = 1), the seeded scan with tables as pass 2, the backtrace with the
     head and T seam walks per block."""
@@ -968,7 +994,7 @@ def time_pedigree_kernels(packed, device="cuda"):
     T, P = packed.T, packed.P
     arrays = blocks.to_device(blocks.stack_blocks(members), device)
     B, C, S = len(members), c_pad, 1 << K
-    print(f"timing at the trio's main bucket: B={B} C={C} K={K} T={T} P={P}", flush=True)
+    print(f"timing at the {label}'s main bucket: B={B} C={C} K={K} T={T} P={P}", flush=True)
     rep_of, reps = wmec.coset_representatives(T, packed.t_sym_masks)
     unit = np.full((len(reps), T), wmec.INF, dtype=np.int32)
     unit[np.arange(len(reps)), reps] = 0
@@ -1002,17 +1028,17 @@ def time_pedigree_kernels(packed, device="cuda"):
             _nbytes(*arrays, dp0), _nbytes(*kern), (2 * T * P + 1 + T * T) * B * C * S))),
     )
 
-    _require(all(r["max_abs_err"] == 0 for r in out.values()), "general-T kernels bit-equal at the trio's bucket")
+    _require(all(r["max_abs_err"] == 0 for r in out.values()), f"general-T kernels bit-equal at the {label}'s bucket")
     notes = {"wmec_forward_m_t": _layout(K, T, P, False, m_ms, C, B * len(reps)),
              "wmec_forward_t": _layout(K, T, P, True, fwd_ms, C, B)}
     for name, r in out.items():
-        print(f"{name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms), bound "
+        print(f"{label} {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms), bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']} {notes.get(name, '')}", flush=True)
 
     # the head and T seam walks per block over the pass-2 tables
     inits = _walk_inits(K, T, kern, torch.ones((B, K), dtype=torch.bool, device=device))
     out["wmec_backtrace_t"] = walk_timing(
-        "trio", "wmec_backtrace_t", T, K, kern[:2], inits, wmec_cuda.pack_die(arrays[4]))
+        label, "wmec_backtrace_t", T, K, kern[:2], inits, wmec_cuda.pack_die(arrays[4]))
     del kern
     return out
 
@@ -1600,6 +1626,276 @@ def time_geno_kernels(static, stacked, label, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the phase CLI on files: a synthetic chromosome or trio on disk, phased by
+# whatshap_torch.cli.phase.run_whatshap on the card
+
+
+BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def write_synth(out_dir, n_vars, coverage, seed, trio=False, vars_per_read=30, spacing=150,
+                err=0.02, break_every=64, recomb_per_block=0.2):
+    """Write a synthetic chromosome (the generator of tools/make_synth_chrom.py,
+    on numpy's seeded generator): ref.fasta and its .fai, variants.vcf of
+    biallelic SNVs every `spacing` bases, reads.bam (with a minimal .bai) of
+    all-match reads drawn from one haplotype each, `vars_per_read` variants
+    long, confined to `break_every`-variant windows, at `coverage` reads over
+    each variant of each sample, with `err` of the alleles flipped.  One
+    sample, heterozygous at every site; or, with `trio`, a mother and a father
+    with random haplotypes and a child that inherits one of each parent's,
+    switching at a window boundary with probability `recomb_per_block`, one
+    read group per sample and family.ped.  Returns the paths, the sample
+    names and each sample's simulated haplotypes, (2, n_vars)."""
+    from pathlib import Path
+
+    from whatshap_torch.io.sam import AlignedSegment, AlignmentFile, AlignmentHeader, build_minimal_index
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    contig, ref_len = "chr1", (n_vars + 2) * spacing
+    ref_code = rng.integers(0, 4, ref_len)
+    ref = BASES[ref_code]
+    pos = (np.arange(n_vars) + 1) * spacing  # 0-based
+    alt = BASES[(ref_code[pos] + rng.integers(1, 4, n_vars)) % 4]
+    if trio:
+        mother, father = rng.integers(0, 2, (2, n_vars)), rng.integers(0, 2, (2, n_vars))
+        cols = np.arange(n_vars)
+
+        def inherit(parent):
+            cross = (cols % break_every == 0) & (cols > 0) & (rng.random(n_vars) < recomb_per_block)
+            return parent[(rng.integers(0, 2) + np.cumsum(cross)) % 2, cols]
+
+        haps = {"mother": mother, "father": father, "child": np.stack([inherit(mother), inherit(father)])}
+    else:
+        h0 = rng.integers(0, 2, n_vars)
+        haps = {"sample": np.stack([h0, 1 - h0])}
+    names = list(haps)
+
+    seq = ref.tobytes()
+    fasta = out / "ref.fasta"
+    with open(fasta, "wb") as f:
+        f.write(f">{contig}\n".encode())
+        f.write(b"".join(seq[i : i + 60] + b"\n" for i in range(0, ref_len, 60)))
+    with open(f"{fasta}.fai", "w") as f:
+        f.write(f"{contig}\t{ref_len}\t{len(contig) + 2}\t60\t61\n")
+
+    gts = np.stack([np.char.add(np.char.add(np.minimum(*h).astype(str), "/"), np.maximum(*h).astype(str))
+                    for h in haps.values()], axis=1)
+    vcf = out / "variants.vcf"
+    with open(vcf, "w") as f:
+        f.write("##fileformat=VCFv4.2\n")
+        f.write(f"##contig=<ID={contig},length={ref_len}>\n")
+        f.write('##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n')
+        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t" + "\t".join(names) + "\n")
+        refs, alts = ref[pos].tobytes().decode(), alt.tobytes().decode()
+        f.writelines(f"{contig}\t{p + 1}\t.\t{refs[i]}\t{alts[i]}\t50\tPASS\t.\tGT\t" + "\t".join(gts[i]) + "\n"
+                     for i, p in enumerate(pos.tolist()))
+    ped = None
+    if trio:
+        ped = out / "family.ped"
+        ped.write_text("FAM child father mother 0 0\nFAM father 0 0 0 0\nFAM mother 0 0 0 0\n")
+
+    reads = []  # (start, read id, sample, sequence)
+    for name in names:
+        h = haps[name]
+        for v_lo in range(0, n_vars, break_every):
+            v_hi = min(v_lo + break_every, n_vars)
+            span = min(vars_per_read, v_hi - v_lo)
+            n_reads = max(1, round(coverage * (v_hi - v_lo) / span))
+            which = rng.integers(0, 2, n_reads)
+            v_start = rng.integers(v_lo, v_hi - span + 1, n_reads)
+            lead = rng.integers(10, spacing - 10, (n_reads, 2))
+            for r in range(n_reads):
+                a, b = int(v_start[r]), int(v_start[r]) + span
+                g0, g1 = int(pos[a]) - int(lead[r, 0]), int(pos[b - 1]) + int(lead[r, 1])
+                bases = ref[g0:g1].copy()
+                allele = h[which[r], a:b] ^ (rng.random(span) < err)
+                at = allele == 1
+                bases[pos[a:b][at] - g0] = alt[a:b][at]
+                reads.append((g0, len(reads), name, bases.tobytes().decode()))
+    reads.sort()
+    header = AlignmentHeader.from_dict({
+        "HD": {"VN": "1.6", "SO": "coordinate"},
+        "SQ": [{"SN": contig, "LN": ref_len}],
+        "RG": [{"ID": name, "SM": name} for name in names],
+    })
+    bam = out / "reads.bam"
+    bf = AlignmentFile(str(bam), "wb", header=header)
+    for g0, rid, name, sq in reads:
+        seg = AlignedSegment(header)
+        seg.query_name = f"read{rid}"
+        seg.flag = 0
+        seg.reference_id = 0
+        seg.reference_start = g0
+        seg.mapping_quality = 50
+        seg.cigartuples = [(0, len(sq))]
+        seg.query_sequence = sq
+        seg.query_qualities = bytes([30]) * len(sq)
+        seg.tags = {"RG": name}
+        bf.write(seg)
+    bf.close()
+    build_minimal_index(str(bam))
+    return {"fasta": str(fasta), "bam": str(bam), "vcf": str(vcf), "ped": None if ped is None else str(ped),
+            "n_vars": n_vars, "n_reads": len(reads), "spacing": spacing, "haps": haps}
+
+
+def switch_error_rates(vcf_text, data) -> dict:
+    """Per sample, the switch-error rate of a phased VCF against the
+    simulated haplotypes, counted as bench.py's CLI leg counts it: over
+    consecutive phased calls of one phase set (PS), the share where the
+    called haplotype's agreement with the first simulated one flips; only
+    sites heterozygous in the simulation count."""
+    samples = list(data["haps"])
+    blocks = {s: {} for s in samples}
+    for line in vcf_text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        f = line.split("\t")
+        vi = int(f[1]) // data["spacing"] - 1
+        keys = f[8].split(":")
+        for s, value in zip(samples, f[9:]):
+            call = dict(zip(keys, value.split(":")))
+            gt = call.get("GT", "")
+            h = data["haps"][s]
+            if "|" not in gt or h[0, vi] == h[1, vi]:
+                continue
+            blocks[s].setdefault(call.get("PS"), []).append((vi, int(gt.split("|")[0]) ^ int(h[0, vi])))
+    rates = {}
+    for s in samples:
+        pairs = switches = 0
+        for members in blocks[s].values():
+            rel = [r for _vi, r in sorted(members)]
+            pairs += len(rel) - 1
+            switches += sum(x != y for x, y in zip(rel, rel[1:]))
+        rates[s] = (switches / pairs if pairs else None, pairs)
+    return rates
+
+
+@contextlib.contextmanager
+def counted_tables(calls: list):
+    """Keep the packed problem of each PedigreeDPTable the phase CLI makes."""
+    from whatshap_torch.cli import phase as phase_cli
+
+    real = phase_cli.PedigreeDPTable
+
+    class Counted(real):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            calls.append(self._packed)
+
+    phase_cli.PedigreeDPTable = Counted
+    try:
+        yield
+    finally:
+        phase_cli.PedigreeDPTable = real
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Every run_dp of the block in the plain torch route on the card: the
+    route's seams (solve, forward_m, solve_seeded, solve_segmented) get the
+    torch mirror, chunked as the route chunks, in place of the kernels."""
+    real = wmec.run_dp
+
+    def run_dp(packed, device=None):
+        return real(packed, device, solve=plain_solve, forward_m=wmec.forward_m_batched,
+                    solve_seeded=plain_solve_seeded, solve_segmented=wmec.solve_segmented)
+
+    wmec.run_dp = run_dp
+    try:
+        yield
+    finally:
+        wmec.run_dp = real
+
+
+@contextlib.contextmanager
+def solve_events(pairs: list):
+    """Record a pair of CUDA events around each solve of the block's run_dp
+    calls (the route's default seams, unchanged; no synchronisation added):
+    the device time of the solves, an upper bound on the card's busy time."""
+    real = wmec.run_dp
+
+    def timed(fn):
+        def run(*args):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            stop.record()
+            pairs.append((start, stop))
+            return out
+        return run
+
+    def run_dp(packed, device=None):
+        return real(packed, device, solve=timed(wmec.solve_batched_auto), forward_m=timed(wmec.forward_m_auto),
+                    solve_seeded=timed(wmec.solve_seeded_auto), solve_segmented=timed(wmec.solve_segmented_auto))
+
+    wmec.run_dp = run_dp
+    try:
+        yield
+    finally:
+        wmec.run_dp = real
+
+
+def cli_instance(data, label, expect, **kwargs):
+    """Phase the files of `data` through run_whatshap on the card (counted,
+    with the launch counters set to 0 just before and read just after), then
+    again with the plain torch route handed in; the two VCFs must be
+    byte-identical and the first must recover the simulated haplotypes.
+    Returns the counted run's launches and the packed problem of its largest
+    PedigreeDPTable call."""
+    from whatshap_torch.cli import phase as phase_cli
+
+    args = dict(phase_input_files=[data["bam"]], variant_file=data["vcf"], reference=data["fasta"],
+                write_command_line_header=False, device="cuda", **kwargs)
+    out = data["vcf"][: -len("variants.vcf")]
+    calls, events = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with counted_tables(calls), solve_events(events):
+        phase_cli.run_whatshap(**args, output=out + "kernels.vcf")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    solves = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    timers = phase_cli.LAST_TIMERS
+    stages = {k: timers.elapsed(k) for k in ("parse_vcf", "read_bam", "select", "phase", "components",
+                                             "write_vcf")}
+    stages["rest"] = timers.total() - timers.sum()
+    n = data["n_vars"]
+    print(f"{label}: {n} variants, {data['n_reads']} reads, {len(data['haps'])} sample(s): wall {wall:.3f} s "
+          f"(files in, VCF out) = {n / wall:.1f} variants phased/s", flush=True)
+    print(f"{label}: stages (s): " + " ".join(f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
+    print(f"{label}: device time of the {len(events)} solves (CUDA events) {solves:.4f} s = {solves / wall:.4f} of "
+          f"the wall: the card idles at least {1 - solves / wall:.4f} of it", flush=True)
+    per_call = {k: v / max(len(calls), 1) for k, v in launches.items() if v}
+    print(f"{label}: {len(calls)} PedigreeDPTable call(s); launches {launches}; per call {per_call}", flush=True)
+    _require(len(calls) > 0 and all(launches[k] > 0 for k in expect), f"{label}: every kernel of its path launched")
+    _require(all(launches[k] == 0 for k in CARRY_KERNELS), f"{label}: no segmented solve")
+
+    with open(out + "kernels.vcf") as f:
+        text = f.read()
+    rates = switch_error_rates(text, data)
+    print(f"{label}: switch-error rate against the simulated haplotypes: "
+          + ", ".join(f"{s} {r if r is None else round(r, 6)} over {p} pairs" for s, (r, p) in rates.items()),
+          flush=True)
+    _require(all(r is not None and r < 0.05 for r, _p in rates.values()), f"{label}: haplotypes recovered")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with plain_route():
+        phase_cli.run_whatshap(**args, output=out + "plain.vcf")
+    plain_s = time.perf_counter() - t0
+    with open(out + "plain.vcf") as f:
+        same = f.read() == text
+    print(f"{label}: plain torch route {plain_s:.3f} s (phase stage {phase_cli.LAST_TIMERS.elapsed('phase'):.3f} s); "
+          f"kernel launches in it {sum(read_launches().values())}; VCF byte-identical: {same}", flush=True)
+    _require(same and sum(read_launches().values()) == 0, f"{label}: VCF byte-identical to the plain route's")
+    return launches, max(calls, key=lambda p: p.n_cols)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1717,15 +2013,40 @@ def main() -> int:
     del rs_k
     print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 10. kernel times at the main paths' shapes
+    # 10-11. the phase CLI, files in and a phased VCF out: a chr1-sized
+    # single-sample chromosome with realignment, and a trio with its PED file
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        chrom = write_synth(f"{tmp}/chrom", CLI_VARIANTS, 14, seed=7)
+        print(f"phase-cli: chromosome written in {time.perf_counter() - t0:.1f} s", flush=True)
+        cli_launches, cli_packed = cli_instance(chrom, "phase-cli", ("wmec_forward_t1", "wmec_backtrace_t1"))
+        del chrom
+        t0 = time.perf_counter()
+        trio = write_synth(f"{tmp}/trio", CLI_TRIO_VARIANTS, 5, seed=11, trio=True)
+        print(f"phase-cli-trio: trio written in {time.perf_counter() - t0:.1f} s", flush=True)
+        cli_trio_launches, cli_trio_packed = cli_instance(trio, "phase-cli-trio", pedigree_kernels,
+                                                          ped=trio["ped"])
+        del trio
+    print(f"phases 10-11 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 12. kernel times at the main paths' shapes
+    # (rows 1-2 and 6-8 of the kernels line at the phase CLI's buckets, the
+    # path users run; the slice's and the trio's as before beside them)
     packed = wmec.pack_problem(rs, [1] * len(positions), het, False)
-    times = time_kernels(packed)
+    time_kernels(packed)
     del packed
+    torch.cuda.empty_cache()
+    times = time_kernels(cli_packed, "phase-cli")
+    del cli_packed
     torch.cuda.empty_cache()
     time_kernels(packed1, "single")
     del packed1
     packed_t = wmec.pack_problem(rs_t, [10] * len(pos_t), ped_t, False, pos_t)
-    times.update(time_pedigree_kernels(packed_t))
+    time_pedigree_kernels(packed_t)
+    torch.cuda.empty_cache()
+    times.update(time_pedigree_kernels(cli_trio_packed, label="phase-cli-trio"))
+    del cli_trio_packed
     time_trio_single_kernels(packed_s)
     time_quartet_walks(packed_q)
     del packed_t, packed_s
@@ -1740,7 +2061,9 @@ def main() -> int:
                                  (packed_gt, 512, "segmented-trio")):
         time_segment_walk(packed_x, seg, label)
     del packed_g, packed_gt, packed_k, packed_q
-    launches.update({k: trio_launches[k] for k in pedigree_kernels})
+    # rows 1-2 and 6-8 are read on the phase CLI, the path users run
+    launches.update({k: cli_launches[k] for k in ("wmec_forward_t1", "wmec_backtrace_t1")})
+    launches.update({k: cli_trio_launches[k] for k in pedigree_kernels})
     launches.update({k: geno_launches[k] for k in ("geno_backward", "geno_forward")})
     launches["wmec_forward_carry_t1"] = seg_launches["wmec_forward_carry_t1"]
     launches["wmec_forward_t1:carry_in"] = seg_launches["wmec_forward_t1"]

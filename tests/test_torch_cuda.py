@@ -672,3 +672,28 @@ def test_segmented_route_on_cuda_never_runs_the_plain_versions(cuda_device, monk
             table = core.PedigreeDPTable(rs, rc, ped, False, positions)
             assert wmec_cuda.forward_carry_t1.launches + wmec_cuda.forward_carry_t.launches == launches + 2
         assert len(table.get_super_reads()[1]) == len(positions)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trio", [False, True], ids=["chromosome", "trio"])
+def test_phase_cli_on_cuda_matches_cpu(cuda_device, trio, tmp_path):
+    """The phase CLI on files (chip_smoke.py's generator: FASTA, BAM and VCF
+    written with the port's own writers), with realignment: the VCF of the
+    run on the card equals the CPU run's, byte for byte, and the card run
+    launched the kernels of its route."""
+    import chip_smoke
+    from whatshap_torch.cli.phase import run_whatshap
+
+    data = chip_smoke.write_synth(tmp_path, 512 if trio else 1024, 3 if trio else 10, seed=41, trio=trio)
+    args = dict(phase_input_files=[data["bam"]], variant_file=data["vcf"], reference=data["fasta"],
+                write_command_line_header=False, ped=data["ped"])
+    names = ("wmec_forward_m_t", "wmec_forward_t", "wmec_backtrace_t") if trio else (
+        "wmec_forward_t1", "wmec_backtrace_t1")
+    for name in names:
+        chip_smoke.WRAPPERS[name].launches = 0
+    run_whatshap(**args, output=str(tmp_path / "cuda.vcf"), device="cuda")
+    assert all(chip_smoke.WRAPPERS[name].launches > 0 for name in names)
+    run_whatshap(**args, output=str(tmp_path / "cpu.vcf"), device="cpu")
+    cuda_vcf = (tmp_path / "cuda.vcf").read_bytes()
+    assert cuda_vcf == (tmp_path / "cpu.vcf").read_bytes()
+    assert cuda_vcf.count(b"|") > 100

@@ -463,34 +463,65 @@ def _port_files():
     ]
 
 
+BANNED_ROOTS = ("jax", "jaxlib", "whatshap_tpu", "tools", "native")
+# modules of the reference that a copied module could reach relatively
+BANNED_RELATIVE = ("native", "jaxcache", "aotcache")
+
+
+def _banned_imports(tree):
+    """The imports of an AST that the port may not have: an absolute import
+    of jax, the reference package, tools/ or native/, and a relative import
+    of (or from) a module named native, jaxcache or aotcache."""
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if a.name.split(".")[0] in BANNED_ROOTS]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if (node.module or "").split(".")[0] in BANNED_ROOTS:
+                found.append(node.module)
+        elif isinstance(node, ast.ImportFrom):
+            parts = (node.module or "").split(".") + [a.name for a in node.names]
+            if any(part in BANNED_RELATIVE for part in parts):
+                found.append("." * node.level + (node.module or ""))
+    return found
+
+
 def test_port_imports_no_jax_and_no_reference():
     """(f) No module of the port, and not chip_smoke.py or the profile
-    scripts, imports jax or the reference package (AST scan of every import
-    statement)."""
-    banned = ("jax", "jaxlib", "whatshap_tpu", "tools")
+    scripts, imports jax, the reference package, tools/ or a native module,
+    absolutely or relatively (AST scan of every import statement, those
+    inside a try or a function included)."""
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
-                continue
-            for n in names:
-                assert n.split(".")[0] not in banned, f"{path}: imports {n}"
+        assert _banned_imports(tree) == [], f"{path}: imports {_banned_imports(tree)}"
+
+
+@pytest.mark.parametrize("source", [
+    "import jax.numpy as jnp",
+    "from whatshap_tpu.core import ReadSet",
+    "import tools.make_synth_chrom",
+    "try:\n    from .native import lib\nexcept ImportError:\n    lib = None",
+    "def f():\n    from ..native import bamlib",
+    "from . import native",
+    "from ..utils.jaxcache import warm_backend_async",
+    "from ..utils import aotcache",
+])
+def test_import_scan_rejects(source):
+    """The scan above catches each kind of import it bans."""
+    assert _banned_imports(ast.parse(source)) != []
 
 
 def test_port_imports_with_jax_blocked():
-    """`import whatshap_torch` and every module of it work in a process
-    where jax and the reference package cannot be imported."""
+    """`import whatshap_torch` and every module of it (the CLI stack
+    included) work in a process where jax, the reference package, tools/
+    and native/ cannot be imported."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
         for p in (REPO / "whatshap_torch").rglob("*.py")
     )
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'whatshap_tpu'): sys.modules[m] = None\n"
+        "for m in ('jax', 'jaxlib', 'whatshap_tpu', 'tools', 'native'): sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "print('ok')\n"

@@ -9,3 +9,7 @@ Entry points run on the GPU unless the caller passes device="cpu".  The
 package imports torch, never jax, and nothing of whatshap_tpu, which stays
 as the reference this port is tested against.
 """
+
+__version__ = "0.1.0"
+
+__all__ = ["__version__"]
