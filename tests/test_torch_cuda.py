@@ -697,3 +697,74 @@ def test_phase_cli_on_cuda_matches_cpu(cuda_device, trio, tmp_path):
     cuda_vcf = (tmp_path / "cuda.vcf").read_bytes()
     assert cuda_vcf == (tmp_path / "cpu.vcf").read_bytes()
     assert cuda_vcf.count(b"|") > 100
+
+
+def _genotype_cli_inputs(case, tmp_path):
+    """The inputs of tests/test_geno_backends_cli.py's two legs: the pacbio
+    sample with realignment, and the trio with its PED file.  Each BAM is
+    written and indexed under tmp_path (a checkout has no index of the
+    pacbio BAM: tests/data/pacbio/.gitignore lists *.bai)."""
+    import shutil
+
+    from whatshap_torch.io.sam import build_minimal_index, sam_to_bam
+
+    bam = str(tmp_path / f"{case}.bam")
+    if case == "pacbio":
+        shutil.copy("tests/data/pacbio/pacbio.bam", bam)
+        build_minimal_index(bam)
+        return dict(phase_input_files=[bam], variant_file="tests/data/pacbio/variants.vcf",
+                    reference="tests/data/pacbio/reference.fasta")
+    sam_to_bam("tests/data/trio.pacbio.sam", bam)
+    build_minimal_index(bam)
+    return dict(phase_input_files=[bam], variant_file="tests/data/trio.vcf", ped="tests/data/trio.ped")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pacbio", "trio"])
+def test_genotype_cli_on_cuda_matches_cpu(cuda_device, case, tmp_path):
+    """The genotype CLI on the card (float32 kernels, one launch of each per
+    GenotypeDPTable call) meets the reference's own CLI bar against the
+    port's CPU run (the float64 plain route): GT and GQ exact, GL within
+    5e-3, both <= -30 equal; the priors VCFs are byte-identical."""
+    import chip_smoke
+    from whatshap_torch.cli.genotype import run_genotype
+    from whatshap_torch.ops import genotyping_cuda
+
+    args = dict(_genotype_cli_inputs(case, tmp_path), write_command_line_header=False)
+    launches = (genotyping_cuda.backward.launches, genotyping_cuda.forward.launches)
+    run_genotype(**args, output=str(tmp_path / "cuda.vcf"), prioroutput=str(tmp_path / "cuda.priors"),
+                 device="cuda")
+    assert genotyping_cuda.backward.launches > launches[0]
+    assert genotyping_cuda.forward.launches - launches[1] == genotyping_cuda.backward.launches - launches[0]
+    run_genotype(**args, output=str(tmp_path / "cpu.vcf"), prioroutput=str(tmp_path / "cpu.priors"),
+                 device="cpu")
+    cpu = chip_smoke.vcf_calls((tmp_path / "cpu.vcf").read_text())
+    assert any(call[3] for call in cpu)
+    diff = chip_smoke.cli_bar(cpu, chip_smoke.vcf_calls((tmp_path / "cuda.vcf").read_text()))
+    assert diff["sites"] == 0 and not diff["GT"] and not diff["GQ"] and not diff["GL"], diff
+    assert (tmp_path / "cuda.priors").read_bytes() == (tmp_path / "cpu.priors").read_bytes()
+
+
+@pytest.mark.cuda
+def test_genotype_cli_on_cuda_never_runs_the_plain_versions(cuda_device, tmp_path, monkeypatch):
+    """With every plain genotyping version made to raise, the genotype CLI
+    still genotypes the trio on the card, and launches no wMEC kernel."""
+    import chip_smoke
+    from whatshap_torch.cli.genotype import run_genotype
+    from whatshap_torch.ops import genotyping, genotyping_cuda
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a plain version ran on the CUDA route")
+
+    for mod, name in [(genotyping, "forward_backward_plain"), (genotyping_cuda, "backward_plain"),
+                      (genotyping_cuda, "forward_plain")]:
+        monkeypatch.setattr(mod, name, refuse)
+    wmec_kernels = [getattr(wmec_cuda, name) for name in ("forward_t1", "forward_carry_t1", "backtrace_t1",
+                                                           "forward_t", "forward_carry_t", "forward_m_t",
+                                                           "backtrace_t")]
+    before = [k.launches for k in wmec_kernels]
+    out = tmp_path / "out.vcf"
+    run_genotype(**_genotype_cli_inputs("trio", tmp_path), output=str(out), write_command_line_header=False)
+    assert [k.launches for k in wmec_kernels] == before
+    calls = chip_smoke.vcf_calls(out.read_text())
+    assert len(calls) == 15 and all(len(call[3]) == 3 for call in calls)
