@@ -28,7 +28,13 @@ Phases, every one of which must pass:
             envelope; likewise both modes of the T=1 forward kernel (tables
             from zero, carry, tables from the carry) at K = 1, 4, 5, 9, 10,
             13 to 17 (B = 3, narrow layout) and 11, 12, 15, 16, 17 (B = 9,
-            wide layout).  The genotyping kernels (backward
+            wide layout).  Row 13, the T=1 kernel with its state in device
+            memory (csrc/wmec_forward_t1_wide.cu), which forward_t1 and
+            forward_carry_t1 take past K = 17: bit-equal to its plain
+            versions at K = 18 to 23 (B = 2) in both modes, from zero and
+            from a nonzero carry, on packed and tie-heavy buckets, the
+            backtrace over its tables too; and bit-equal to the cluster
+            kernel (rows 1, 9, 10) at K = 7 to 17.  The genotyping kernels (backward
             and forward, one thread-block cluster per instance) against
             their float32 plain versions at T = 1, K = 3, 7, 10, 12, 15, 16,
             17 (K = 15 and 17 also in clusters of 8 CTAs); T = 4, K = 7, 12,
@@ -90,7 +96,13 @@ Phases, every one of which must pass:
             transmission paths) and recover the simulated haplotypes; a
             second run splits the time into pack / carry pass / tables +
             backtrace pass / d2h / extract; both routes' peak device memory
-            is printed.
+            is printed.  segmented-k23: 2,048 columns at coverage 23 (K =
+            23) at the default budget, which its 64 GiB of unsegmented
+            tables exceed: 32 segments of 64 (the reference's XLA-route
+            rule), one launch of row 13's carry mode, its tables mode from a
+            carry and the backtrace a segment, equal to the plain route on
+            the card (cost, partitioning, index path); it prints the largest
+            single range at K = 23 the budget admits.
 10. phase-cli  the phase CLI on files, as a user runs it: a synthetic
             chromosome of 100,000 heterozygous SNVs (spacing 150, coverage
             14, ~30 variants a read, 2 % allele errors, a break every 64
@@ -106,7 +118,14 @@ Phases, every one of which must pass:
 11. phase-cli-trio  the same for a trio of 8,192 variants at coverage 5 a
             sample (one BAM with three read groups, a PED file; the child
             inherits with a crossover at a window boundary with probability
-            0.2), through the seam route.
+            0.2), through the seam route.  phase-cli-ds23: phase-cli's
+            generator at coverage 30, phased with --internal-downsampling 23
+            (the CLI's ceiling): wall, stages, the solve's device time,
+            variants/s, the ranges by K (most past K = 17, in row 13) and
+            the switch-error rate beside a run at the default 15 on the same
+            files; the byte-identical comparison with the plain route runs
+            on an 8,192-variant file of the same generator (the plain route
+            at K = 23 over 100,000 variants does not fit the time limit).
 12. genotype-cli  the genotype CLI on files, as a user runs it: the same
             generator's chromosome of 100,000 SNVs at coverage 14 with mixed
             genotypes (its two haplotypes drawn independently: hom ref, het
@@ -148,6 +167,9 @@ Phases, every one of which must pass:
             from a flushed L2, each beside its bytes bound, the card's
             gather latency (profile_backtrace.py's probe) and the round
             trips a column its walk takes (wmec_cuda.backtrace_rounds).
+            Row 13 at a bucket of 16 blocks x 64 columns at K = 20 (the
+            kernels line), at one launch of phase-cli-ds23's main bucket,
+            and in both passes at a segment of segmented-k23.
 
 It prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}.  Where there is no CUDA device,
@@ -186,6 +208,8 @@ PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 WRAPPERS = {
     "wmec_forward_t1": wmec_cuda.forward_t1,
     "wmec_forward_carry_t1": wmec_cuda.forward_carry_t1,
+    "wmec_forward_t1_wide": wmec_cuda.forward_t1_wide,
+    "wmec_forward_carry_t1_wide": wmec_cuda.forward_carry_t1_wide,
     "wmec_backtrace_t1": wmec_cuda.backtrace_t1,
     "wmec_forward_t": wmec_cuda.forward_t,
     "wmec_forward_carry_t": wmec_cuda.forward_carry_t,
@@ -197,7 +221,11 @@ WRAPPERS = {
 # The kernels line: (entry, source, the TPU kernel it replaces).  Rows 9
 # and 10 at T = 1 and T > 1 are entries of their own; an entry's launches
 # are read on the path that runs it (rows 9 and 10 on the segmented phases,
-# where forward_t1 and forward_t launch only from a carry).
+# where forward_t1 and forward_t launch only from a carry).  Row 13, the T=1
+# kernel with its state in device memory, replaces the reference's XLA scan
+# past its Pallas envelope: with tables from zero as solve_batched and
+# _solve_scan run it (read on phase-cli-ds23), and in the segmented solve's
+# two passes (read on segmented-k23).
 ENTRIES = [
     ("wmec_forward_t1", "wmec_forward_t1", "whatshap_tpu/ops/wmec_pallas.py:73"),
     ("wmec_backtrace_t1", "wmec_backtrace_t1", "whatshap_tpu/ops/wmec_pallas.py:626"),
@@ -210,8 +238,14 @@ ENTRIES = [
     ("wmec_forward_t:carry_in", "wmec_forward_t", "whatshap_tpu/ops/wmec_pallas.py:1024"),
     ("geno_backward", "geno_backward", "whatshap_tpu/ops/genotyping_pallas.py:117"),
     ("geno_forward", "geno_forward", "whatshap_tpu/ops/genotyping_pallas.py:182"),
+    ("wmec_forward_t1_wide", "wmec_forward_t1_wide", "whatshap_tpu/ops/wmec.py:514"),
+    ("wmec_forward_carry_t1_wide", "wmec_forward_t1_wide", "whatshap_tpu/ops/wmec.py:679"),
+    ("wmec_forward_t1_wide:carry_in", "wmec_forward_t1_wide", "whatshap_tpu/ops/wmec.py:687"),
 ]
-CARRY_KERNELS = ("wmec_forward_carry_t1", "wmec_forward_carry_t")
+CARRY_KERNELS = ("wmec_forward_carry_t1", "wmec_forward_carry_t", "wmec_forward_carry_t1_wide")
+# T = 1 past the cluster kernel's ceiling (wmec_cuda.MAX_K): the shapes the
+# wide kernel is held to its plain version at, (K, blocks)
+WIDE_SHAPES = tuple((K, 2) for K in range(wmec_cuda.MAX_K + 1, wmec_cuda.MAX_K_WIDE + 1))
 # the phase CLI cells: the chr1-style chromosome of BASELINE.json (100,000
 # SNVs at coverage 14) and a trio of 8,192 SNVs at coverage 5 a sample
 CLI_VARIANTS = 100_000
@@ -290,11 +324,21 @@ def _max_err(pairs) -> int:
     return worst
 
 
+def _t1_name(K, name="wmec_forward_t1"):
+    """The kernels-line entry that forward_t1 / forward_carry_t1 launch at
+    K: the cluster kernel's up to wmec_cuda.MAX_K, the wide kernel's above."""
+    if K <= wmec_cuda.MAX_K:
+        return name
+    base, _, mode = name.partition(":")
+    return f"{base}_wide" + (f":{mode}" if mode else "")
+
+
 def compare_kernels(device, shapes=tuple((K, 4) for K in range(7, 18)) + ((12, 12), (15, 12), (17, 12)),
                     n_cols=256):
     """Phase 2: both kernels against their plain versions, bit for bit, at
     (K, B): the forward kernel's narrow layout (B = 4) and its wide one (B =
-    12).  Returns {kernel name: max abs error}."""
+    12); past K = 17 the wide T=1 kernel (state in device memory).  Returns
+    {kernel name: max abs error}."""
     err = {"wmec_forward_t1": 0, "wmec_backtrace_t1": 0}
     for K, n_blocks in shapes:
         arrays = packed_bucket(n_blocks, n_cols, K, 1000 + 10 * K + n_blocks, device)
@@ -311,8 +355,9 @@ def compare_kernels(device, shapes=tuple((K, 4) for K in range(7, 18)) + ((12, 1
         print(f"kernels K={K:2d} B={n_blocks} C={n_cols}: forward max|err|={e_fwd} "
               f"backtrace max|err|={e_bt}", flush=True)
         _require(e_fwd == 0 and e_bt == 0, f"kernels bit-equal to plain at K={K}")
-        err["wmec_forward_t1"] = max(err["wmec_forward_t1"], e_fwd)
+        err[_t1_name(K)] = max(err.get(_t1_name(K), 0), e_fwd)
         err["wmec_backtrace_t1"] = max(err["wmec_backtrace_t1"], e_bt)
+        del kern, plain
     return err
 
 
@@ -343,7 +388,7 @@ def compare_carry_kernels(device, shapes=((1, 7), (1, 10), (1, 14), (1, 15), (1,
         carry = _carry_after(K, T, P, head)
         _require(all(bool((x != 0).any()) for x in (carry[0], carry[-1])), f"nonzero carry at T={T}, K={K}")
         if T == 1:
-            names = ("wmec_forward_carry_t1", "wmec_forward_t1:carry_in")
+            names = (_t1_name(K, "wmec_forward_carry_t1"), _t1_name(K, "wmec_forward_t1:carry_in"))
             kern = (wmec_cuda.forward_carry_t1(K, P, *tail, carry), wmec_cuda.forward_t1(K, P, *tail, carry=carry))
             plain = (wmec_cuda.forward_carry_t1_plain(K, P, *tail, carry),
                      wmec_cuda.forward_t1_plain(K, P, *tail, carry))
@@ -393,8 +438,13 @@ def haplotype_agreement(superreads, block, haps) -> float:
 
 def plain_solve(K, T, P, *arrays):
     """The route's solve with the torch mirror in the kernels' place,
-    chunked as the route chunks."""
+    chunked as the route chunks; past the cluster kernel's ceiling the
+    chunks also leave room for the mirror's temporaries (float64 sums of
+    every state, 48 bytes a state), which would not fit beside half the
+    card in tables."""
     per_block = arrays[0].shape[1] * T * 4 << K
+    if T == 1 and K > wmec_cuda.MAX_K:
+        per_block += 48 << K
     return wmec._launch_batched(wmec.solve_batched, K, T, P, arrays, per_block)
 
 
@@ -793,14 +843,48 @@ def compare_tie_kernels_t1(device, shapes=tuple((K, 3) for K in (1, 4, 5, 9, 10,
         for name, (kern_fn, plain_fn) in runs.items():
             kern, plain = kern_fn(), plain_fn()
             torch.cuda.synchronize()
-            e[name] = _max_err(zip(kern, plain))
+            e[_t1_name(K, name)] = _max_err(zip(kern, plain))
             del kern, plain
-        lay = wmec_cuda.forward_t1_layout(K, B)
-        print(f"kernels tie-heavy T= 1 K={K:2d} B={B} C={n_cols} ({1 << lay['cta_bits']} CTAs a block): "
+        if K <= wmec_cuda.MAX_K:
+            lay = f"{1 << wmec_cuda.forward_t1_layout(K, B)['cta_bits']} CTAs a block"
+        else:
+            lay = "the wide kernel, state in device memory"
+        print(f"kernels tie-heavy T= 1 K={K:2d} B={B} C={n_cols} ({lay}): "
               + " ".join(f"{n} max|err|={v}" for n, v in e.items()), flush=True)
         _require(all(v == 0 for v in e.values()), f"T=1 forward bit-equal on the tie-heavy bucket at K={K}, B={B}")
         for name, v in e.items():
             err[name] = max(err.get(name, 0), v)
+    return err
+
+
+def compare_wide_cluster(device, Ks=tuple(range(7, wmec_cuda.MAX_K + 1)), n_blocks=3, n_cols=64, head_cols=24):
+    """Phase 2, row 13 against rows 1, 9 and 10: inside the cluster kernel's
+    envelope the wide kernel computes the same function, so both modes of
+    each (tables from zero, carry, tables from that carry) must agree bit
+    for bit, on a tie-heavy bucket and on a packed one (half its blocks with
+    weights above 256), at K = 7 to 17.  Returns {entry: max abs error}."""
+    err = {}
+    for K in Ks:
+        for kind, arrays in (("tie-heavy", tie_bucket(n_blocks, n_cols, K, 1, 2, 8000 + K, device)),
+                             ("packed", packed_bucket(n_blocks, n_cols, K, 8100 + K, device))):
+            head = [a[:, :head_cols].contiguous() for a in arrays]
+            tail = [a[:, head_cols:].contiguous() for a in arrays]
+            carry = _carry_after(K, 1, 2, head)
+            pairs = {
+                "wmec_forward_t1_wide": (wmec_cuda.forward_t1_wide(K, 2, *arrays), wmec_cuda.forward_t1(K, 2, *arrays)),
+                "wmec_forward_carry_t1_wide": (wmec_cuda.forward_carry_t1_wide(K, 2, *tail, carry),
+                                               wmec_cuda.forward_carry_t1(K, 2, *tail, carry)),
+                "wmec_forward_t1_wide:carry_in": (wmec_cuda.forward_t1_wide(K, 2, *tail, carry),
+                                                  wmec_cuda.forward_t1(K, 2, *tail, carry=carry)),
+            }
+            torch.cuda.synchronize()
+            e = {name: _max_err(zip(*pair)) for name, pair in pairs.items()}
+            del pairs
+            print(f"kernels row 13 against the cluster kernel, {kind} K={K:2d} B={n_blocks} C={n_cols}: "
+                  + " ".join(f"{n} max|err|={v}" for n, v in e.items()), flush=True)
+            _require(all(v == 0 for v in e.values()), f"wide kernel equals the cluster kernel at K={K} ({kind})")
+            for name, v in e.items():
+                err[name] = max(err.get(name, 0), v)
     return err
 
 
@@ -1252,9 +1336,9 @@ def segmented_instance(rs, positions, ped, rc, truth, label, K, T, n_seg):
 
 
 def time_carry_kernels(packed, seg, label, device="cuda"):
-    """Phase timing, rows 9 and 10 at a segment's shape (B = 1, C = seg) as
-    the segmented route gives it them: segment 1 of the instance, from the
-    checkpoint after segment 0.  Bounds: the bytes (each input read once,
+    """Phase timing, rows 9 and 10 (row 13's two passes past K = 17) at a
+    segment's shape (B = 1, C = seg) as the segmented route gives it them:
+    segment 1 of the instance, from the checkpoint after segment 0.  Bounds: the bytes (each input read once,
     the carry in and out, the tables) against the int32 adds the function
     needs (5 per state and column at T = 1, 2TP + 1 + T^2 above)."""
     K, T, P = packed.K, packed.T, packed.P
@@ -1271,7 +1355,7 @@ def time_carry_kernels(packed, seg, label, device="cuda"):
         tables_fn = lambda: wmec_cuda.forward_t1(K, P, *tail, carry=carry)  # noqa: E731
         plains = (lambda: wmec_cuda.forward_carry_t1_plain(K, P, *tail, carry),
                   lambda: wmec_cuda.forward_t1_plain(K, P, *tail, carry))
-        names = ("wmec_forward_carry_t1", "wmec_forward_t1:carry_in")
+        names = (_t1_name(K, "wmec_forward_carry_t1"), _t1_name(K, "wmec_forward_t1:carry_in"))
     else:
         carry_fn = lambda: wmec_cuda.forward_carry_t(K, T, P, *tail, carry)  # noqa: E731
         tables_fn = lambda: wmec_cuda.forward_t(K, T, P, *tail, carry=carry)  # noqa: E731
@@ -1288,7 +1372,9 @@ def time_carry_kernels(packed, seg, label, device="cuda"):
                          bound_ms=bound[0], bound_by=bound[1])
         del kern, plain
         r = out[name]
-        if T == 1:
+        if T == 1 and K > wmec_cuda.MAX_K:
+            note = f" [the wide kernel, state in device memory; {ms * 1e3 / seg:.2f} us per column]"
+        elif T == 1:
             note = " " + _layout_t1(K, 1, name != "wmec_forward_carry_t1", ms, seg)
         else:
             note = " " + _layout(K, T, P, name != "wmec_forward_carry_t", ms, seg, 1)
@@ -1863,13 +1949,16 @@ def solve_events(pairs: list):
         wmec.run_dp = real
 
 
-def cli_instance(data, label, expect, **kwargs):
+def cli_instance(data, label, expect, plain=True, reads=None, **kwargs):
     """Phase the files of `data` through run_whatshap on the card (counted,
     with the launch counters set to 0 just before and read just after), then
-    again with the plain torch route handed in; the two VCFs must be
-    byte-identical and the first must recover the simulated haplotypes.
-    Returns the counted run's launches and the packed problem of its largest
-    PedigreeDPTable call."""
+    (unless `plain` is false) again with the plain torch route handed in;
+    the two VCFs must be byte-identical and the first must recover the
+    simulated haplotypes.  With `reads` (a list), the counted run records
+    its reads there, or replays them where the list holds a run's
+    (replayed_reads).  Returns the counted run's launches, the packed
+    problem of its largest PedigreeDPTable call, and its wall seconds and
+    switch-error rates."""
     from whatshap_torch.cli import phase as phase_cli
 
     args = dict(phase_input_files=[data["bam"]], variant_file=data["vcf"], reference=data["fasta"],
@@ -1879,7 +1968,8 @@ def cli_instance(data, label, expect, **kwargs):
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    with counted_tables(calls), solve_events(events):
+    replay = replayed_reads(reads) if reads is not None else contextlib.nullcontext()
+    with counted_tables(calls), solve_events(events), replay:
         phase_cli.run_whatshap(**args, output=out + "kernels.vcf")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1907,6 +1997,9 @@ def cli_instance(data, label, expect, **kwargs):
           + ", ".join(f"{s} {r if r is None else round(r, 6)} over {p} pairs" for s, (r, p) in rates.items()),
           flush=True)
     _require(all(r is not None and r < 0.05 for r, _p in rates.values()), f"{label}: haplotypes recovered")
+    largest = max(calls, key=lambda p: p.n_cols)
+    if not plain:
+        return launches, largest, wall, rates
 
     reset_launches()
     t0 = time.perf_counter()
@@ -1918,7 +2011,174 @@ def cli_instance(data, label, expect, **kwargs):
     print(f"{label}: plain torch route {plain_s:.3f} s (phase stage {phase_cli.LAST_TIMERS.elapsed('phase'):.3f} s); "
           f"kernel launches in it {sum(read_launches().values())}; VCF byte-identical: {same}", flush=True)
     _require(same and sum(read_launches().values()) == 0, f"{label}: VCF byte-identical to the plain route's")
-    return launches, max(calls, key=lambda p: p.n_cols)
+    return launches, largest, wall, rates
+
+
+def range_k_histogram(packed) -> dict:
+    """{K: read-connected ranges} of a packed single-sample problem, each
+    range at its own K (its highest active slot + 1, as _slice_ranges cuts
+    it)."""
+    hist = {}
+    for a, b in wmec.connected_column_ranges(packed):
+        act = np.nonzero(packed.active[a:b].any(axis=0))[0]
+        k = int(act[-1]) + 1 if act.size else 1
+        hist[k] = hist.get(k, 0) + 1
+    return dict(sorted(hist.items()))
+
+
+#: phase-cli-ds23: phase-cli's generator at a long-read depth, phased with
+#: --internal-downsampling 23, the CLI's ceiling
+DS23_COVERAGE = 30
+DS23_CUT_VARIANTS = 8192
+
+
+def cli_ds23(tmp):
+    """Phase phase-cli-ds23: 100,000 variants of phase-cli's generator at
+    coverage 30, phased on the card with --internal-downsampling 23 (counted:
+    most ranges past the cluster kernel's ceiling, in the wide kernel), then
+    the same files at the default 15 for the switch-error rate beside it
+    (given the first run's reads, which do not depend on the downsampling:
+    its read_bam stage is the replay); the plain route's time at K = 23 does
+    not fit the script's limit there, so the byte-identical comparison with
+    the plain route on the card runs on an 8,192-variant file of the same
+    generator.  Returns the counted run's launches and its packed problem."""
+    t0 = time.perf_counter()
+    data = write_synth(f"{tmp}/ds23", CLI_VARIANTS, DS23_COVERAGE, seed=7)
+    print(f"phase-cli-ds23: chromosome written in {time.perf_counter() - t0:.1f} s ({data['n_reads']} reads)",
+          flush=True)
+    expect = ("wmec_forward_t1_wide", "wmec_backtrace_t1")
+    reads = []
+    launches, packed, wall23, rates23 = cli_instance(data, "phase-cli-ds23", expect, plain=False, reads=reads,
+                                                     max_coverage=23)
+    hist = range_k_histogram(packed)
+    wide = sum(n for k, n in hist.items() if k > wmec_cuda.MAX_K)
+    print(f"phase-cli-ds23: {sum(hist.values())} read-connected ranges by K {hist}; {wide} past K = "
+          f"{wmec_cuda.MAX_K} (the wide kernel), K = {packed.K} at most", flush=True)
+    _require(packed.K > wmec_cuda.MAX_K and wide > 0, "phase-cli-ds23: ranges past the cluster kernel's ceiling")
+    _l, _p, wall15, rates15 = cli_instance(
+        data, "phase-cli-ds23 (the same files at --internal-downsampling 15, reads replayed)",
+        ("wmec_forward_t1", "wmec_backtrace_t1"), plain=False, reads=reads)
+    del reads
+    print("phase-cli-ds23: switch-error rate at --internal-downsampling 23 / 15: "
+          + ", ".join(f"{s} {rates23[s][0]:.6f} / {rates15[s][0]:.6f}" for s in rates23)
+          + f"; wall {wall23:.3f} / {wall15:.3f} s (the second without the BAM decode)", flush=True)
+    del data
+    cut = write_synth(f"{tmp}/ds23-cut", DS23_CUT_VARIANTS, DS23_COVERAGE, seed=7)
+    cut_packed = cli_instance(cut, f"phase-cli-ds23-{DS23_CUT_VARIANTS}", expect, max_coverage=23)[1]
+    print(f"phase-cli-ds23-{DS23_CUT_VARIANTS}: ranges by K {range_k_histogram(cut_packed)}", flush=True)
+    return launches, packed
+
+
+def time_wide_bucket(label, arrays, K, plain_blocks=None, reps=3):
+    """Row 13 (tables from zero) at a bucket (CUDA events), beside its plain
+    version and its bound: the bytes (inputs read once, the tables and the
+    final state written once) over the memory rate against 5 int32 adds a
+    state and column over the add rate.  plain_blocks: the plain version
+    runs on that many of the blocks only (at K = 23 beside the kernel's own
+    tables it would not fit the card) and is held to the kernel's output
+    there.  Returns the kernels line's numbers."""
+    B, C = arrays[0].shape[0], arrays[0].shape[1]
+    ms = _time(lambda: wmec_cuda.forward_t1_wide(K, 2, *arrays), reps=reps)
+    kern = wmec_cuda.forward_t1_wide(K, 2, *arrays)
+    nb = B if plain_blocks is None else plain_blocks
+    sub = [a[:nb].contiguous() for a in arrays]
+    plain, plain_ms = _plain_ms(lambda: wmec_cuda.forward_t1_plain(K, 2, *sub))
+    err = _max_err(zip((x[:nb] for x in kern), plain))
+    del plain
+    bound = _bound(_nbytes(*arrays[:5]), _nbytes(*kern), 5.0 * B * C * (1 << K))
+    del kern
+    torch.cuda.empty_cache()
+    print(f"{label} wmec_forward_t1_wide (B={B} C={C} K={K}): {ms:.3f} ms (plain {plain_ms:.3f} ms on {nb} "
+          f"block(s)), bound {bound[0]:.4f} ms by {bound[1]} ({bound[0] / ms:.4f} of it), max|err|={err}; "
+          f"{B * C * (4 << K) / ms / 1e6:.1f} GB/s of tables", flush=True)
+    _require(err == 0, f"{label}: row 13 bit-equal to plain")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def time_ds23_bucket(packed):
+    """Row 13 at phase-cli-ds23's bucket of most work, one launch of it as
+    the route chunks it under the table budget."""
+    (c_pad, K), members, _ri = main_bucket(packed)
+    per_block = c_pad * (4 << K) + wmec_cuda.state_bytes(K, 1)
+    budget = wmec._table_budget(torch.device("cuda"))
+    B = max(1, min(len(members), budget // per_block))
+    arrays = blocks.to_device(blocks.stack_blocks(members[:B]), "cuda")
+    print(f"timing at phase-cli-ds23's main bucket: {len(members)} blocks of C={c_pad} at K={K}, launched "
+          f"{B} at a time under the table budget of {budget} bytes", flush=True)
+    out = time_wide_bucket("phase-cli-ds23", arrays, K, plain_blocks=min(B, 2), reps=2)
+    del arrays
+    torch.cuda.empty_cache()
+    return out
+
+
+def largest_single_range(K, budget) -> int:
+    """The most columns one read-connected single-sample range at K past the
+    cluster kernel's ceiling (the XLA route's segment rule) may have on the
+    card under `budget` bytes: unsegmented while its tables (columns
+    padded to a power of two) and the kernel's state fit, then in the
+    segmented solve with the XLA-route segment length, one segment's tables,
+    the state and the checkpoints (two planes each) fitting, as
+    wmec._single_range_segment and solve_segmented_auto reckon them."""
+    C = np.arange(1, 1 << 23, dtype=np.int64)
+    per_col, state, ckpt = 4 << K, wmec_cuda.state_bytes(K, 1), 8 << K
+    pow2 = 1 << np.ceil(np.log2(np.maximum(C, 8))).astype(np.int64)
+    root = np.floor(np.sqrt(C)).astype(np.int64)
+    seg = np.clip(1 << np.ceil(np.log2(np.maximum(root, 1))).astype(np.int64), 64, 2048)
+    n_seg = -(-C // seg)
+    ok = (pow2 * per_col + state <= budget) | (seg * per_col + state + (n_seg + 1) * ckpt <= budget)
+    best = int(C[ok].max()) if ok.any() else 0
+    _require(best == 0 or wmec._xla_segment_length(best) == int(seg[best - 1]), "segment rule mirrored")
+    return best
+
+
+def wide_segmented_instance(n_cols=2048, K=23, seed=37):
+    """Phase segmented-k23: one read-connected range of n_cols columns at
+    coverage 23 through PedigreeDPTable(device="cuda") at the default table
+    budget, which its unsegmented tables (n_cols x 32 MiB, 64 GiB) exceed:
+    the segmented solve in the XLA route's segments (64 columns at 2,048),
+    with the counters set to 0 just before and read just after: the wide
+    kernel's carry mode, its tables mode from a carry and the backtrace once
+    a segment each, no other kernel.  Then the plain route on the card (the
+    torch mirror's segmented solve, the same segments): cost, partitioning
+    and index path equal.  Prints the largest single range at K = 23 that
+    the budget admits.  Returns the launches and the packed instance."""
+    t0 = time.perf_counter()
+    rs, positions, truth = chromosome(1, n_cols, K, seed=seed)
+    het = _het_pedigree(len(positions))
+    rc = [1] * len(positions)
+    packed = wmec.pack_problem(rs, rc, het, False, positions)
+    C = packed.n_cols
+    _require(len(wmec.connected_column_ranges(packed)) == 1 and packed.K == K, f"segmented-k{K}: one range at K={K}")
+    seg = wmec._single_range_segment(C, K, 1, torch.device("cuda"))
+    _require(seg is not None, f"segmented-k{K}: its tables exceed the default budget")
+    n_seg = -(-C // seg)
+    print(f"segmented-k{K}: built in {time.perf_counter() - t0:.1f} s", flush=True)
+    table, (cost, partition, (superreads, _tr)), wall, launches, peak = _phase_table(rs, positions, het, rc)
+    path = ("wmec_forward_carry_t1_wide", "wmec_forward_t1_wide", "wmec_backtrace_t1")
+    budget = wmec._table_budget(torch.device("cuda"))
+    print(f"segmented-k{K}: {C} variants, {len(rs)} reads, K={K}, one read-connected range; default table "
+          f"budget {budget} bytes; {n_seg} segments of {seg}; cost {cost}; wall {wall:.3f} s = {C / wall:.1f} "
+          f"variants/s; peak device memory {peak / 2**30:.3f} GiB (unsegmented tables alone "
+          f"{wmec._next_pow2(C) * (4 << K) / 2**30:.1f} GiB); launches {launches}", flush=True)
+    _require(all(launches[n] == n_seg for n in path), f"segmented-k{K}: {n_seg} launches of each kernel of the path")
+    _require(sum(launches[n] for n in WRAPPERS if n not in path) == 0, f"segmented-k{K}: no other kernel launched")
+    _require(len(superreads[0][0]) == C, f"segmented-k{K}: output shapes")
+    agree = haplotype_agreement(superreads, truth[0], np.stack([truth[1], 1 - truth[1]])[None])
+    print(f"segmented-k{K}: superreads agree with the simulated haplotypes at {agree:.4f} of calls", flush=True)
+    _require(agree > 0.9, f"segmented-k{K}: haplotypes recovered")
+
+    t0 = time.perf_counter()
+    plain = wmec.run_dp(packed, "cuda", solve=plain_solve, solve_segmented=wmec.solve_segmented)
+    plain_s = time.perf_counter() - t0
+    same = (plain.optimal_cost == cost and wmec.extract_partitioning(packed, plain) == partition
+            and np.array_equal(plain.index_path, table._result.index_path))
+    print(f"segmented-k{K}: plain route on the card {plain_s:.3f} s; cost, partitioning and index path "
+          f"equal: {same}", flush=True)
+    _require(same, f"segmented-k{K}: kernel route equals the plain route")
+    ceiling = largest_single_range(K, budget)
+    print(f"segmented-k{K}: the largest single range at K = {K} the budget admits: {ceiling} columns "
+          f"(segments of {wmec._xla_segment_length(ceiling)})", flush=True)
+    return launches, packed
 
 
 # ---------------------------------------------------------------------------
@@ -2210,15 +2470,27 @@ def main() -> int:
     for name in _build.sources():
         _build.load(name)
 
-    # 2. kernels against their plain versions
-    errs = compare_kernels("cuda")
-    errs.update(compare_carry_kernels("cuda"))
-    errs.update(compare_pedigree_kernels("cuda"))
-    for name, e in compare_walks("cuda").items():
-        errs[name] = max(errs[name], e)
-    for name, e in [*compare_tie_kernels("cuda").items(), *compare_tie_kernels_t1("cuda").items()]:
-        errs[name] = max(errs.get(name, 0), e)
-    errs.update(compare_geno_kernels("cuda"))
+    # 2. kernels against their plain versions (row 13, the wide T=1 kernel,
+    # at K = 18 to 23 and against the cluster kernel at K = 7 to 17)
+    errs = {}
+
+    def merge(found):
+        for name, e in found.items():
+            errs[name] = max(errs.get(name, 0), e)
+
+    merge(compare_kernels("cuda"))
+    merge(compare_kernels("cuda", shapes=WIDE_SHAPES, n_cols=32))
+    merge(compare_carry_kernels("cuda"))
+    merge(compare_carry_kernels("cuda", shapes=tuple((1, K) for K, _b in WIDE_SHAPES), n_blocks=2, n_cols=48,
+                                head_cols=16))
+    merge(compare_pedigree_kernels("cuda"))
+    merge(compare_walks("cuda"))
+    merge(compare_tie_kernels("cuda"))
+    merge(compare_tie_kernels_t1("cuda"))
+    merge(compare_tie_kernels_t1("cuda", shapes=WIDE_SHAPES))
+    merge(compare_wide_cluster("cuda"))
+    torch.cuda.empty_cache()
+    merge(compare_geno_kernels("cuda"))
     print(f"phases 1-2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def both(hap):  # the two haplotypes of one heterozygous sample
@@ -2308,6 +2580,9 @@ def main() -> int:
         "segmented-k17", K=17, T=1, n_seg=2,
     )
     del rs_k
+    # segmented-k23: 2,048 columns at K = 23 at the default budget (row 13)
+    torch.cuda.empty_cache()
+    seg23_launches, packed_23 = wide_segmented_instance()
     print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 10-11. the phase CLI, files in and a phased VCF out: a chr1-sized
@@ -2317,13 +2592,17 @@ def main() -> int:
         t0 = time.perf_counter()
         chrom = write_synth(f"{tmp}/chrom", CLI_VARIANTS, 14, seed=7)
         print(f"phase-cli: chromosome written in {time.perf_counter() - t0:.1f} s", flush=True)
-        cli_launches, cli_packed = cli_instance(chrom, "phase-cli", ("wmec_forward_t1", "wmec_backtrace_t1"))
+        cli_launches, cli_packed, _w, _r = cli_instance(chrom, "phase-cli", ("wmec_forward_t1", "wmec_backtrace_t1"))
         del chrom
         t0 = time.perf_counter()
         trio = write_synth(f"{tmp}/trio", CLI_TRIO_VARIANTS, 5, seed=11, trio=True)
         print(f"phase-cli-trio: trio written in {time.perf_counter() - t0:.1f} s", flush=True)
-        cli_trio_launches, cli_trio_packed = cli_instance(trio, "phase-cli-trio", pedigree_kernels,
-                                                          ped=trio["ped"])
+        cli_trio_launches, cli_trio_packed, _w, _r = cli_instance(trio, "phase-cli-trio", pedigree_kernels,
+                                                                  ped=trio["ped"])
+        # phase-cli-ds23: --internal-downsampling 23 on a coverage-30
+        # chromosome, the single-sample main path past the cluster kernel
+        torch.cuda.empty_cache()
+        ds23_launches, ds23_packed = cli_ds23(tmp)
         print(f"phases 10-11 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
         # 12-13. the genotype CLI, files in and a genotyped VCF out: a
@@ -2378,6 +2657,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     times.update(time_carry_kernels(packed_g, 2048, "segmented"))
     times.update(time_carry_kernels(packed_gt, 512, "segmented-trio"))
+    # row 13: a batched bucket at K = 20 (16 blocks of 64 columns, the
+    # kernels line), one launch of phase-cli-ds23's main bucket, and the
+    # segmented solve's two passes at a segment of segmented-k23
+    torch.cuda.empty_cache()
+    times["wmec_forward_t1_wide"] = time_wide_bucket("wide-k20", packed_bucket(16, 64, 20, 9000, "cuda"), 20)
+    time_ds23_bucket(ds23_packed)
+    del ds23_packed
+    times.update(time_carry_kernels(packed_23, wmec._xla_segment_length(packed_23.n_cols), "segmented-k23"))
+    del packed_23
     for packed_x, seg, label in ((packed_g, 2048, "segmented"), (packed_k, 1024, "segmented-k17"),
                                  (packed_gt, 512, "segmented-trio")):
         time_segment_walk(packed_x, seg, label)
@@ -2391,6 +2679,11 @@ def main() -> int:
     launches["wmec_forward_t1:carry_in"] = seg_launches["wmec_forward_t1"]
     launches["wmec_forward_carry_t"] = seg_trio_launches["wmec_forward_carry_t"]
     launches["wmec_forward_t:carry_in"] = seg_trio_launches["wmec_forward_t"]
+    # row 13 on its paths: phase-cli-ds23 (tables from zero), segmented-k23
+    # (the carry mode, and tables from a carry)
+    launches["wmec_forward_t1_wide"] = ds23_launches["wmec_forward_t1_wide"]
+    launches["wmec_forward_carry_t1_wide"] = seg23_launches["wmec_forward_carry_t1_wide"]
+    launches["wmec_forward_t1_wide:carry_in"] = seg23_launches["wmec_forward_t1_wide"]
 
     power = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -174,12 +174,13 @@ def test_route_on_cuda_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_route_on_cuda_refuses_what_it_cannot_solve(cuda_device):
     """A pedigree beyond the kernels' envelope (three trios, T = 64), or K
-    above it, raises on CUDA instead of leaving the card."""
+    above it (24, past the wide T=1 kernel's 23), raises on CUDA instead of
+    leaving the card."""
     rs, positions = _chromosome(1, 12, 3, seed=1)
     ped = _pedigree(len(positions), n_ind=5, trios=((0, 1, 2), (0, 1, 3), (0, 1, 4)))
     with pytest.raises(NotImplementedError, match="wider envelope"):
         core.PedigreeDPTable(rs, [1] * len(positions), ped, False, positions)
-    k = wmec_cuda.MAX_K + 1
+    k = wmec_cuda.MAX_K_WIDE + 1
     rs, positions = _chromosome(1, 40, k, seed=2)
     with pytest.raises(NotImplementedError, match="wider envelope"):
         core.PedigreeDPTable(rs, [1] * len(positions), _pedigree(len(positions)), False, positions)
@@ -347,6 +348,137 @@ def test_t1_kernels_break_ties_as_plain(cuda_device, K, B):
     for kern, plain in pairs:
         for x, y in zip(kern, plain):
             assert torch.equal(x, y)
+
+
+WIDE = (wmec_cuda.forward_t1_wide, wmec_cuda.forward_carry_t1_wide)
+CLUSTER_T1 = (wmec_cuda.forward_t1, wmec_cuda.forward_carry_t1)
+
+
+def _wide_pairs(K, ta, head_cols):
+    """(kernel outputs, plain outputs) of the T=1 forward wrappers over a
+    bucket: tables from a zero state, carry mode and tables from that
+    nonzero carry (the state after the first head_cols columns)."""
+    head = [a[:, :head_cols].contiguous() for a in ta]
+    tail = [a[:, head_cols:].contiguous() for a in ta]
+    carry = wmec_cuda.forward_t1(K, 2, *head)[1:]
+    assert bool((carry[0] != 0).any())
+    return [
+        (wmec_cuda.forward_t1(K, 2, *ta), wmec_cuda.forward_t1_plain(K, 2, *ta)),
+        (wmec_cuda.forward_carry_t1(K, 2, *tail, carry), wmec_cuda.forward_carry_t1_plain(K, 2, *tail, carry)),
+        (wmec_cuda.forward_t1(K, 2, *tail, carry=carry), wmec_cuda.forward_t1_plain(K, 2, *tail, carry)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [18, 19, 20, 21])
+def test_wide_kernel_matches_plain(cuda_device, K):
+    """Past the cluster kernel's ceiling forward_t1 and forward_carry_t1
+    hand the block to the wide kernel (csrc/wmec_forward_t1_wide.cu, the
+    state in device memory): tables from zero, carry and tables from a
+    nonzero carry, bit-equal to the plain versions, the backtrace over its
+    tables equal to the plain walk; only the wide kernel's counters count."""
+    ta = blocks.to_device(_bucket(K, n_blocks=2, n_cols=40, seed=30 * K), cuda_device)
+    K = ta[0].shape[2]
+    before = [f.launches for f in WIDE + CLUSTER_T1]
+    pairs = _wide_pairs(K, ta, 12)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(WIDE + CLUSTER_T1, before)] == [3, 1, 0, 0]
+    for kern, plain in pairs:
+        for x, y in zip(kern, plain):
+            assert torch.equal(x, y)
+    pidx, dp, key = pairs[0][0]
+    opt = wmec_cuda._select_optimum(K, 1, dp, key)[2].contiguous()
+    assert _walks_equal(1, (pidx,), opt, wmec_cuda.pack_die(ta[4]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [18, 19, 20, 21])
+def test_wide_kernel_breaks_ties_as_plain(cuda_device, K):
+    """The wide kernel's folds on a tie-heavy bucket (a quarter of the slots
+    dying a column: several passes a column where more than four die, pairs
+    across thread blocks of the grid) break their ties as the plain
+    versions do, in both modes, from zero and from a carry."""
+    ta = _tie_bucket(K, 1, 2, cuda_device, n_blocks=3, n_cols=24, seed=40 * K)
+    pairs = _wide_pairs(K, ta, 8)
+    torch.cuda.synchronize()
+    for kern, plain in pairs:
+        for x, y in zip(kern, plain):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4, 5, 9, 12, 13, 16, 17])
+def test_wide_kernel_matches_cluster_kernel(cuda_device, K):
+    """Inside the cluster kernel's envelope the wide kernel computes the
+    same function: both modes, from zero and from a carry, on a tie-heavy
+    bucket, bit-equal to csrc/wmec_forward_t1.cu."""
+    ta = _tie_bucket(K, 1, 2, cuda_device, n_blocks=3, n_cols=32, seed=50 * K)
+    head = [a[:, :10].contiguous() for a in ta]
+    tail = [a[:, 10:].contiguous() for a in ta]
+    carry = wmec_cuda.forward_t1(K, 2, *head)[1:]
+    pairs = [
+        (wmec_cuda.forward_t1_wide(K, 2, *ta), wmec_cuda.forward_t1(K, 2, *ta)),
+        (wmec_cuda.forward_carry_t1_wide(K, 2, *tail, carry), wmec_cuda.forward_carry_t1(K, 2, *tail, carry)),
+        (wmec_cuda.forward_t1_wide(K, 2, *tail, carry), wmec_cuda.forward_t1(K, 2, *tail, carry=carry)),
+    ]
+    torch.cuda.synchronize()
+    for wide, cluster in pairs:
+        for x, y in zip(wide, cluster):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_wide_route_on_cuda_matches_cpu(cuda_device):
+    """PedigreeDPTable at K = 20 on the card (the batched route over several
+    ranges, and one range) runs the wide kernel and the backtrace, never the
+    cluster kernel, and equals the CPU run."""
+    for n_blocks in (3, 1):
+        rs, positions = _chromosome(n_blocks, 40, 20, seed=n_blocks)
+        ped = _pedigree(len(positions))
+        before = [f.launches for f in WIDE + CLUSTER_T1 + (wmec_cuda.backtrace_t1,)]
+        gpu = core.PedigreeDPTable(rs, [1] * len(positions), ped, False, positions)
+        launched = [f.launches - b for f, b in zip(WIDE + CLUSTER_T1 + (wmec_cuda.backtrace_t1,), before)]
+        assert gpu._packed.K == 20 and launched[0] > 0 and launched[4] > 0 and launched[1:4] == [0, 0, 0]
+        cpu = core.PedigreeDPTable(rs, [1] * len(positions), ped, False, positions, device="cpu")
+        assert gpu.get_optimal_cost() == cpu.get_optimal_cost()
+        assert gpu.get_optimal_partitioning() == cpu.get_optimal_partitioning()
+        assert np.array_equal(gpu._result.index_path, cpu._result.index_path)
+
+
+@pytest.mark.cuda
+def test_wide_route_on_cuda_never_runs_the_plain_versions(cuda_device, monkeypatch):
+    """With every plain version made to raise, K = 20 still phases on the
+    card, batched and as one range, and a range past the (patched) table
+    budget takes the segmented solve in the wide kernel's two modes (XLA
+    route segments of 64 columns) and equals the unsegmented run."""
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a plain version ran on the CUDA route")
+
+    rs, positions = _chromosome(1, 100, 20, seed=4)
+    ped = _pedigree(len(positions))
+    whole = core.PedigreeDPTable(rs, [1] * len(positions), ped, False, positions)
+    for mod, name in [
+        (wmec, "forward_scan"), (wmec, "solve_batched"), (wmec, "_backtrace_from"),
+        (wmec, "forward_carry"), (wmec, "forward_tables"), (wmec, "walk_segment"),
+        (wmec_cuda, "forward_t1_plain"), (wmec_cuda, "forward_carry_t1_plain"),
+        (wmec_cuda, "backtrace_t1_plain"),
+    ]:
+        monkeypatch.setattr(mod, name, refuse)
+    for n_blocks in (3, 1):
+        rs_b, pos_b = _chromosome(n_blocks, 40, 20, seed=5 + n_blocks)
+        table = core.PedigreeDPTable(rs_b, [1] * len(pos_b), _pedigree(len(pos_b)), False, pos_b)
+        assert len(table.get_super_reads()[1]) == len(pos_b)
+    packed = whole._packed
+    tables = wmec._next_pow2(packed.n_cols) * wmec._table_bytes_per_col(packed.K, 1)
+    monkeypatch.setattr(wmec, "_table_budget", lambda device: tables * 3 // 4)
+    assert wmec._single_range_segment(packed.n_cols, packed.K, 1, cuda_device) == 64
+    before = [f.launches for f in WIDE + (wmec_cuda.backtrace_t1,)]
+    seg = core.PedigreeDPTable(rs, [1] * len(positions), ped, False, positions)
+    assert [f.launches - b for f, b in zip(WIDE + (wmec_cuda.backtrace_t1,), before)] == [2, 2, 2]
+    assert seg.get_optimal_cost() == whole.get_optimal_cost()
+    assert seg.get_optimal_partitioning() == whole.get_optimal_partitioning()
+    assert np.array_equal(seg._result.index_path, whole._result.index_path)
 
 
 @pytest.mark.cuda

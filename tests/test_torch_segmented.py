@@ -344,6 +344,31 @@ def test_segmented_solve_matches_scan_segmented(name, seg):
         assert np.array_equal(tp[0].numpy(), ref.trans_path)
 
 
+def test_segmented_solve_wide_matches_scan_segmented():
+    """Past the T=1 cluster kernel's ceiling, where the reference runs its
+    XLA scan: the segmented solve at K = 18 in three segments of one column
+    (the reference's XLA scan takes seconds a column here) against
+    solve_scan_segmented, on the kernel route's wrappers (plain on the CPU)
+    and through solve_segmented_auto."""
+    K, seg = 18, 1
+    rng = np.random.RandomState(18)
+    arrays = [
+        rng.randint(-40, 41, (1, 3, K, 4)).astype(np.float32) * 37,
+        rng.randint(0, 60, (1, 3, 1, 2, 2)).astype(np.int32),
+        (2.0 ** np.stack([[rng.permutation(K) for _ in range(3)]])).astype(np.float32),
+        rng.randint(0, 3, (1, 3, 1, 4)).astype(np.int32),
+        rng.rand(1, 3, K) < 0.3,
+        np.zeros((1, 3), np.int32),
+    ]
+    arrays[4][:, 0] = True
+    ref = ref_wmec.solve_scan_segmented(K, 1, 2, *_j([a[0] for a in arrays]), seg=seg)
+    for solve in (wmec_cuda.solve_segmented_cuda, wmec.solve_segmented_auto):
+        cost, ip, tp = solve(K, 1, 2, *_t(arrays), seg)
+        assert int(cost[0]) == ref.optimal_cost, solve.__name__
+        assert np.array_equal(ip[0].numpy(), ref.index_path)
+        assert np.array_equal(tp[0].numpy(), ref.trans_path)
+
+
 def test_segmented_solve_needs_whole_segments():
     K, T, P, arrays = _exact_single(40, 40)
     with pytest.raises(ValueError, match="multiple"):

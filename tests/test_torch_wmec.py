@@ -123,6 +123,29 @@ def _wl_t1_ties(K, C=32, B=3):
     return K, arrays, 1, 2
 
 
+def _wl_t1_wide(K=19, C=2, B=2):
+    # past the T=1 cluster kernel's ceiling (the reference's XLA route):
+    # integer weights (block 0's above 256), a power of two per slot as the
+    # rank weight, INF for some assignments, every slot dying before the
+    # first column and a quarter before each other; two columns, since the
+    # reference's XLA scan takes seconds a column on a CPU at K = 19
+    rng = np.random.RandomState(60 + K)
+    wdiff = rng.randint(-40, 41, (B, C, K, 4)).astype(np.float32)
+    wbase = rng.randint(0, 60, (B, C, 1, 2, 2)).astype(np.int32)
+    wdiff[0] *= 37
+    wbase[0] *= 37
+    rank = np.stack([[rng.permutation(K) for _ in range(C)] for _ in range(B)])
+    acost = rng.randint(0, 3, (B, C, 1, 4))
+    die = rng.rand(B, C, K) < 0.25
+    die[:, 0] = True
+    arrays = [
+        wdiff, wbase, (2.0 ** rank).astype(np.float32),
+        np.where(rng.rand(B, C, 1, 4) < 0.3, 1 << 29, acost).astype(np.int32),
+        die, rng.randint(0, 3, (B, C)).astype(np.int32),
+    ]
+    return K, arrays, 1, 2
+
+
 WORKLOADS = {
     "t1": _wl_synthetic,
     "t1_heavy": _wl_heavy,
@@ -131,6 +154,7 @@ WORKLOADS = {
     "trio": _wl_trio,
     "trio_heavy": _wl_trio_heavy,
     "quartet": _wl_quartet,
+    "t1_wide_k19": _wl_t1_wide,
 }
 
 
@@ -359,10 +383,14 @@ def test_backtrace_layout_and_rounds():
 
 
 def test_kernel_envelope():
-    assert all(wmec_cuda.kernel_supported(k, 1, 2) for k in range(1, 18))
+    # one sample: the cluster kernel up to K = 17, the wide kernel (state in
+    # device memory) up to the CLI's ceiling, 23
+    assert (wmec_cuda.MAX_K, wmec_cuda.MAX_K_WIDE) == (17, 23)
+    assert all(wmec_cuda.kernel_supported(k, 1, 2) for k in range(1, 24))
     assert not wmec_cuda.kernel_supported(0, 1, 2)
-    assert not wmec_cuda.kernel_supported(wmec_cuda.MAX_K + 1, 1, 2)
+    assert not wmec_cuda.kernel_supported(wmec_cuda.MAX_K_WIDE + 1, 1, 2)
     assert not wmec_cuda.kernel_supported(10, 1, 4)
+    assert not wmec_cuda.kernel_supported(20, 1, 4)
     # pedigrees: T = 4 up to K = 16 and T = 16 up to K = 13, with P = 2 or 4
     assert all(wmec_cuda.kernel_supported(k, 4, p) for k in range(1, 17) for p in (2, 4))
     assert all(wmec_cuda.kernel_supported(k, 16, p) for k in range(1, 14) for p in (2, 4))
@@ -370,11 +398,15 @@ def test_kernel_envelope():
     assert not wmec_cuda.kernel_supported(14, 16, 4)
     assert not wmec_cuda.kernel_supported(10, 64, 4)
     assert not wmec_cuda.kernel_supported(10, 16, 6)
-    # no scratch at any shape of the envelope, in any mode: the state stays
-    # in the shared memory of the block's cluster (T = 1 and general T)
+    # the cluster kernels keep the state in the shared memory of the block's
+    # cluster (T = 1 up to K = 17 and general T): no device state; the wide
+    # kernel keeps a cost and a key plane in device memory
     assert all(wmec_cuda.state_bytes(k, 1) == 0 for k in range(1, 18))
+    assert all(wmec_cuda.state_bytes(k, 1) == 8 << k for k in range(18, 24))
+    assert wmec_cuda.state_bytes(23, 1) == 64 << 20
     assert all(wmec_cuda.state_bytes(k, 4) == 0 for k in range(1, 17))
     assert all(wmec_cuda.state_bytes(k, 16) == 0 for k in range(1, 14))
+    assert "T = 1, P = 2, K <= 23" in wmec_cuda.ENVELOPE
 
 
 @pytest.mark.parametrize("K,T,P", [

@@ -749,7 +749,8 @@ def solve_segmented(
 
       1. `carry_pass` runs over the nseg segments in turn without tables,
          keeping the carry at every segment boundary: nseg + 1 checkpoints
-         of (2T + 1) * 2^K int32 per block, on the device;
+         of (2T + 1) * 2^K int32 per block, on the device (2 * 2^K at T = 1
+         on the kernels, whose carry pass hands the one zeros jmin plane on);
       2. the optimum of the last carry (wmec_cuda._head_init: min cost,
          Gray key, transmission, index) and its jmin entry start the walk;
       3. from the last segment to the first, `tables_pass` re-runs the
@@ -973,20 +974,35 @@ def _segment_length(K: int, T: int) -> int:
     return max(256, min(2048, _next_pow2(SEGMENT_TABLE_BUDGET // per_col, lo=256) >> 1))
 
 
+def _xla_segment_length(C: int) -> int:
+    """The reference's segment length on its XLA scan route, the shapes its
+    Pallas kernels refuse (whatshap_tpu/ops/wmec.py:1903-1905): about
+    sqrt(C) columns, a power of two in [64, 2048], so that the checkpoints
+    and one segment's tables grow alike."""
+    return max(64, min(2048, _next_pow2(int(np.sqrt(C)), lo=64)))
+
+
 def _single_range_segment(C: int, K: int, T: int, device: torch.device) -> Optional[int]:
     """The segment length for a single-range instance of C columns that the
     unsegmented solve cannot hold, else None.  On CUDA that is exactly where
     the unsegmented launch would raise: its tables (C padded to a power of
     two) plus the kernel's state exceed the table budget, so every instance
     that fits keeps its route.  On the CPU, which has no budget, the
-    reference's rule: tables above 2 * SEGMENT_TABLE_BUDGET."""
+    reference's rule: tables above 2 * SEGMENT_TABLE_BUDGET.  Past the T=1
+    cluster kernel's ceiling (wmec_cuda.MAX_K), where the reference runs its
+    XLA scan, the segments follow that route's rule on every device, about
+    sqrt(C) columns (_xla_segment_length), and on the CPU its threshold,
+    tables above SEGMENT_TABLE_BUDGET."""
     tables = _next_pow2(C) * _table_bytes_per_col(K, T)
     budget = _table_budget(device)
+    wide = T == 1 and K > wmec_cuda.MAX_K
     if budget is None:
-        fits = tables <= 2 * SEGMENT_TABLE_BUDGET
+        fits = tables <= (1 if wide else 2) * SEGMENT_TABLE_BUDGET
     else:
         fits = tables + wmec_cuda.state_bytes(K, T) <= budget
-    return None if fits else _segment_length(K, T)
+    if fits:
+        return None
+    return _xla_segment_length(C) if wide else _segment_length(K, T)
 
 
 def solve_segmented_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, seg):
@@ -1000,7 +1016,9 @@ def solve_segmented_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, seg)
     budget = _table_budget(wdiff.device)
     if budget is not None:
         B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
-        checkpoint = (2 * T + 1) * 4 * S  # cost, jmin and key per block
+        # cost, jmin and key per block; at T = 1 the jmin plane is the one
+        # zeros tensor that every checkpoint shares (solve_segmented)
+        checkpoint = (2 if T == 1 else 2 * T + 1) * 4 * S
         need = seg * _table_bytes_per_col(K, T) + wmec_cuda.state_bytes(K, T)
         need += (C // seg + 1) * checkpoint
         if B * need > budget:

@@ -10,7 +10,15 @@ Replaces whatshap_tpu/ops/wmec_pallas.py:
   (forward_tables_pallas); forward_carry_t1 launches its carry mode, the
   final state without tables (forward_carry_pallas); each launch runs one
   thread-block cluster per block with the block's state on chip
-  (forward_t1_layout);
+  (forward_t1_layout), up to K = MAX_K;
+- forward_t1_wide and forward_carry_t1_wide launch
+  csrc/wmec_forward_t1_wide.cu, the same two modes with the block's state in
+  device memory (one cooperative launch, grid-wide barriers between a
+  column's passes), at any K up to MAX_K_WIDE: the T=1 XLA scan the
+  reference runs past its Pallas envelope (whatshap_tpu/ops/wmec.py
+  _forward_scan_impl, through solve_batched, _solve_scan and the segmented
+  solve_scan_segmented); forward_t1 and forward_carry_t1 hand K above
+  MAX_K to them;
 - backtrace_t1 launches csrc/wmec_backtrace_t1.cu, the index-path walk that
   replaces _make_backtrace_kernel (via backtrace_pallas): a warp a walk,
   several columns a memory round trip (csrc/wmec_walk.cuh), guided by the
@@ -52,34 +60,42 @@ import torch
 
 from . import _build
 
-#: Largest K the T=1 forward kernel is built and checked for (the
-#: reference kernel's own ceiling, wmec_pallas.MAX_K).
+#: Largest K the T=1 cluster kernel (csrc/wmec_forward_t1.cu) is built and
+#: checked for (the reference kernel's own ceiling, wmec_pallas.MAX_K).
 MAX_K = 17
+#: Largest K of the T=1 kernel with its state in device memory
+#: (csrc/wmec_forward_t1_wide.cu), which takes T = 1 above MAX_K: the
+#: reference CLI's ceiling (--internal-downsampling <= 23).
+MAX_K_WIDE = 23
 #: Largest K of the general-T kernels per transmission count T (P <= 4, as
 #: the reference's kernel): the forward state and tables grow with T * 2^K.
 MAX_K_T = {4: 16, 16: 13}
 #: Founder partition counts the general-T kernels are built for.
 PEDIGREE_P = (2, 4)
-ENVELOPE = f"T = 1, P = 2, K <= {MAX_K}; " + "; ".join(
+ENVELOPE = f"T = 1, P = 2, K <= {MAX_K_WIDE}; " + "; ".join(
     f"T = {t}, P in {PEDIGREE_P}, K <= {k}" for t, k in MAX_K_T.items()
 )
 
 
 def kernel_supported(K: int, T: int, P: int) -> bool:
     """Shapes the CUDA kernels of this module take: one individual (T == 1,
-    P == 2) with 1 <= K <= MAX_K slots, or a pedigree of T = 4 or 16
-    transmission values with P in PEDIGREE_P and K <= MAX_K_T[T]."""
+    P == 2) with 1 <= K <= MAX_K_WIDE slots (the cluster kernel up to MAX_K,
+    the wide kernel above), or a pedigree of T = 4 or 16 transmission values
+    with P in PEDIGREE_P and K <= MAX_K_T[T]."""
     if T == 1:
-        return P == 2 and 1 <= K <= MAX_K
+        return P == 2 and 1 <= K <= MAX_K_WIDE
     return T in MAX_K_T and P in PEDIGREE_P and 1 <= K <= MAX_K_T[T]
 
 
 def state_bytes(K: int, T: int = 1) -> int:
-    """Device memory a forward kernel needs per block beyond its outputs:
-    none at any shape of the envelope, in any mode.  Both forward kernels
-    keep the block's state in the shared memory of its cluster
-    (forward_t1_layout, forward_t_layout)."""
-    return 0
+    """Device memory a forward kernel needs per block beyond its tables.
+    The cluster kernels keep the block's state in the shared memory of its
+    cluster (forward_t1_layout, forward_t_layout): nothing.  Above MAX_K at
+    T = 1 the wide kernel keeps it in device memory, in its final-state
+    outputs: the cost plane, which it updates in place, and the key plane,
+    8 * 2^K bytes a block (its scratch of 4 * (C + 1) bytes a block, the
+    columns' dying masks and passes, is left out)."""
+    return 8 << K if T == 1 and K > MAX_K else 0
 
 
 #: Launches of the T=1 forward kernel above this many blocks take its wide
@@ -235,6 +251,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "wmec_forward_t1": [_P] * 10 + [_I] * 3 + [_P],
     "wmec_forward_carry_t1": [_P] * 9 + [_I] * 3 + [_P],
+    "wmec_forward_t1_wide": [_P] * 11 + [_I] * 3 + [_P],
+    "wmec_forward_carry_t1_wide": [_P] * 10 + [_I] * 3 + [_P],
     "wmec_backtrace_t1": [_P] * 5 + [_I] * 3 + [_P],
     "wmec_forward_t": [_P] * 15 + [_I] * 5 + [_P],
     "wmec_forward_carry_t": [_P] * 12 + [_I] * 5 + [_P],
@@ -343,11 +361,14 @@ def forward_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry=None):
     so the kernel does not read it), and the optional carry (cost (B, 2^K),
     key (B, 2^K)) i32 the scan starts from (without it, from zero).  Returns
     pidx (B, C, 2^K), the projection table of every column, and the final
-    state dp_last (B, 2^K) and key_last (B, 2^K), all int32.
+    state dp_last (B, 2^K) and key_last (B, 2^K), all int32.  Above MAX_K it
+    hands CUDA tensors to forward_t1_wide, which counts that launch.
     """
     dev = _check_t1_inputs("forward_t1", K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
     if dev.type == "cpu":
         return forward_t1_plain(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+    if K > MAX_K:
+        return forward_t1_wide(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
 
     B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
     cost0, key0 = carry if carry is not None else (None, None)
@@ -385,12 +406,15 @@ def forward_carry_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
     segmented solve): inputs as forward_t1 with the carry (cost (B, 2^K), key
     (B, 2^K)) i32 required; writes no table and returns the carry after the
     last column, (dp_last (B, 2^K), key_last (B, 2^K)) i32, in new tensors
-    (a checkpoint is read again)."""
+    (a checkpoint is read again).  Above MAX_K it hands CUDA tensors to
+    forward_carry_t1_wide, which counts that launch."""
     if carry is None:
         raise ValueError("forward_carry_t1: the carry mode needs a carry (cost, key)")
     dev = _check_t1_inputs("forward_carry_t1", K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
     if dev.type == "cpu":
         return forward_carry_t1_plain(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+    if K > MAX_K:
+        return forward_carry_t1_wide(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
 
     B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
     dp_last = torch.empty((B, S), dtype=torch.int32, device=dev)
@@ -409,6 +433,74 @@ def forward_carry_t1(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
 
 
 forward_carry_t1.launches = 0
+
+
+def _wide_scratch(B, C, dev):
+    """The wide kernel's scratch: the columns' dying masks (B, C) and the
+    passes of each column (C,), int32, written by the kernel itself."""
+    return torch.empty(B * C + C, dtype=torch.int32, device=dev)
+
+
+def forward_t1_wide(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry=None):
+    """forward_t1 on csrc/wmec_forward_t1_wide.cu, the T=1 forward scan with
+    the block's state in device memory, at any 1 <= K <= MAX_K_WIDE (the
+    route gives it K above MAX_K, where the cluster kernel stops).  Inputs
+    and outputs as forward_t1; its plain version on CPU tensors is
+    forward_t1_plain."""
+    dev = _check_t1_inputs("forward_t1_wide", K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+    if dev.type == "cpu":
+        return forward_t1_plain(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+
+    B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
+    cost0, key0 = carry if carry is not None else (None, None)
+    pidx = torch.empty((B, C, S), dtype=torch.int32, device=dev)
+    dp_last = torch.empty((B, S), dtype=torch.int32, device=dev)
+    key_last = torch.empty((B, S), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(
+            "wmec_forward_t1_wide",
+            wdiff.data_ptr(), wbase.data_ptr(), rankw.data_ptr(), acost.data_ptr(),
+            die_prev.data_ptr(), _ptr(cost0), _ptr(key0),
+            pidx.data_ptr(), dp_last.data_ptr(), key_last.data_ptr(),
+            _wide_scratch(B, C, dev).data_ptr(),
+            B, C, K,
+        )
+    forward_t1_wide.launches += 1
+    return pidx, dp_last, key_last
+
+
+forward_t1_wide.launches = 0
+
+
+def forward_carry_t1_wide(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
+    """forward_carry_t1 on csrc/wmec_forward_t1_wide.cu (its carry mode), at
+    any 1 <= K <= MAX_K_WIDE.  Inputs and outputs as forward_carry_t1; its
+    plain version on CPU tensors is forward_carry_t1_plain."""
+    if carry is None:
+        raise ValueError("forward_carry_t1_wide: the carry mode needs a carry (cost, key)")
+    dev = _check_t1_inputs(
+        "forward_carry_t1_wide", K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry
+    )
+    if dev.type == "cpu":
+        return forward_carry_t1_plain(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+
+    B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
+    dp_last = torch.empty((B, S), dtype=torch.int32, device=dev)
+    key_last = torch.empty((B, S), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(
+            "wmec_forward_t1_wide",
+            wdiff.data_ptr(), wbase.data_ptr(), rankw.data_ptr(), acost.data_ptr(),
+            die_prev.data_ptr(), carry[0].data_ptr(), carry[1].data_ptr(),
+            dp_last.data_ptr(), key_last.data_ptr(), _wide_scratch(B, C, dev).data_ptr(),
+            B, C, K,
+            fn_name="wmec_forward_carry_t1_wide",
+        )
+    forward_carry_t1_wide.launches += 1
+    return dp_last, key_last
+
+
+forward_carry_t1_wide.launches = 0
 
 
 def pack_die(die_prev):
@@ -443,8 +535,8 @@ def backtrace_t1(opt_idx, pidx, die):
     the walk of pidx whatever they hold."""
     B, C = pidx.shape[0], pidx.shape[1]
     S = pidx.shape[2] if pidx.dim() == 3 else 0
-    if S < 2 or S & (S - 1) or not 1 <= S.bit_length() - 1 <= MAX_K:
-        raise ValueError(f"backtrace_t1: pidx must be (B, C, 2^K) with 1 <= K <= {MAX_K}")
+    if S < 2 or S & (S - 1) or not 1 <= S.bit_length() - 1 <= MAX_K_WIDE:
+        raise ValueError(f"backtrace_t1: pidx must be (B, C, 2^K) with 1 <= K <= {MAX_K_WIDE}")
     _check(opt_idx, "opt_idx", torch.int32, (B,))
     _check(pidx, "pidx", torch.int32, (B, C, S))
     _check(die, "die", torch.int32, (B, C))
