@@ -34,7 +34,18 @@ Phases, every one of which must pass:
             versions at K = 18 to 23 (B = 2) in both modes, from zero and
             from a nonzero carry, on packed and tie-heavy buckets, the
             backtrace over its tables too; and bit-equal to the cluster
-            kernel (rows 1, 9, 10) at K = 7 to 17.  The genotyping kernels (backward
+            kernel (rows 1, 9, 10) at K = 7 to 17.  Row 14, the general-T
+            kernel with its T planes in device memory
+            (csrc/wmec_forward_t_wide.cu), which forward_t, forward_m_t and
+            forward_carry_t take past the cluster kernel's envelope: every
+            mode bit-equal to its plain version on simulated pedigree buckets
+            (a trio at K = 17 and 21, a quartet at K = 14, three children at
+            K = 9 and 15, four children at K = 8, three founders (P = 6) and
+            four (P = 8)) with the backtrace at M = 1 and T + 1 over its
+            tables, and on tie-heavy buckets at T = 4, 16, 64, 256 and P = 4,
+            6, 8 (to pedigree-p6's K = 15 at P = 6); and bit-equal to the
+            cluster kernel (rows 3, 4, 6, 7, 9, 10) at T = 4, K = 7, 12, 16
+            and T = 16, K = 9, 13.  The genotyping kernels (backward
             and forward, one thread-block cluster per instance) against
             their float32 plain versions at T = 1, K = 3, 7, 10, 12, 15, 16,
             17 (K = 15 and 17 also in clusters of 8 CTAs); T = 4, K = 7, 12,
@@ -46,7 +57,7 @@ Phases, every one of which must pass:
             identical NaN patterns.  Both backtraces, bit for bit, also on
             random tables that break the forward's shape (whole, or in 5 %
             of the entries of shaped ones; random masks, half of them
-            empty) at T = 1, 4, 16, K up to 17, M = 1 and T + 1, narrow and
+            empty) at T = 1, 4, 16, 64, 256, K up to 20, M = 1 and T + 1, narrow and
             wide launches, and on forward tables of tie-heavy buckets where
             2 % of the slots die before each column.
 3. slice    the single-sample main path: a chromosome of 256 blocks x 512
@@ -71,7 +82,10 @@ Phases, every one of which must pass:
             through the single-block route, checked the same way.
 7. quartet  two trios with shared parents (T = 16, four symmetry cosets),
             16 blocks x 128 columns at coverage 3 per individual, checked
-            against the plain route.
+            against the plain route.  pedigree-p6: a three-generation
+            pedigree with three founders (P = 6, T = 16, two cosets), 16
+            blocks x 128 columns at coverage 3 (K = 15), through row 14 and
+            the backtrace, checked the same way.
 8. genotype one simulated sample of 32,768 variants (hom and het) at
             coverage 15 (K = 15), priors from compute_genotypes over its
             reads, through GenotypeDPTable(device="cuda") as one instance
@@ -102,7 +116,11 @@ Phases, every one of which must pass:
             rule), one launch of row 13's carry mode, its tables mode from a
             carry and the backtrace a segment, equal to the plain route on
             the card (cost, partitioning, index path); it prints the largest
-            single range at K = 23 the budget admits.
+            single range at K = 23 the budget admits.  segmented-trio-wide:
+            a trio range of 1,024 columns at coverage 6 each (K = 18, T = 4,
+            past the cluster kernel) with the budget pinned: 16 segments of
+            64 (the XLA-route rule) in row 14's two modes, also equal to the
+            plain route on the card.
 10. phase-cli  the phase CLI on files, as a user runs it: a synthetic
             chromosome of 100,000 heterozygous SNVs (spacing 150, coverage
             14, ~30 variants a read, 2 % allele errors, a break every 64
@@ -119,13 +137,23 @@ Phases, every one of which must pass:
             sample (one BAM with three read groups, a PED file; the child
             inherits with a crossover at a window boundary with probability
             0.2), through the seam route.  phase-cli-ds23: phase-cli's
-            generator at coverage 30, phased with --internal-downsampling 23
+            generator (32,768 variants) at coverage 30, phased with
+            --internal-downsampling 23
             (the CLI's ceiling): wall, stages, the solve's device time,
             variants/s, the ranges by K (most past K = 17, in row 13) and
             the switch-error rate beside a run at the default 15 on the same
             files; the byte-identical comparison with the plain route runs
             on an 8,192-variant file of the same generator (the plain route
-            at K = 23 over 100,000 variants does not fit the time limit).
+            at K = 23 over the whole file does not fit the time limit).
+            phase-cli-fam5: a family of two parents and three children
+            (T = 64, P = 4; five read groups, a PED file), 8,192 variants at
+            coverage 5 a sample at the default --max-coverage 15: row 14 in
+            both passes of the seam route; wall, stages, device time, the
+            ranges by (K, T), switch-error rate below 5 %, and the VCF
+            byte-identical to the plain route's on a 512-variant file of the
+            generator.  phase-cli-trio-ds23: a trio of 2,048 variants at
+            coverage 8 a sample with --internal-downsampling 23 (K up to 21
+            at T = 4), byte-identical to the plain route.
 12. genotype-cli  the genotype CLI on files, as a user runs it: the same
             generator's chromosome of 100,000 SNVs at coverage 14 with mixed
             genotypes (its two haplotypes drawn independently: hom ref, het
@@ -155,8 +183,8 @@ Phases, every one of which must pass:
             per column; the general-T kernels at the phase-cli-trio's bucket
             (the kernels line's rows 6-8) and the trio's, the tables
             kernel and backtrace also at the trio-single shape, the
-            genotyping kernels at the genotype CLI's instances (the kernels
-            line's rows 11-12) and the genotype and genotype-trio shapes
+            genotyping kernels at the genotype and genotype-trio shapes (the
+            kernels line's rows 11-12 at the genotype cell's)
             (with the CTAs per cluster, the SMs used and the share of the
             bound), rows 9 and 10 at the segments' shapes (B = 1; C = 2048,
             K = 15, T = 1 and C = 512, K = 15, T = 4); each forward mode
@@ -169,7 +197,12 @@ Phases, every one of which must pass:
             trips a column its walk takes (wmec_cuda.backtrace_rounds).
             Row 13 at a bucket of 16 blocks x 64 columns at K = 20 (the
             kernels line), at one launch of phase-cli-ds23's main bucket,
-            and in both passes at a segment of segmented-k23.
+            and in both passes at a segment of segmented-k23.  Row 14 at one
+            launch of phase-cli-fam5's main bucket as the route chunks it
+            under the table budget (wide-t64, the kernels line): the m-only
+            mode over each block's 16 coset seeds, the seeded tables mode,
+            the carry mode and the tables mode from that carry; and in both
+            passes at a segment of segmented-trio-wide.
 
 It prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}.  Where there is no CUDA device,
@@ -215,6 +248,9 @@ WRAPPERS = {
     "wmec_forward_carry_t": wmec_cuda.forward_carry_t,
     "wmec_forward_m_t": wmec_cuda.forward_m_t,
     "wmec_backtrace_t": wmec_cuda.backtrace_t,
+    "wmec_forward_t_wide": wmec_cuda.forward_t_wide,
+    "wmec_forward_m_t_wide": wmec_cuda.forward_m_t_wide,
+    "wmec_forward_carry_t_wide": wmec_cuda.forward_carry_t_wide,
     "geno_backward": genotyping_cuda.backward,
     "geno_forward": genotyping_cuda.forward,
 }
@@ -225,7 +261,11 @@ WRAPPERS = {
 # kernel with its state in device memory, replaces the reference's XLA scan
 # past its Pallas envelope: with tables from zero as solve_batched and
 # _solve_scan run it (read on phase-cli-ds23), and in the segmented solve's
-# two passes (read on segmented-k23).
+# two passes (read on segmented-k23).  Row 14, the general-T kernel with its
+# T planes in device memory, replaces the same XLA scan past the Pallas
+# envelope at T > 1: with tables as solve_batched and solve_seeded_batched
+# run it and m-only as forward_m_batched does (read on phase-cli-fam5), and
+# in the segmented solve's two passes (read on segmented-trio-wide).
 ENTRIES = [
     ("wmec_forward_t1", "wmec_forward_t1", "whatshap_tpu/ops/wmec_pallas.py:73"),
     ("wmec_backtrace_t1", "wmec_backtrace_t1", "whatshap_tpu/ops/wmec_pallas.py:626"),
@@ -241,11 +281,23 @@ ENTRIES = [
     ("wmec_forward_t1_wide", "wmec_forward_t1_wide", "whatshap_tpu/ops/wmec.py:514"),
     ("wmec_forward_carry_t1_wide", "wmec_forward_t1_wide", "whatshap_tpu/ops/wmec.py:679"),
     ("wmec_forward_t1_wide:carry_in", "wmec_forward_t1_wide", "whatshap_tpu/ops/wmec.py:687"),
+    ("wmec_forward_t_wide", "wmec_forward_t_wide", "whatshap_tpu/ops/wmec.py:514"),
+    ("wmec_forward_m_t_wide", "wmec_forward_t_wide", "whatshap_tpu/ops/wmec.py:796"),
+    ("wmec_forward_carry_t_wide", "wmec_forward_t_wide", "whatshap_tpu/ops/wmec.py:679"),
+    ("wmec_forward_t_wide:carry_in", "wmec_forward_t_wide", "whatshap_tpu/ops/wmec.py:687"),
 ]
-CARRY_KERNELS = ("wmec_forward_carry_t1", "wmec_forward_carry_t", "wmec_forward_carry_t1_wide")
+CARRY_KERNELS = ("wmec_forward_carry_t1", "wmec_forward_carry_t", "wmec_forward_carry_t1_wide",
+                 "wmec_forward_carry_t_wide")
 # T = 1 past the cluster kernel's ceiling (wmec_cuda.MAX_K): the shapes the
 # wide kernel is held to its plain version at, (K, blocks)
 WIDE_SHAPES = tuple((K, 2) for K in range(wmec_cuda.MAX_K + 1, wmec_cuda.MAX_K_WIDE + 1))
+# T > 1 past the general-T cluster kernel's envelope (row 14): (T, K) of
+# simulated pedigree buckets (a trio up to the trio CLI's K = 21 at
+# --internal-downsampling 23, a quartet, three children to phase-cli-fam5's
+# K = 15, four children), and (T, K, P) of tie-heavy buckets
+WIDE_T_PEDIGREE_SHAPES = ((4, 17), (4, 21), (16, 14), (64, 9), (64, 15), (256, 8))
+WIDE_T_TIE_SHAPES = ((4, 17, 4), (4, 21, 4), (16, 14, 4), (16, 9, 6), (16, 15, 6), (16, 8, 8), (64, 5, 4),
+                     (64, 15, 4), (256, 3, 8), (256, 9, 4))
 # the phase CLI cells: the chr1-style chromosome of BASELINE.json (100,000
 # SNVs at coverage 14) and a trio of 8,192 SNVs at coverage 5 a sample
 CLI_VARIANTS = 100_000
@@ -253,6 +305,13 @@ CLI_TRIO_VARIANTS = 8192
 SINGLE = (1, ())
 TRIO = (3, ((0, 1, 2),))
 QUARTET = (4, ((0, 1, 2), (0, 1, 3)))
+# past the general-T cluster kernel: a three-generation pedigree with three
+# founders (P = 6, T = 16), two trios of four founders (P = 8, T = 16), and
+# families of two parents with three and four children (T = 64 and 256)
+DOUBLE_TRIO = (5, ((0, 1, 2), (2, 3, 4)))
+FOUR_FOUNDERS = (6, ((0, 1, 4), (2, 3, 5)))
+FAMILY5 = (5, ((0, 1, 2), (0, 1, 3), (0, 1, 4)))
+FAMILY6 = (6, ((0, 1, 2), (0, 1, 3), (0, 1, 4), (0, 1, 5)))
 
 
 def _require(ok: bool, what: str) -> None:
@@ -322,6 +381,16 @@ def _max_err(pairs) -> int:
         for x, y in zip(a.reshape(-1).split(1 << 26), b.reshape(-1).split(1 << 26)):
             worst = max(worst, int((x.long() - y.long()).abs().max()))
     return worst
+
+
+def _t_name(K, T, P, name):
+    """The kernels-line entry that forward_t, forward_m_t and forward_carry_t
+    launch at (K, T, P): the cluster kernel's inside its envelope, the wide
+    kernel's (row 14) past it."""
+    if wmec_cuda.cluster_supported(K, T, P):
+        return name
+    base, _, mode = name.partition(":")
+    return f"{base}_wide" + (f":{mode}" if mode else "")
 
 
 def _t1_name(K, name="wmec_forward_t1"):
@@ -436,23 +505,41 @@ def haplotype_agreement(superreads, block, haps) -> float:
     return worst
 
 
+def _mirror_bytes(K, T, P):
+    """Device memory the torch mirror's column step takes per block past the
+    cluster kernels' envelope, where its temporaries no longer fit beside
+    half the card in tables: at T = 1 the float64 sums of every state (48
+    bytes a state); at T > 1 per state and plane the float64 and int32 sums
+    (2P of each), the 2^P assignment costs twice, the T x T min-plus twice,
+    the fold's and the argmin's copies."""
+    if wmec_cuda.cluster_supported(K, T, P):
+        return 0
+    if T == 1:
+        return 48 << K
+    return (T << K) * (P * 2 * 12 + (8 << P) + 8 * T + 64)
+
+
 def plain_solve(K, T, P, *arrays):
     """The route's solve with the torch mirror in the kernels' place,
-    chunked as the route chunks; past the cluster kernel's ceiling the
-    chunks also leave room for the mirror's temporaries (float64 sums of
-    every state, 48 bytes a state), which would not fit beside half the
-    card in tables."""
-    per_block = arrays[0].shape[1] * T * 4 << K
-    if T == 1 and K > wmec_cuda.MAX_K:
-        per_block += 48 << K
+    chunked as the route chunks, leaving room for the mirror's temporaries
+    (_mirror_bytes)."""
+    per_block = (arrays[0].shape[1] * T * 4 << K) + _mirror_bytes(K, T, P)
     return wmec._launch_batched(wmec.solve_batched, K, T, P, arrays, per_block)
 
 
 def plain_solve_seeded(K, T, P, *arrays):
     """Pass 2 of the pedigree route with the torch mirror, chunked as the
-    route chunks."""
-    per_block = arrays[0].shape[1] * T * 8 << K
+    route chunks, with room for the mirror's temporaries."""
+    per_block = (arrays[0].shape[1] * T * 8 << K) + _mirror_bytes(K, T, P)
     return wmec._launch_batched(wmec.solve_seeded_batched, K, T, P, arrays, per_block)
+
+
+def plain_forward_m(K, T, P, *arrays):
+    """Pass 1 of the pedigree route with the torch mirror, chunked so that
+    its state and temporaries fit (at T = 64 a block of the seam pass holds
+    T x T min-plus terms of every state)."""
+    per_block = (T * 4 << K) + _mirror_bytes(K, T, P)
+    return wmec._launch_batched(wmec.forward_m_batched, K, T, P, arrays, per_block)
 
 
 def phase_instance(rs, positions, ped, rc, truth, device, label, expect):
@@ -527,8 +614,7 @@ def phase_instance(rs, positions, ped, rc, truth, device, label, expect):
     # the plain torch route on the card
     t0 = time.perf_counter()
     plain = wmec.run_dp(
-        packed, device, solve=plain_solve, forward_m=wmec.forward_m_batched,
-        solve_seeded=plain_solve_seeded,
+        packed, device, solve=plain_solve, forward_m=plain_forward_m, solve_seeded=plain_solve_seeded,
     )
     plain_s = time.perf_counter() - t0
     same = (
@@ -553,12 +639,14 @@ def phase_instance(rs, positions, ped, rc, truth, device, label, expect):
 
 
 def simulate_pedigree(n_blocks, n_cols, coverage, pedigree, seed, recomb_every=16):
-    """A simulated pedigree chromosome: founders (individuals 0 and 1) get
-    random haplotypes, made to differ somewhere at every column so that each
-    column is heterozygous in someone; each child (the trios' third members)
-    inherits one haplotype of each parent, switching parental haplotype once
-    per parent in every `recomb_every`-th block (at different blocks for
-    the two parents); genotypes follow the haplotypes.  Reads of every
+    """A simulated pedigree chromosome: the founders (the individuals that
+    are no trio's child: 0 and 1, then any other) get random haplotypes,
+    those of 0 and 1 made to differ somewhere at every column so that each
+    column is heterozygous in someone; each child (the trios' third members,
+    a trio's parents before it) inherits one haplotype of each parent,
+    switching parental haplotype once per parent in every `recomb_every`-th
+    block (at different blocks for the two parents); genotypes follow the
+    haplotypes.  Reads of every
     individual tile each block in `coverage` lanes (read length ~12
     variants, 5 % allele errors, qualities 10-39).  Returns (readset,
     positions, pedigree, (block (C,), first haplotype of each individual
@@ -570,6 +658,10 @@ def simulate_pedigree(n_blocks, n_cols, coverage, pedigree, seed, recomb_every=1
     haps[:2] = rng.randint(0, 2, size=(2, 2, total))
     same = (haps[:2] == haps[0, 0]).all(axis=(0, 1))
     haps[0, 1, same] ^= 1
+    children = {ch for _f, _m, ch in trios}
+    for ind in range(2, n_ind):
+        if ind not in children:
+            haps[ind] = rng.randint(0, 2, size=(2, total))
     block = np.repeat(np.arange(n_blocks), n_cols)
     for ci, (fa, mo, ch) in enumerate(trios):
         for side, parent in enumerate((fa, mo)):
@@ -607,12 +699,13 @@ def simulate_pedigree(n_blocks, n_cols, coverage, pedigree, seed, recomb_every=1
     return rs, positions, ped, (block, haps)
 
 
-def pedigree_bucket(n_blocks, n_cols, K, T, seed, device):
+def pedigree_bucket(n_blocks, n_cols, K, T, seed, device, pedigree=None):
     """Stacked device arrays of `n_blocks` single-range simulated pedigree
-    blocks (a trio for T = 4, a quartet for T = 16) of n_cols columns padded
-    to K slots, recombination cost 10; blocks with index >= n_blocks // 2
-    get their weights scaled by 37."""
-    pedigree = TRIO if T == 4 else QUARTET
+    blocks of n_cols columns padded to K slots (by default a trio for T = 4,
+    a quartet for T = 16, a family of three or four children for T = 64 or
+    256), recombination cost 10; blocks with index >= n_blocks // 2 get their
+    weights scaled by 37."""
+    pedigree = pedigree or {4: TRIO, 16: QUARTET, 64: FAMILY5, 256: FAMILY6}[T]
     padded = []
     for b in range(n_blocks):
         rs, positions, ped, _truth = simulate_pedigree(1, n_cols - 8, max(1, K // pedigree[0]), pedigree, seed + b)
@@ -648,14 +741,16 @@ def _walk_inits(K, T, tables_out, die_next):
 
 def compare_pedigree_kernels(device, shapes=((4, 3), (4, 4), (4, 7), (4, 9), (4, 10), (4, 12), (4, 15),
                                             (4, 16), (16, 4), (16, 7), (16, 9), (16, 10), (16, 13)),
-                             n_blocks=4, n_cols=128):
+                             n_blocks=4, n_cols=128, pedigree=None):
     """Phase 2, general T: each mode of the forward kernel and the backtrace
-    at M = 1 and M = T + 1 against their plain versions, bit for bit.
-    Returns {kernel name: max abs error}."""
-    err = {"wmec_forward_t": 0, "wmec_forward_m_t": 0, "wmec_backtrace_t": 0}
-    P = 4
+    at M = 1 and M = T + 1 against their plain versions, bit for bit, at (T,
+    K) of pedigree_bucket's pedigrees (or of `pedigree`), the cluster kernel
+    inside its envelope and row 14 past it.  Returns {kernel name: max abs
+    error}."""
+    err = {"wmec_backtrace_t": 0}
     for T, K in shapes:
-        arrays = pedigree_bucket(n_blocks, n_cols, K, T, 2000 + 10 * K + T, device)
+        arrays = pedigree_bucket(n_blocks, n_cols, K, T, 2000 + 10 * K + T, device, pedigree)
+        P = arrays[3].shape[-1].bit_length() - 1
         dp0 = _seeds(n_blocks, T, K + T, device)
         e_fwd = 0
         for seed in (None, dp0):
@@ -678,13 +773,13 @@ def compare_pedigree_kernels(device, shapes=((4, 3), (4, 4), (4, 7), (4, 9), (4,
             torch.cuda.synchronize()
             e_bt = max(e_bt, _max_err(zip(out, ref)))
         del kern
-        print(f"kernels T={T:2d} K={K:2d} B={n_blocks} C={n_cols}: forward (tables, unseeded and "
-              f"seeded) max|err|={e_fwd} m-only max|err|={e_m} backtrace (M=1, M={T + 1}) "
+        fwd, m_name = _t_name(K, T, P, "wmec_forward_t"), _t_name(K, T, P, "wmec_forward_m_t")
+        print(f"kernels T={T:2d} K={K:2d} P={P} B={n_blocks} C={n_cols}: {fwd} (tables, unseeded and "
+              f"seeded) max|err|={e_fwd} {m_name} max|err|={e_m} backtrace (M=1, M={T + 1}) "
               f"max|err|={e_bt}", flush=True)
         _require(e_fwd == 0 and e_m == 0 and e_bt == 0, f"general-T kernels bit-equal to plain at T={T}, K={K}")
-        err["wmec_forward_t"] = max(err["wmec_forward_t"], e_fwd)
-        err["wmec_forward_m_t"] = max(err["wmec_forward_m_t"], e_m)
-        err["wmec_backtrace_t"] = max(err["wmec_backtrace_t"], e_bt)
+        for name, e in ((fwd, e_fwd), (m_name, e_m), ("wmec_backtrace_t", e_bt)):
+            err[name] = max(err.get(name, 0), e)
     return err
 
 
@@ -702,7 +797,8 @@ def _walk_pair(T, tables, start, die):
 
 
 def compare_walks(device, random_shapes=((1, 7, 3, 1), (1, 15, 12, 1), (1, 17, 2, 1), (4, 9, 3, 1), (4, 9, 3, 5),
-                                         (4, 16, 1, 1), (16, 7, 2, 17), (16, 13, 1, 1)),
+                                         (4, 16, 1, 1), (16, 7, 2, 17), (16, 13, 1, 1), (64, 6, 2, 65),
+                                         (256, 4, 1, 257), (4, 20, 1, 5)),
                   free_shapes=((1, 12, 3, 1), (1, 15, 12, 1), (4, 10, 3, 1), (4, 10, 3, 5)), n_cols=200):
     """Phase 2, the backtraces beyond the tables of the main paths, against
     their plain versions, bit for bit, in narrow launches (up to 8 walks)
@@ -784,8 +880,8 @@ def compare_tie_kernels(device, shapes=((4, 1, 4), (4, 4, 4), (4, 5, 4), (4, 9, 
     """Phase 2, general T on the tie-heavy bucket: every mode of the forward
     kernel (tables unseeded and seeded, m-only, carry, tables from the
     carry) against its plain version, bit for bit, at (T, K, P) from fewer
-    than 32 states to the top of the envelope.  Returns {entry: max abs
-    error}."""
+    than 32 states to the top of the envelope (row 14 past the cluster
+    kernel's).  Returns {entry: max abs error}."""
     err = {}
     for T, K, P in shapes:
         arrays = tie_bucket(n_blocks, n_cols, K, T, P, 6000 + 100 * T + 10 * K + P, device)
@@ -808,7 +904,8 @@ def compare_tie_kernels(device, shapes=((4, 1, 4), (4, 4, 4), (4, 5, 4), (4, 9, 
             for kern_fn, plain_fn in pairs:
                 kern, plain = kern_fn(), plain_fn()
                 torch.cuda.synchronize()
-                e[name] = max(e.get(name, 0), _max_err(zip(kern, plain)))
+                entry = _t_name(K, T, P, name)
+                e[entry] = max(e.get(entry, 0), _max_err(zip(kern, plain)))
                 del kern, plain
         print(f"kernels tie-heavy T={T:2d} K={K:2d} P={P} B={n_blocks} C={n_cols}: "
               + " ".join(f"{n} max|err|={v}" for n, v in e.items()), flush=True)
@@ -883,6 +980,44 @@ def compare_wide_cluster(device, Ks=tuple(range(7, wmec_cuda.MAX_K + 1)), n_bloc
             print(f"kernels row 13 against the cluster kernel, {kind} K={K:2d} B={n_blocks} C={n_cols}: "
                   + " ".join(f"{n} max|err|={v}" for n, v in e.items()), flush=True)
             _require(all(v == 0 for v in e.values()), f"wide kernel equals the cluster kernel at K={K} ({kind})")
+            for name, v in e.items():
+                err[name] = max(err.get(name, 0), v)
+    return err
+
+
+def compare_wide_t_cluster(device, shapes=((4, 7), (4, 12), (4, 16), (16, 9), (16, 13)), n_blocks=3, n_cols=64,
+                           head_cols=24):
+    """Phase 2, row 14 against rows 3, 4, 6, 7, 9 and 10: inside the general-T
+    cluster kernel's envelope the wide kernel computes the same function, so
+    every mode of each (tables from zero and seeded, m-only, carry, tables
+    from that carry) must agree bit for bit, on a tie-heavy bucket and on a
+    packed one (half its blocks with weights above 256), at (T, K), P = 4.
+    Returns {entry: max abs error}."""
+    err = {}
+    P = 4
+    for T, K in shapes:
+        for kind, arrays in (("tie-heavy", tie_bucket(n_blocks, n_cols, K, T, P, 8200 + 10 * K + T, device)),
+                             ("packed", pedigree_bucket(n_blocks, n_cols, K, T, 8300 + 10 * K + T, device))):
+            dp0 = _seeds(n_blocks, T, K * T, device)
+            head = [a[:, :head_cols].contiguous() for a in arrays]
+            tail = [a[:, head_cols:].contiguous() for a in arrays]
+            carry = wmec_cuda.forward_t(K, T, P, *head)[2:]
+            pairs = {
+                "wmec_forward_t_wide": [(wmec_cuda.forward_t_wide(K, T, P, *arrays, s), wmec_cuda.forward_t(K, T, P, *arrays, s))
+                                        for s in (None, dp0)],
+                "wmec_forward_m_t_wide": [([wmec_cuda.forward_m_t_wide(K, T, P, *arrays, dp0)],
+                                           [wmec_cuda.forward_m_t(K, T, P, *arrays, dp0)])],
+                "wmec_forward_carry_t_wide": [(wmec_cuda.forward_carry_t_wide(K, T, P, *tail, carry),
+                                               wmec_cuda.forward_carry_t(K, T, P, *tail, carry))],
+                "wmec_forward_t_wide:carry_in": [(wmec_cuda.forward_t_wide(K, T, P, *tail, carry=carry),
+                                                  wmec_cuda.forward_t(K, T, P, *tail, carry=carry))],
+            }
+            torch.cuda.synchronize()
+            e = {name: max(_max_err(zip(*pair)) for pair in pl) for name, pl in pairs.items()}
+            del pairs
+            print(f"kernels row 14 against the cluster kernel, {kind} T={T:2d} K={K:2d} B={n_blocks} C={n_cols}: "
+                  + " ".join(f"{n} max|err|={v}" for n, v in e.items()), flush=True)
+            _require(all(v == 0 for v in e.values()), f"row 14 equals the cluster kernel at T={T}, K={K} ({kind})")
             for name, v in e.items():
                 err[name] = max(err.get(name, 0), v)
     return err
@@ -1092,61 +1227,121 @@ def _bound(in_bytes, out_bytes, ops):
     return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def time_pedigree_kernels(packed, device="cuda", label="trio"):
+def _general_t_ops(K, T, P, die_prev, tables=True):
+    """int32 operations a general-T forward function needs over a bucket
+    (die_prev (B, C, K)), as the bounds count them.  Inside the cluster
+    kernel's envelope (rows 3-10) per state and column 2TP (the cost sums,
+    in Gray order one add each), T^2 (the min-plus) and with tables one for
+    the key.  Past it (row 14) what this run's data needs: a compare per
+    state and plane of each pair a dying slot folds, and per state and
+    column T log2 T compares of the min-plus's distance transform and the
+    column cost's T (2P + 2^P) (its sums and the assignments)."""
+    B, C = die_prev.shape[0], die_prev.shape[1]
+    S = 1 << K
+    if wmec_cuda.cluster_supported(K, T, P):
+        return (2 * T * P + T * T + (1 if tables else 0)) * B * C * S
+    folds = int(die_prev.sum()) * T * S // 2
+    return folds + B * C * S * T * ((T.bit_length() - 1) + 2 * P + (1 << P))
+
+
+def time_pedigree_kernels(packed, device="cuda", label="trio", max_blocks=None, plain_blocks=None):
     """Phase 12, general T: each kernel at a pedigree path's main bucket, at
     the shapes the route gives it: the m-only scan as pass 1 (unit seeds,
-    R = 1), the seeded scan with tables as pass 2, the backtrace with the
-    head and T seam walks per block."""
+    R seeds a block), the seeded scan with tables as pass 2, the backtrace
+    with the head and T seam walks per block.  max_blocks: the bucket's
+    blocks one launch takes (the route's chunk under the table budget);
+    plain_blocks: the plain versions run on that many blocks only and are
+    held to the kernel's output there.  Past the cluster kernel's envelope
+    (row 14) also its carry mode and its tables mode from that carry, over
+    the bucket's second half from the state after its first half."""
     (c_pad, K), members, _ri = main_bucket(packed)
     T, P = packed.T, packed.P
+    members = members[:max_blocks]
     arrays = blocks.to_device(blocks.stack_blocks(members), device)
-    B, C, S = len(members), c_pad, 1 << K
-    print(f"timing at the {label}'s main bucket: B={B} C={C} K={K} T={T} P={P}", flush=True)
+    B, C = len(members), c_pad
+    nb = B if plain_blocks is None else min(B, plain_blocks)
+    print(f"timing at the {label}'s main bucket: B={B} C={C} K={K} T={T} P={P} (plain versions on {nb} "
+          f"block(s))", flush=True)
     rep_of, reps = wmec.coset_representatives(T, packed.t_sym_masks)
-    unit = np.full((len(reps), T), wmec.INF, dtype=np.int32)
-    unit[np.arange(len(reps)), reps] = 0
+    R = len(reps)
+    unit = np.full((R, T), wmec.INF, dtype=np.int32)
+    unit[np.arange(R), reps] = 0
     seeds = torch.from_numpy(unit).to(device).repeat(B, 1)
-    rep = tuple(a.repeat_interleave(len(reps), dim=0) for a in arrays)
+    rep = tuple(a.repeat_interleave(R, dim=0) for a in arrays)
+    names = {n: _t_name(K, T, P, n) for n in ("wmec_forward_m_t", "wmec_forward_t", "wmec_forward_carry_t",
+                                              "wmec_forward_t:carry_in")}
     out = {}
 
     # pass 1: m-only
     m_ms = _time(lambda: wmec_cuda.forward_m_t(K, T, P, *rep, seeds), reps=3)
     m = wmec_cuda.forward_m_t(K, T, P, *rep, seeds)
-    m_plain, m_plain_ms = _plain_ms(lambda: wmec_cuda.forward_m_t_plain(K, T, P, *rep, seeds))
+    m_plain, m_plain_ms = _plain_ms(lambda: plain_forward_m(K, T, P, *(a[: nb * R] for a in rep), seeds[: nb * R]))
     wdiff, wbase, rankw, acost, die, rc = rep
-    out["wmec_forward_m_t"] = dict(
-        ms=m_ms, plain_ms=m_plain_ms, max_abs_err=_max_err([(m, m_plain)]),
+    out[names["wmec_forward_m_t"]] = dict(
+        ms=m_ms, plain_ms=m_plain_ms, max_abs_err=_max_err([(m[: nb * R], m_plain)]),
         **dict(zip(("bound_ms", "bound_by"), _bound(
-            _nbytes(wdiff, wbase, acost, die, rc, seeds), _nbytes(m),
-            (2 * T * P + T * T) * rep[0].shape[0] * C * S))),
+            _nbytes(wdiff, wbase, acost, die, rc, seeds), _nbytes(m), _general_t_ops(K, T, P, die, tables=False)))),
     )
 
     # pass 2: seeded, with tables (the seeds: each block's folded minima)
-    dp0 = m.reshape(B, len(reps), T)[:, 0].contiguous()
+    dp0 = m.reshape(B, R, T)[:, 0].contiguous()
     del rep, m_plain
     fwd_ms = _time(lambda: wmec_cuda.forward_t(K, T, P, *arrays, dp0), reps=2)
     kern = wmec_cuda.forward_t(K, T, P, *arrays, dp0)
-    plain, fwd_plain_ms = _plain_ms(lambda: wmec_cuda.forward_t_plain(K, T, P, *arrays, dp0))
-    fwd_err = _max_err(zip(kern, plain))
+    plain, fwd_plain_ms = _plain_ms(
+        lambda: wmec_cuda.forward_t_plain(K, T, P, *(a[:nb] for a in arrays), dp0[:nb]))
+    fwd_err = _max_err(zip((x[:nb] for x in kern), plain))
     del plain
-    out["wmec_forward_t"] = dict(
+    out[names["wmec_forward_t"]] = dict(
         ms=fwd_ms, plain_ms=fwd_plain_ms, max_abs_err=fwd_err,
         **dict(zip(("bound_ms", "bound_by"), _bound(
-            _nbytes(*arrays, dp0), _nbytes(*kern), (2 * T * P + 1 + T * T) * B * C * S))),
+            _nbytes(*arrays, dp0), _nbytes(*kern), _general_t_ops(K, T, P, arrays[4])))),
     )
-
     _require(all(r["max_abs_err"] == 0 for r in out.values()), f"general-T kernels bit-equal at the {label}'s bucket")
-    notes = {"wmec_forward_m_t": _layout(K, T, P, False, m_ms, C, B * len(reps)),
-             "wmec_forward_t": _layout(K, T, P, True, fwd_ms, C, B)}
     for name, r in out.items():
-        print(f"{label} {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms), bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']} {notes.get(name, '')}", flush=True)
+        if wmec_cuda.cluster_supported(K, T, P):
+            note = _layout(K, T, P, name == "wmec_forward_t", r["ms"], C, B * (R if "_m_" in name else 1))
+        else:
+            note = (f"[row 14, the T planes in device memory; {r['ms'] * 1e3 / C:.2f} us per column of "
+                    f"{B * (R if '_m_' in name else 1)} blocks; {100 * r['bound_ms'] / r['ms']:.2f} % of the bound]")
+        print(f"{label} {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms on {nb} block(s)), bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} {note}", flush=True)
 
     # the head and T seam walks per block over the pass-2 tables
     inits = _walk_inits(K, T, kern, torch.ones((B, K), dtype=torch.bool, device=device))
     out["wmec_backtrace_t"] = walk_timing(
         label, "wmec_backtrace_t", T, K, kern[:2], inits, wmec_cuda.pack_die(arrays[4]))
-    del kern
+    state = kern[2:]
+    del kern, inits
+    if not wmec_cuda.cluster_supported(K, T, P):
+        # row 14's carry mode, and its tables mode from that carry
+        half = C // 2
+        head = [a[:, :half].contiguous() for a in arrays]
+        tail = [a[:, half:].contiguous() for a in arrays]
+        carry = tuple(wmec_cuda.forward_carry_t(K, T, P, *head, tuple(torch.zeros_like(x) for x in state)))
+        sub_carry = tuple(x[:nb] for x in carry)
+        sub_tail = [a[:nb] for a in tail]
+        for name, fn, plain_fn in (
+            ("wmec_forward_carry_t", lambda: wmec_cuda.forward_carry_t(K, T, P, *tail, carry),
+             lambda: wmec_cuda.forward_carry_t_plain(K, T, P, *sub_tail, sub_carry)),
+            ("wmec_forward_t:carry_in", lambda: wmec_cuda.forward_t(K, T, P, *tail, carry=carry),
+             lambda: wmec_cuda.forward_t_plain(K, T, P, *sub_tail, carry=sub_carry)),
+        ):
+            ms = _time(fn, reps=2)
+            k_out = fn()
+            p_out, plain_ms = _plain_ms(plain_fn)
+            err = _max_err(zip((x[:nb] for x in k_out), p_out))
+            bound = _bound(_nbytes(*tail, *carry), _nbytes(*k_out),
+                           _general_t_ops(K, T, P, tail[4], tables=name != "wmec_forward_carry_t"))
+            out[names[name]] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound[0], bound_by=bound[1])
+            del k_out, p_out
+        for name in ("wmec_forward_carry_t", "wmec_forward_t:carry_in"):
+            r = out[names[name]]
+            print(f"{label} {names[name]}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms on {nb} block(s)), "
+                  f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} [row 14, from the state after {half} columns; "
+                  f"{r['ms'] * 1e3 / (C - half):.2f} us per column of {B} blocks; "
+                  f"{100 * r['bound_ms'] / r['ms']:.2f} % of the bound]", flush=True)
+        _require(all(r["max_abs_err"] == 0 for r in out.values()), f"row 14's carry modes bit-equal at the {label}'s bucket")
     return out
 
 
@@ -1243,7 +1438,7 @@ def _phase_table(rs, positions, ped, rc):
     return table, out, wall, read_launches(), torch.cuda.max_memory_allocated()
 
 
-def segmented_instance(rs, positions, ped, rc, truth, label, K, T, n_seg):
+def segmented_instance(rs, positions, ped, rc, truth, label, K, T, n_seg, plain=False, min_agree=0.9):
     """Phase segmented*: one read-connected range whose whole tables exceed
     the pinned budget, through PedigreeDPTable(device="cuda") with the
     counters set to 0 just before and read just after: the carry kernel,
@@ -1252,8 +1447,11 @@ def segmented_instance(rs, positions, ped, rc, truth, label, K, T, n_seg):
     through the route's pieces with each pass timed between
     synchronisations, and the unsegmented single-block route on the card at
     the default budget, which must give the same cost, partitioning, index
-    and transmission paths.  truth = (block or window (C,), haps (n_ind,
-    C)).  Returns the first run's launch counts and the packed instance."""
+    and transmission paths; with `plain`, also the plain route on the card
+    (the torch mirror's segmented solve in the same segments).  truth =
+    (block or window (C,), haps (n_ind, C)): the superreads must agree with
+    it above min_agree (None: the agreement is printed, not held).  Returns
+    the first run's launch counts and the packed instance."""
     C = len(positions)
     packed = wmec.pack_problem(rs, rc, ped, False, positions)
     _require(len(wmec.connected_column_ranges(packed)) == 1 and packed.K == K and packed.T == T,
@@ -1261,11 +1459,12 @@ def segmented_instance(rs, positions, ped, rc, truth, label, K, T, n_seg):
     if T == 1:
         path = ("wmec_forward_carry_t1", "wmec_forward_t1", "wmec_backtrace_t1")
     else:
-        path = ("wmec_forward_carry_t", "wmec_forward_t", "wmec_backtrace_t")
+        path = tuple(_t_name(K, T, packed.P, n) for n in ("wmec_forward_carry_t", "wmec_forward_t")) + (
+            "wmec_backtrace_t",)
     with pinned_budget():
         table, (cost, partition, (superreads, transmission)), wall, launches, peak = _phase_table(
             rs, positions, ped, rc)
-        seg = wmec._single_range_segment(C, K, T, torch.device("cuda"))
+        seg = wmec._single_range_segment(C, K, T, torch.device("cuda"), packed.P)
         print(f"{label}: {C} variants, {len(rs)} reads, K={K}, T={T}, one read-connected range; "
               f"table budget pinned at {SEGMENT_PHASE_BUDGET / 2**20:.0f} MiB; segments of {seg}; "
               f"cost {cost}; wall {wall:.3f} s = {C / wall:.1f} variants/s; peak device memory "
@@ -1306,6 +1505,18 @@ def segmented_instance(rs, positions, ped, rc, truth, label, K, T, n_seg):
         part_split = wmec.extract_partitioning(packed, result)
         wmec.extract_alleles(packed, result, ped)
         t3 = time.perf_counter()
+        if plain:
+            t0_p = time.perf_counter()
+            plain_result = wmec.run_dp(packed, "cuda", solve=plain_solve, solve_segmented=wmec.solve_segmented)
+            plain_s = time.perf_counter() - t0_p
+            same_plain = (
+                plain_result.optimal_cost == cost and wmec.extract_partitioning(packed, plain_result) == partition
+                and np.array_equal(plain_result.index_path, table._result.index_path)
+                and np.array_equal(plain_result.trans_path, table._result.trans_path)
+            )
+            print(f"{label}: plain route on the card (the same segments) {plain_s:.3f} s; cost, partitioning, "
+                  f"index and transmission paths equal: {same_plain}", flush=True)
+            _require(same_plain, f"{label}: kernel route equals the plain route")
     split = {"pack": t1_ - t0, **laps, "prep+h2d+select": ends[-1] - t1_ - sum(laps.values()),
              "d2h": t2 - ends[-1], "extract": t3 - t2}
     text = " ".join(f"{k} {v:.3f}" for k, v in split.items())
@@ -1328,7 +1539,7 @@ def segmented_instance(rs, positions, ped, rc, truth, label, K, T, n_seg):
     agree = haplotype_agreement(superreads, *truth)
     print(f"{label}: superreads agree with the simulated haplotypes at {agree:.4f} of calls "
           f"(lowest over {len(truth[1])} individual(s))", flush=True)
-    _require(agree > 0.9, f"{label}: haplotypes recovered")
+    _require(min_agree is None or agree > min_agree, f"{label}: haplotypes recovered")
     if T > 1:
         switches = int(np.count_nonzero(np.diff(table._result.trans_path)))
         print(f"{label}: {switches} transmission changes on the optimal path", flush=True)
@@ -1348,7 +1559,7 @@ def time_carry_kernels(packed, seg, label, device="cuda"):
     tail = [a[:, seg : 2 * seg].contiguous() for a in arrays]
     carry = _carry_after(K, T, P, head)
     S = 1 << K
-    ops = (5 if T == 1 else 2 * T * P + 1 + T * T) * seg * S
+    ops = 5 * seg * S if T == 1 else _general_t_ops(K, T, P, tail[4])
     inputs = _nbytes(*(tail[:5] if T == 1 else tail), *carry)  # T = 1 does not read rc
     if T == 1:
         carry_fn = lambda: wmec_cuda.forward_carry_t1(K, P, *tail, carry)  # noqa: E731
@@ -1361,7 +1572,7 @@ def time_carry_kernels(packed, seg, label, device="cuda"):
         tables_fn = lambda: wmec_cuda.forward_t(K, T, P, *tail, carry=carry)  # noqa: E731
         plains = (lambda: wmec_cuda.forward_carry_t_plain(K, T, P, *tail, carry),
                   lambda: wmec_cuda.forward_t_plain(K, T, P, *tail, carry=carry))
-        names = ("wmec_forward_carry_t", "wmec_forward_t:carry_in")
+        names = (_t_name(K, T, P, "wmec_forward_carry_t"), _t_name(K, T, P, "wmec_forward_t:carry_in"))
     out = {}
     for name, fn, plain_fn in zip(names, (carry_fn, tables_fn), plains):
         ms = _time(fn, reps=2)
@@ -1372,7 +1583,7 @@ def time_carry_kernels(packed, seg, label, device="cuda"):
                          bound_ms=bound[0], bound_by=bound[1])
         del kern, plain
         r = out[name]
-        if T == 1 and K > wmec_cuda.MAX_K:
+        if not wmec_cuda.cluster_supported(K, T, P):
             note = f" [the wide kernel, state in device memory; {ms * 1e3 / seg:.2f} us per column]"
         elif T == 1:
             note = " " + _layout_t1(K, 1, name != "wmec_forward_carry_t1", ms, seg)
@@ -1744,7 +1955,7 @@ BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
 def write_synth(out_dir, n_vars, coverage, seed, trio=False, vars_per_read=30, spacing=150,
-                err=0.02, break_every=64, recomb_per_block=0.2, mixed=False):
+                err=0.02, break_every=64, recomb_per_block=0.2, mixed=False, children=1):
     """Write a synthetic chromosome (the generator of tools/make_synth_chrom.py,
     on numpy's seeded generator): ref.fasta and its .fai, variants.vcf of
     biallelic SNVs every `spacing` bases, reads.bam (with a minimal .bai) of
@@ -1756,7 +1967,9 @@ def write_synth(out_dir, n_vars, coverage, seed, trio=False, vars_per_read=30, s
     genotype CLI); or, with `trio`, a mother and a father
     with random haplotypes and a child that inherits one of each parent's,
     switching at a window boundary with probability `recomb_per_block`, one
-    read group per sample and family.ped.  Returns the paths, the sample
+    read group per sample and family.ped; with `children` above 1, that many
+    children of the two (child1, child2, ...; three make the shape of
+    tests/data/recombination_breaks.ped, T = 64).  Returns the paths, the sample
     names and each sample's simulated haplotypes, (2, n_vars)."""
     from pathlib import Path
 
@@ -1778,7 +1991,10 @@ def write_synth(out_dir, n_vars, coverage, seed, trio=False, vars_per_read=30, s
             cross = (cols % break_every == 0) & (cols > 0) & (rng.random(n_vars) < recomb_per_block)
             return parent[(rng.integers(0, 2) + np.cumsum(cross)) % 2, cols]
 
-        haps = {"mother": mother, "father": father, "child": np.stack([inherit(mother), inherit(father)])}
+        kids = ["child"] if children == 1 else [f"child{i + 1}" for i in range(children)]
+        haps = {"mother": mother, "father": father}
+        for kid in kids:
+            haps[kid] = np.stack([inherit(mother), inherit(father)])
     else:
         h0 = rng.integers(0, 2, n_vars)
         haps = {"sample": np.stack([h0, rng.integers(0, 2, n_vars) if mixed else 1 - h0])}
@@ -1806,7 +2022,8 @@ def write_synth(out_dir, n_vars, coverage, seed, trio=False, vars_per_read=30, s
     ped = None
     if trio:
         ped = out / "family.ped"
-        ped.write_text("FAM child father mother 0 0\nFAM father 0 0 0 0\nFAM mother 0 0 0 0\n")
+        ped.write_text("".join(f"FAM {kid} father mother 0 0\n" for kid in kids)
+                       + "FAM father 0 0 0 0\nFAM mother 0 0 0 0\n")
 
     reads = []  # (start, read id, sample, sequence)
     for name in names:
@@ -1911,7 +2128,7 @@ def plain_route():
     real = wmec.run_dp
 
     def run_dp(packed, device=None):
-        return real(packed, device, solve=plain_solve, forward_m=wmec.forward_m_batched,
+        return real(packed, device, solve=plain_solve, forward_m=plain_forward_m,
                     solve_seeded=plain_solve_seeded, solve_segmented=wmec.solve_segmented)
 
     wmec.run_dp = run_dp
@@ -2027,13 +2244,23 @@ def range_k_histogram(packed) -> dict:
 
 
 #: phase-cli-ds23: phase-cli's generator at a long-read depth, phased with
-#: --internal-downsampling 23, the CLI's ceiling
+#: --internal-downsampling 23, the CLI's ceiling (32,768 variants: the
+#: chromosome's first third, to leave the script's time limit room for the
+#: pedigree phases)
+DS23_VARIANTS = 32_768
 DS23_COVERAGE = 30
 DS23_CUT_VARIANTS = 8192
+#: phase-cli-fam5: phase-cli-trio's generator with three children (T = 64),
+#: the plain route's comparison on a cut (its T x T min-plus over every
+#: state makes it slow at T = 64); phase-cli-trio-ds23: a trio at coverage 8
+#: phased with --internal-downsampling 23 (7 reads a sample, K up to 21)
+FAM5_VARIANTS = 8192
+FAM5_CUT_VARIANTS = 512
+TRIO_DS23_VARIANTS = 2048
 
 
 def cli_ds23(tmp):
-    """Phase phase-cli-ds23: 100,000 variants of phase-cli's generator at
+    """Phase phase-cli-ds23: 32,768 variants of phase-cli's generator at
     coverage 30, phased on the card with --internal-downsampling 23 (counted:
     most ranges past the cluster kernel's ceiling, in the wide kernel), then
     the same files at the default 15 for the switch-error rate beside it
@@ -2043,7 +2270,7 @@ def cli_ds23(tmp):
     the plain route on the card runs on an 8,192-variant file of the same
     generator.  Returns the counted run's launches and its packed problem."""
     t0 = time.perf_counter()
-    data = write_synth(f"{tmp}/ds23", CLI_VARIANTS, DS23_COVERAGE, seed=7)
+    data = write_synth(f"{tmp}/ds23", DS23_VARIANTS, DS23_COVERAGE, seed=7)
     print(f"phase-cli-ds23: chromosome written in {time.perf_counter() - t0:.1f} s ({data['n_reads']} reads)",
           flush=True)
     expect = ("wmec_forward_t1_wide", "wmec_backtrace_t1")
@@ -2067,6 +2294,48 @@ def cli_ds23(tmp):
     cut_packed = cli_instance(cut, f"phase-cli-ds23-{DS23_CUT_VARIANTS}", expect, max_coverage=23)[1]
     print(f"phase-cli-ds23-{DS23_CUT_VARIANTS}: ranges by K {range_k_histogram(cut_packed)}", flush=True)
     return launches, packed
+
+
+def cli_fam5(tmp):
+    """Phase phase-cli-fam5: a family of two parents and three children (the
+    shape of tests/data/recombination_breaks.ped: T = 64, P = 4), 8,192
+    variants at coverage 5 a sample in one BAM with five read groups and a
+    PED file, phased on the card at the default --max-coverage 15 (3 reads a
+    sample, ranges up to K = 15, all past the cluster kernel: row 14 in both
+    passes of the seam route); wall, stages, the solve's device time,
+    variants/s, launches, the ranges by (K, T) and the switch-error rate
+    (below 5 %).  The byte-identical comparison with the plain route runs on
+    a 512-variant file of the same generator.  Returns the counted run's
+    launches and its packed problem."""
+    t0 = time.perf_counter()
+    data = write_synth(f"{tmp}/fam5", FAM5_VARIANTS, 5, seed=17, trio=True, children=3)
+    print(f"phase-cli-fam5: family written in {time.perf_counter() - t0:.1f} s ({data['n_reads']} reads)", flush=True)
+    expect = ("wmec_forward_t_wide", "wmec_forward_m_t_wide", "wmec_backtrace_t")
+    launches, packed, _w, _r = cli_instance(data, "phase-cli-fam5", expect, plain=False, ped=data["ped"])
+    _require((packed.T, packed.P) == (64, 4), "phase-cli-fam5: three trios of two founders")
+    print(f"phase-cli-fam5: read-connected ranges by K at T = {packed.T}, P = {packed.P}: "
+          f"{range_k_histogram(packed)}", flush=True)
+    del data
+    cut = write_synth(f"{tmp}/fam5-cut", FAM5_CUT_VARIANTS, 5, seed=17, trio=True, children=3)
+    cut_packed = cli_instance(cut, f"phase-cli-fam5-{FAM5_CUT_VARIANTS}", expect, ped=cut["ped"])[1]
+    print(f"phase-cli-fam5-{FAM5_CUT_VARIANTS}: ranges by K {range_k_histogram(cut_packed)}", flush=True)
+    return launches, packed
+
+
+def cli_trio_ds23(tmp):
+    """Phase phase-cli-trio-ds23: a trio of 2,048 variants at coverage 8 a
+    sample, phased on the card with --internal-downsampling 23 (7 reads a
+    sample: ranges up to K = 21 at T = 4, past the cluster kernel's K = 16:
+    row 14), byte-identical to the plain route.  Returns the launches."""
+    data = write_synth(f"{tmp}/trio-ds23", TRIO_DS23_VARIANTS, 8, seed=19, trio=True)
+    expect = ("wmec_forward_t_wide", "wmec_forward_m_t_wide", "wmec_backtrace_t")
+    launches, packed, _w, _r = cli_instance(data, "phase-cli-trio-ds23", expect, ped=data["ped"], max_coverage=23)
+    hist = range_k_histogram(packed)
+    print(f"phase-cli-trio-ds23: read-connected ranges by K at T = {packed.T}: {hist}; "
+          f"{sum(n for k, n in hist.items() if k > wmec_cuda.MAX_K_T[4])} past K = {wmec_cuda.MAX_K_T[4]} (row 14)",
+          flush=True)
+    _require(packed.T == 4 and packed.K > wmec_cuda.MAX_K_T[4], "phase-cli-trio-ds23: ranges past the cluster kernel")
+    return launches
 
 
 def time_wide_bucket(label, arrays, K, plain_blocks=None, reps=3):
@@ -2484,11 +2753,18 @@ def main() -> int:
     merge(compare_carry_kernels("cuda", shapes=tuple((1, K) for K, _b in WIDE_SHAPES), n_blocks=2, n_cols=48,
                                 head_cols=16))
     merge(compare_pedigree_kernels("cuda"))
+    # row 14, the general-T kernel with its T planes in device memory, past
+    # the cluster kernel: three founders (P = 6), four founders (P = 8)
+    merge(compare_pedigree_kernels("cuda", shapes=WIDE_T_PEDIGREE_SHAPES, n_blocks=2, n_cols=40))
+    merge(compare_pedigree_kernels("cuda", shapes=((16, 12),), n_blocks=2, n_cols=40, pedigree=DOUBLE_TRIO))
+    merge(compare_pedigree_kernels("cuda", shapes=((16, 9),), n_blocks=2, n_cols=40, pedigree=FOUR_FOUNDERS))
     merge(compare_walks("cuda"))
     merge(compare_tie_kernels("cuda"))
+    merge(compare_tie_kernels("cuda", shapes=WIDE_T_TIE_SHAPES, n_blocks=2, n_cols=40, head_cols=12))
     merge(compare_tie_kernels_t1("cuda"))
     merge(compare_tie_kernels_t1("cuda", shapes=WIDE_SHAPES))
     merge(compare_wide_cluster("cuda"))
+    merge(compare_wide_t_cluster("cuda"))
     torch.cuda.empty_cache()
     merge(compare_geno_kernels("cuda"))
     print(f"phases 1-2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2547,6 +2823,14 @@ def main() -> int:
     )
     packed_q = wmec.pack_problem(rs_q, [10] * len(pos_q), ped_q, False, pos_q)
     del rs_q
+    # pedigree-p6: a three-generation pedigree with three founders (P = 6,
+    # T = 16: row 14 in both passes of the seam route)
+    rs_p6, pos_p6, ped_p6, _truth_p6 = simulate_pedigree(16, 128, 3, DOUBLE_TRIO, seed=17)
+    phase_instance(
+        rs_p6, pos_p6, ped_p6, [10] * len(pos_p6), None, "cuda", "pedigree-p6",
+        ("wmec_forward_t_wide", "wmec_forward_m_t_wide", "wmec_backtrace_t"),
+    )
+    del rs_p6
     print(f"phases 5-7 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 8. genotyping: one sample of 32,768 variants at coverage 15 (K = 15),
@@ -2583,6 +2867,18 @@ def main() -> int:
     # segmented-k23: 2,048 columns at K = 23 at the default budget (row 13)
     torch.cuda.empty_cache()
     seg23_launches, packed_23 = wide_segmented_instance()
+    # segmented-trio-wide: one trio range at K = 18 (row 14) past the pinned
+    # budget, in the reference's XLA-route segments (16 of 64), held to the
+    # plain route; the exact optimum of this range mis-phases the mother in
+    # two of its four 256-column windows (0.63 and 0.67 of her calls there,
+    # on the CPU's plain route as on the card), so its agreement with the
+    # simulation is printed, not held
+    rs_w, pos_w, ped_w, truth_w = simulate_pedigree(1, 1024, 6, TRIO, seed=41)
+    segw_launches, packed_w = segmented_instance(
+        rs_w, pos_w, ped_w, [10] * len(pos_w), (np.arange(len(pos_w)) // 256, truth_w[1]),
+        "segmented-trio-wide", K=18, T=4, n_seg=16, plain=True, min_agree=None,
+    )
+    del rs_w
     print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 10-11. the phase CLI, files in and a phased VCF out: a chr1-sized
@@ -2603,6 +2899,12 @@ def main() -> int:
         # chromosome, the single-sample main path past the cluster kernel
         torch.cuda.empty_cache()
         ds23_launches, ds23_packed = cli_ds23(tmp)
+        # phase-cli-fam5: three children (T = 64, row 14), and
+        # phase-cli-trio-ds23: a trio at --internal-downsampling 23
+        torch.cuda.empty_cache()
+        fam5_launches, fam5_packed = cli_fam5(tmp)
+        torch.cuda.empty_cache()
+        cli_trio_ds23(tmp)
         print(f"phases 10-11 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
         # 12-13. the genotype CLI, files in and a genotyped VCF out: a
@@ -2611,8 +2913,9 @@ def main() -> int:
         t0 = time.perf_counter()
         geno_chrom = write_synth(f"{tmp}/geno", CLI_VARIANTS, 14, seed=13, mixed=True)
         print(f"genotype-cli: chromosome written in {time.perf_counter() - t0:.1f} s", flush=True)
-        geno_cli_launches, geno_cli_prepared = geno_cli_instance(geno_chrom, "genotype-cli", atol=2e-4,
-                                                                 min_concordance=0.9)
+        geno_cli_launches, _prepared = geno_cli_instance(geno_chrom, "genotype-cli", atol=2e-4,
+                                                         min_concordance=0.9)
+        del _prepared
         del geno_chrom
         torch.cuda.empty_cache()
         # at 5 reads a sample (fewer at some sites) the reference's own host
@@ -2645,12 +2948,12 @@ def main() -> int:
     time_quartet_walks(packed_q)
     del packed_t, packed_s
     torch.cuda.empty_cache()
-    time_geno_kernels(geno_static, geno_stacked, "genotype")
+    # rows 11-12: the genotype cell's instance (32,768 columns; the f32
+    # plain versions at the genotype CLI's 97,247 columns are left out to
+    # hold the script inside its time limit)
+    times.update(time_geno_kernels(geno_static, geno_stacked, "genotype"))
     torch.cuda.empty_cache()
     time_geno_kernels(trio_g_static, trio_g_stacked, "genotype-trio")
-    torch.cuda.empty_cache()
-    times.update(time_geno_kernels(*geno_cli_prepared, "genotype-cli"))
-    del geno_cli_prepared
     torch.cuda.empty_cache()
     time_geno_kernels(*geno_cli_trio_prepared, "genotype-cli-trio")
     del geno_cli_trio_prepared
@@ -2666,10 +2969,25 @@ def main() -> int:
     del ds23_packed
     times.update(time_carry_kernels(packed_23, wmec._xla_segment_length(packed_23.n_cols), "segmented-k23"))
     del packed_23
+    # row 14: one launch of phase-cli-fam5's main bucket in each mode (the
+    # kernels line), as the route chunks it under the table budget, and both
+    # passes at a segment of segmented-trio-wide
+    torch.cuda.empty_cache()
+    (c_pad, k_b), _m, _r = main_bucket(fam5_packed)
+    T, P = fam5_packed.T, fam5_packed.P
+    per_block = c_pad * (T * 8 << k_b) + wmec_cuda.state_bytes(k_b, T, P)
+    fam5_times = time_pedigree_kernels(fam5_packed, label="phase-cli-fam5",
+                                       max_blocks=max(1, wmec._table_budget(torch.device("cuda")) // per_block),
+                                       plain_blocks=1)
+    fam5_times.pop("wmec_backtrace_t")  # the kernels line reads rows 5 and 8 on phase-cli-trio
+    times.update(fam5_times)
+    del fam5_packed
+    torch.cuda.empty_cache()
+    time_carry_kernels(packed_w, 64, "segmented-trio-wide")
     for packed_x, seg, label in ((packed_g, 2048, "segmented"), (packed_k, 1024, "segmented-k17"),
-                                 (packed_gt, 512, "segmented-trio")):
+                                 (packed_gt, 512, "segmented-trio"), (packed_w, 64, "segmented-trio-wide")):
         time_segment_walk(packed_x, seg, label)
-    del packed_g, packed_gt, packed_k, packed_q
+    del packed_g, packed_gt, packed_k, packed_q, packed_w
     # rows 1-2 and 6-8 are read on the phase CLI, rows 11-12 on the genotype
     # CLI: the paths users run
     launches.update({k: cli_launches[k] for k in ("wmec_forward_t1", "wmec_backtrace_t1")})
@@ -2684,6 +3002,12 @@ def main() -> int:
     launches["wmec_forward_t1_wide"] = ds23_launches["wmec_forward_t1_wide"]
     launches["wmec_forward_carry_t1_wide"] = seg23_launches["wmec_forward_carry_t1_wide"]
     launches["wmec_forward_t1_wide:carry_in"] = seg23_launches["wmec_forward_t1_wide"]
+    # row 14 on its paths: phase-cli-fam5 (tables, m-only), segmented-trio-wide
+    # (the carry mode, and tables from a carry)
+    launches["wmec_forward_t_wide"] = fam5_launches["wmec_forward_t_wide"]
+    launches["wmec_forward_m_t_wide"] = fam5_launches["wmec_forward_m_t_wide"]
+    launches["wmec_forward_carry_t_wide"] = segw_launches["wmec_forward_carry_t_wide"]
+    launches["wmec_forward_t_wide:carry_in"] = segw_launches["wmec_forward_t_wide"]
 
     power = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

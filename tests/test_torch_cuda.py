@@ -173,11 +173,12 @@ def test_route_on_cuda_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_route_on_cuda_refuses_what_it_cannot_solve(cuda_device):
-    """A pedigree beyond the kernels' envelope (three trios, T = 64), or K
+    """A pedigree beyond the kernels' envelope (five trios, T = 1024), or K
     above it (24, past the wide T=1 kernel's 23), raises on CUDA instead of
-    leaving the card."""
+    leaving the card.  (Three trios, T = 64, now run in the wide general-T
+    kernel.)"""
     rs, positions = _chromosome(1, 12, 3, seed=1)
-    ped = _pedigree(len(positions), n_ind=5, trios=((0, 1, 2), (0, 1, 3), (0, 1, 4)))
+    ped = _pedigree(len(positions), n_ind=7, trios=tuple((0, 1, c) for c in range(2, 7)))
     with pytest.raises(NotImplementedError, match="wider envelope"):
         core.PedigreeDPTable(rs, [1] * len(positions), ped, False, positions)
     k = wmec_cuda.MAX_K_WIDE + 1
@@ -523,6 +524,118 @@ def test_pedigree_route_on_cuda_never_runs_the_plain_versions(cuda_device, monke
         rs, positions, ped = _pedigree_chromosome(n_blocks, 40, 3, TRIO, seed=11)
         table = core.PedigreeDPTable(rs, [5] * len(positions), ped, False, positions)
         assert len(table.get_super_reads()[1]) == len(positions)
+
+
+WIDE_T = (wmec_cuda.forward_t_wide, wmec_cuda.forward_m_t_wide, wmec_cuda.forward_carry_t_wide)
+CLUSTER_T = (wmec_cuda.forward_t, wmec_cuda.forward_m_t, wmec_cuda.forward_carry_t)
+DOUBLE_TRIO = (5, ((0, 1, 2), (2, 3, 4)))  # three founders: P = 6, T = 16
+FAMILY5 = (5, ((0, 1, 2), (0, 1, 3), (0, 1, 4)))  # three children: T = 64
+
+
+def _t_pairs(first, second, K, T, P, ta, dp0, head_cols):
+    """Pairs of outputs of two sets of general-T forward wrappers over a
+    bucket, each set (tables, m-only, carry): tables from zero and from the
+    seed dp0, m-only from dp0, carry and tables from that nonzero carry (the
+    state after the first head_cols columns, from the first set)."""
+    head = [a[:, :head_cols].contiguous() for a in ta]
+    tail = [a[:, head_cols:].contiguous() for a in ta]
+    carry = first[0](K, T, P, *head)[2:]
+    assert bool((carry[0] != 0).any())
+    return [
+        tuple(t(K, T, P, *ta) for t, _m, _c in (first, second)),
+        tuple(t(K, T, P, *ta, dp0) for t, _m, _c in (first, second)),
+        tuple([m(K, T, P, *ta, dp0)] for _t, m, _c in (first, second)),
+        tuple(c(K, T, P, *tail, carry) for _t, _m, c in (first, second)),
+        tuple(t(K, T, P, *tail, carry=carry) for t, _m, _c in (first, second)),
+    ]
+
+
+PLAIN_T = (wmec_cuda.forward_t_plain, wmec_cuda.forward_m_t_plain, wmec_cuda.forward_carry_t_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K,P", [
+    (4, 1, 2), (4, 17, 4), (4, 20, 4), (16, 9, 6), (16, 14, 4), (16, 12, 8),
+    (64, 5, 4), (64, 12, 4), (64, 15, 4), (256, 3, 8), (256, 9, 4),
+])
+def test_wide_t_kernel_breaks_ties_as_plain(cuda_device, T, K, P):
+    """Row 14, the general-T kernel with its T planes in device memory
+    (csrc/wmec_forward_t_wide.cu), on a tie-heavy bucket (a quarter of the
+    slots dying a column) from seeds with INF entries: tables from zero and
+    seeded, m-only, carry and tables from a carry, bit-equal to the plain
+    versions; the head walk and T + 1 random walks over its tables (T up to
+    256) equal the plain walk; only the wide kernel's counters count."""
+    ta = _tie_bucket(K, T, P, cuda_device, n_blocks=2, n_cols=20, seed=60 * T + K + P)
+    rng = np.random.RandomState(K + T)
+    dp0_np = rng.randint(0, 3, (2, T)).astype(np.int32)
+    dp0_np[rng.rand(2, T) < 0.3] = wmec.INF
+    dp0 = torch.from_numpy(dp0_np).to(cuda_device)
+    before = [f.launches for f in WIDE_T + CLUSTER_T]
+    pairs = _t_pairs(WIDE_T, PLAIN_T, K, T, P, ta, dp0, 6)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(WIDE_T + CLUSTER_T, before)] == [4, 1, 1, 0, 0, 0]
+    for kern, plain in pairs:
+        for x, y in zip(kern, plain):
+            assert torch.equal(x, y)
+    pidx, pjmin, dp_last, jmin_last, key_last = pairs[0][0]
+    _m, head = wmec_cuda._head_init(K, T, dp_last, jmin_last, key_last)
+    rand = torch.from_numpy(np.stack(
+        [rng.randint(0, 1 << K, (2, T + 1)), rng.randint(0, T, (2, T + 1)), rng.randint(0, T, (2, T + 1))], axis=2
+    ).astype(np.int32)).to(cuda_device)
+    die = wmec_cuda.pack_die(ta[4])
+    for init in (head[:, None].contiguous(), rand):
+        assert _walks_equal(T, (pidx, pjmin), init, die)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K", [(4, 1), (4, 9), (4, 12), (4, 16), (16, 5), (16, 13)])
+def test_wide_t_kernel_matches_cluster_kernel(cuda_device, T, K):
+    """Inside the cluster kernel's envelope (kernel rows 3, 4, 6, 7, 9, 10)
+    the wide general-T kernel computes the same function: every mode on a
+    tie-heavy bucket, bit-equal to csrc/wmec_forward_t.cu."""
+    P = 4
+    ta = _tie_bucket(K, T, P, cuda_device, n_blocks=3, n_cols=24, seed=70 * T + K)
+    dp0 = torch.from_numpy(np.random.RandomState(K).randint(0, 3, (3, T)).astype(np.int32)).to(cuda_device)
+    pairs = _t_pairs(WIDE_T, CLUSTER_T, K, T, P, ta, dp0, 8)
+    torch.cuda.synchronize()
+    for wide, cluster in pairs:
+        for x, y in zip(wide, cluster):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pedigree", [DOUBLE_TRIO, FAMILY5], ids=["doubletrio", "family5"])
+def test_wide_t_route_on_cuda_matches_cpu(cuda_device, pedigree, monkeypatch):
+    """A three-generation pedigree with three founders (P = 6, T = 16) and a
+    family of three children (T = 64) through PedigreeDPTable on the card,
+    several ranges (the seam route) and one range, with every plain version
+    made to raise: the wide general-T kernel and the backtrace launch,
+    nothing falls back, and the result equals the CPU run."""
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a plain version ran on the CUDA route")
+
+    for n_blocks in (3, 1):
+        rs, positions, ped = _pedigree_chromosome(n_blocks, 30, 1, pedigree, seed=20 + n_blocks)
+        rc = [5] * len(positions)
+        before = [f.launches for f in WIDE_T + (wmec_cuda.backtrace_t,)]
+        with monkeypatch.context() as m:
+            for mod, name in [
+                (wmec, "forward_scan"), (wmec, "solve_batched"), (wmec, "forward_m_batched"),
+                (wmec, "solve_seeded_batched"), (wmec, "_backtrace_from"),
+                (wmec_cuda, "forward_t_plain"), (wmec_cuda, "forward_m_t_plain"),
+                (wmec_cuda, "backtrace_t_plain"),
+            ]:
+                m.setattr(mod, name, refuse)
+            gpu = core.PedigreeDPTable(rs, rc, ped, False, positions)
+        launched = [f.launches - b for f, b in zip(WIDE_T + (wmec_cuda.backtrace_t,), before)]
+        assert not wmec_cuda.cluster_supported(gpu._packed.K, gpu._packed.T, gpu._packed.P)
+        assert launched[0] > 0 and launched[3] > 0 and (launched[1] > 0) == (n_blocks > 1)
+        cpu = core.PedigreeDPTable(rs, rc, ped, False, positions, device="cpu")
+        assert gpu.get_optimal_cost() == cpu.get_optimal_cost()
+        assert gpu.get_optimal_partitioning() == cpu.get_optimal_partitioning()
+        assert np.array_equal(gpu._result.index_path, cpu._result.index_path)
+        assert np.array_equal(gpu._result.trans_path, cpu._result.trans_path)
 
 
 def _geno_instance(n_cols, coverage, n_ind, trios, seed, zero_prior=None):

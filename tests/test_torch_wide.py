@@ -244,3 +244,27 @@ def test_wide_wrappers_check_inputs_and_count_no_launch():
     empty = torch.zeros((1, 0, 1 << (wmec_cuda.MAX_K_WIDE + 1)), dtype=torch.int32)
     with pytest.raises(ValueError, match="K <= 23"):
         wmec_cuda.backtrace_t1(torch.zeros(1, dtype=torch.int32), empty, torch.zeros((1, 0), dtype=torch.int32))
+
+
+def test_wide_trio_forward_m_matches_reference():
+    """A trio (T = 4, P = 4) at K = 18, past the general-T cluster kernel's
+    K = 16: the port's pass 1 of the pedigree route (forward_m_auto, row
+    14's m-only mode on the card, its plain version here) against the
+    reference's XLA forward_m_batched, from seeds with INF entries, on a
+    tie-heavy bucket with saturating recombination costs.  The other
+    pedigree shapes past the cluster kernel are cases of
+    tests/test_torch_pedigree_wide.py."""
+    K, T, P = 18, 4, 4
+    rng = np.random.RandomState(K)
+    arrays = [
+        rng.randint(0, 2, (1, 2, K, T * P * 2)).astype(np.float32),
+        rng.randint(0, 2, (1, 2, T, P, 2)).astype(np.int32),
+        rng.randint(0, 2, (1, 2, K)).astype(np.float32),
+        rng.randint(0, 2, (1, 2, T, 1 << P)).astype(np.int32),
+        rng.rand(1, 2, K) < 0.25,
+        np.array([[INF, 1]], dtype=np.int32),
+    ]
+    dp0 = np.array([[0, INF, 3, INF]], dtype=np.int32)
+    assert wmec_cuda.kernel_supported(K, T, P) and not wmec_cuda.cluster_supported(K, T, P)
+    ref = ref_wmec.forward_m_batched(K, T, P, *_j(arrays), jnp.asarray(dp0))
+    assert _eq(wmec.forward_m_auto(K, T, P, *_t(arrays), torch.from_numpy(dp0)), ref)

@@ -391,21 +391,27 @@ def test_kernel_envelope():
     assert not wmec_cuda.kernel_supported(wmec_cuda.MAX_K_WIDE + 1, 1, 2)
     assert not wmec_cuda.kernel_supported(10, 1, 4)
     assert not wmec_cuda.kernel_supported(20, 1, 4)
-    # pedigrees: T = 4 up to K = 16 and T = 16 up to K = 13, with P = 2 or 4
-    assert all(wmec_cuda.kernel_supported(k, 4, p) for k in range(1, 17) for p in (2, 4))
-    assert all(wmec_cuda.kernel_supported(k, 16, p) for k in range(1, 14) for p in (2, 4))
-    assert not wmec_cuda.kernel_supported(17, 4, 4)
-    assert not wmec_cuda.kernel_supported(14, 16, 4)
-    assert not wmec_cuda.kernel_supported(10, 64, 4)
-    assert not wmec_cuda.kernel_supported(10, 16, 6)
+    # pedigrees: the cluster kernel at T = 4 up to K = 16 and T = 16 up to K
+    # = 13, with P = 2 or 4; past it the wide kernel (state in device
+    # memory), T up to 256 (four trios) and P up to 8, to K = 23
+    for k_max, T in ((16, 4), (13, 16)):
+        assert all(wmec_cuda.cluster_supported(k, T, p) for k in range(1, k_max + 1) for p in (2, 4))
+        assert all(wmec_cuda.kernel_supported(k, T, p) for k in range(1, 24) for p in (2, 4, 6, 8))
+    for shape in ((17, 4, 4), (14, 16, 4), (10, 64, 4), (10, 16, 6), (23, 256, 8)):
+        assert wmec_cuda.kernel_supported(*shape) and not wmec_cuda.cluster_supported(*shape)
+    for shape in ((10, 1024, 4), (10, 16, 10), (24, 4, 4), (10, 8, 4)):
+        assert not wmec_cuda.kernel_supported(*shape)
     # the cluster kernels keep the state in the shared memory of the block's
     # cluster (T = 1 up to K = 17 and general T): no device state; the wide
-    # kernel keeps a cost and a key plane in device memory
+    # kernels keep it in device memory, at T = 1 a cost and a key plane, at
+    # T > 1 the cost and jmin planes and the key plane
     assert all(wmec_cuda.state_bytes(k, 1) == 0 for k in range(1, 18))
     assert all(wmec_cuda.state_bytes(k, 1) == 8 << k for k in range(18, 24))
     assert wmec_cuda.state_bytes(23, 1) == 64 << 20
-    assert all(wmec_cuda.state_bytes(k, 4) == 0 for k in range(1, 17))
-    assert all(wmec_cuda.state_bytes(k, 16) == 0 for k in range(1, 14))
+    assert all(wmec_cuda.state_bytes(k, 4, 4) == 0 for k in range(1, 17))
+    assert all(wmec_cuda.state_bytes(k, 16, 4) == 0 for k in range(1, 14))
+    assert wmec_cuda.state_bytes(17, 4, 4) == 9 * 4 << 17
+    assert wmec_cuda.state_bytes(10, 16, 6) == 33 * 4 << 10
     assert "T = 1, P = 2, K <= 23" in wmec_cuda.ENVELOPE
 
 

@@ -12,7 +12,9 @@
 // and writes the triple after the step through column 0 to final[w] (its
 // middle element is the transmission before the block's first column, which
 // the host stitch of the pedigree route chains on).  die[b, c] holds the
-// slots that die before column c (bit k: slot k).
+// slots that die before column c (bit k: slot k).  T is any power of two up
+// to 256 (four trios): the walk takes the transmission's log2 T bits into its
+// 64-bit table offsets (wmec_walk.cuh).
 //
 // Bound: the walk needs two table entries and two path entries a column,
 // B*M*C*16 bytes, but each gather depends on the one before (two a column),
@@ -61,7 +63,7 @@ __global__ void __launch_bounds__(32)
 extern "C" int wmec_backtrace_t(const int* init, const int* pidx, const int* pjmin, const int* die,
                                 int* path, int* tpath, int* final_state, int B, int M, int C, int T,
                                 int K, cudaStream_t stream) {
-  if (B < 1 || M < 1 || C < 1 || T < 2 || T > 16 || (T & (T - 1)) || K < 1 || K > 30)
+  if (B < 1 || M < 1 || C < 1 || T < 2 || T > 256 || (T & (T - 1)) || K < 1 || K > 30)
     return (int)cudaErrorInvalidValue;
   const int W = B * M, lt = __builtin_ctz(T);
   if (W <= kNarrowWalks)

@@ -574,14 +574,11 @@ def forward_scan(
             proj_jmin[:, c] = p_jmin.transpose(1, 2)
 
         # ---- transmission min-plus (pedigreedptable.cpp:262-300); the
-        # argmin keeps the first strict minimum over tj
+        # argmin keeps the first minimum over tj (torch.min's index is the
+        # first one, as the reference's jnp.argmin)
         trans_term = torch.clamp(proj_cost[:, :, None, :] + recomb[:, c, None], max=INF)
-        trans_min = trans_term[..., 0]
-        jmin_new = torch.zeros_like(trans_min)
-        for tj in range(1, T):
-            take = trans_term[..., tj] < trans_min
-            trans_min = torch.where(take, trans_term[..., tj], trans_min)
-            jmin_new = torch.where(take, tj, jmin_new)
+        trans_min, jmin_new = trans_term.min(dim=-1)
+        jmin_new = jmin_new.to(torch.int32)
 
         # ---- current column cost over all bipartitions
         cc = _col_cost(bits, abits, wdiff64[:, c], wbase[:, c], acost[:, c], T, P)
@@ -922,7 +919,7 @@ def solve_batched_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
     C = wdiff.shape[1]
     per_block = C * T * (1 << K) * 4 * (2 if T > 1 else 1)  # index (+ trans) tables
     if solve is wmec_cuda.solve_batched_cuda:
-        per_block += wmec_cuda.state_bytes(K, T)
+        per_block += wmec_cuda.state_bytes(K, T, P)
     return _launch_batched(
         solve, K, T, P, (wdiff, wbase, rankw, acost, die_prev, rc), per_block
     )
@@ -932,7 +929,7 @@ def forward_m_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
     """Pass 1 of the pedigree route, forward_m_batched's signature, through
     the m-only kernel wmec_cuda.forward_m_t where it takes the shape."""
     fwd = _pick(K, T, P, wdiff.device, wmec_cuda.forward_m_t, forward_m_batched)
-    per_block = wmec_cuda.state_bytes(K, T) if fwd is not forward_m_batched else 0
+    per_block = wmec_cuda.state_bytes(K, T, P) if fwd is not forward_m_batched else 0
     return _launch_batched(
         fwd, K, T, P, (wdiff, wbase, rankw, acost, die_prev, rc, dp0), per_block
     )
@@ -947,7 +944,7 @@ def solve_seeded_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, di
     )
     per_block = wdiff.shape[1] * T * (1 << K) * 4 * 2  # index and trans tables
     if solve is not solve_seeded_batched:
-        per_block += wmec_cuda.state_bytes(K, T)
+        per_block += wmec_cuda.state_bytes(K, T, P)
     return _launch_batched(
         solve, K, T, P, (wdiff, wbase, rankw, acost, die_prev, rc, dp0, die_next), per_block
     )
@@ -982,24 +979,31 @@ def _xla_segment_length(C: int) -> int:
     return max(64, min(2048, _next_pow2(int(np.sqrt(C)), lo=64)))
 
 
-def _single_range_segment(C: int, K: int, T: int, device: torch.device) -> Optional[int]:
+def _single_range_segment(
+    C: int, K: int, T: int, device: torch.device, P: Optional[int] = None
+) -> Optional[int]:
     """The segment length for a single-range instance of C columns that the
     unsegmented solve cannot hold, else None.  On CUDA that is exactly where
     the unsegmented launch would raise: its tables (C padded to a power of
     two) plus the kernel's state exceed the table budget, so every instance
     that fits keeps its route.  On the CPU, which has no budget, the
-    reference's rule: tables above 2 * SEGMENT_TABLE_BUDGET.  Past the T=1
-    cluster kernel's ceiling (wmec_cuda.MAX_K), where the reference runs its
-    XLA scan, the segments follow that route's rule on every device, about
-    sqrt(C) columns (_xla_segment_length), and on the CPU its threshold,
-    tables above SEGMENT_TABLE_BUDGET."""
+    reference's rule: tables above 2 * SEGMENT_TABLE_BUDGET.  Past the
+    cluster kernels' envelope (wmec_cuda.cluster_supported: T = 1 above
+    MAX_K, and the pedigree shapes past T = 4 at K 16, T = 16 at K 13 or P
+    4), where the reference runs its XLA scan, the segments follow that
+    route's rule on every device, about sqrt(C) columns
+    (_xla_segment_length), and on the CPU its threshold, tables above
+    SEGMENT_TABLE_BUDGET.  P defaults to a single sample's 2 and a
+    pedigree's 4."""
+    if P is None:
+        P = 2 if T == 1 else 4
     tables = _next_pow2(C) * _table_bytes_per_col(K, T)
     budget = _table_budget(device)
-    wide = T == 1 and K > wmec_cuda.MAX_K
+    wide = not wmec_cuda.cluster_supported(K, T, P)
     if budget is None:
         fits = tables <= (1 if wide else 2) * SEGMENT_TABLE_BUDGET
     else:
-        fits = tables + wmec_cuda.state_bytes(K, T) <= budget
+        fits = tables + wmec_cuda.state_bytes(K, T, P) <= budget
     if fits:
         return None
     return _xla_segment_length(C) if wide else _segment_length(K, T)
@@ -1019,7 +1023,7 @@ def solve_segmented_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, seg)
         # cost, jmin and key per block; at T = 1 the jmin plane is the one
         # zeros tensor that every checkpoint shares (solve_segmented)
         checkpoint = (2 if T == 1 else 2 * T + 1) * 4 * S
-        need = seg * _table_bytes_per_col(K, T) + wmec_cuda.state_bytes(K, T)
+        need = seg * _table_bytes_per_col(K, T) + wmec_cuda.state_bytes(K, T, P)
         need += (C // seg + 1) * checkpoint
         if B * need > budget:
             raise _over_budget(K, T, P, need, budget)
@@ -1303,7 +1307,7 @@ def run_dp(
     if result is not None:
         return result
 
-    seg = _single_range_segment(C, K, T, device)
+    seg = _single_range_segment(C, K, T, device, P)
     c_pad = _next_pow2(C) if seg is None else -(-C // seg) * seg
     arrays = to_device(stack_blocks([pad_block(packed, c_pad)]), device)
     if seg is None:

@@ -32,6 +32,15 @@ Replaces whatshap_tpu/ops/wmec_pallas.py:
   forward_carry_t launches its carry mode (forward_carry_pallas); each
   launch runs one thread-block cluster per block with the block's state in
   the cluster's shared memory (forward_t_layout);
+- forward_t_wide, forward_m_t_wide and forward_carry_t_wide launch
+  csrc/wmec_forward_t_wide.cu, the general-T modes with the block's T planes
+  in device memory (one cooperative launch, grid-wide barriers between a
+  column's passes), at T up to 256, P up to 8 and K up to MAX_K_WIDE: the
+  XLA scan the reference runs for pedigrees past its Pallas envelope
+  (whatshap_tpu/ops/wmec.py _forward_scan_impl, through solve_batched,
+  forward_m_batched, solve_seeded_batched and the segmented
+  solve_scan_segmented); forward_t, forward_m_t and forward_carry_t hand
+  them the shapes past the cluster kernel's envelope (cluster_supported);
 - backtrace_t launches csrc/wmec_backtrace_t.cu, the general-T walk of
   (index, transmission, preceding transmission) that replaces
   _make_backtrace_kernel_t, M walks per block over its tables
@@ -67,35 +76,58 @@ MAX_K = 17
 #: (csrc/wmec_forward_t1_wide.cu), which takes T = 1 above MAX_K: the
 #: reference CLI's ceiling (--internal-downsampling <= 23).
 MAX_K_WIDE = 23
-#: Largest K of the general-T kernels per transmission count T (P <= 4, as
-#: the reference's kernel): the forward state and tables grow with T * 2^K.
+#: Largest K of the general-T cluster kernel (csrc/wmec_forward_t.cu) per
+#: transmission count T (P <= 4, as the reference's kernel): its state and
+#: tables grow with T * 2^K.
 MAX_K_T = {4: 16, 16: 13}
-#: Founder partition counts the general-T kernels are built for.
+#: Founder partition counts the general-T cluster kernel is built for.
 PEDIGREE_P = (2, 4)
-ENVELOPE = f"T = 1, P = 2, K <= {MAX_K_WIDE}; " + "; ".join(
-    f"T = {t}, P in {PEDIGREE_P}, K <= {k}" for t, k in MAX_K_T.items()
+#: Transmission counts (4^trios, up to four trios) and founder partition
+#: counts (2 * founders, up to four founders) of the general-T kernel with
+#: its state in device memory (csrc/wmec_forward_t_wide.cu), at any K up to
+#: MAX_K_WIDE; the route gives it the shapes past the cluster kernel's.
+WIDE_T = (4, 16, 64, 256)
+WIDE_P = (2, 4, 6, 8)
+ENVELOPE = (
+    f"T = 1, P = 2, K <= {MAX_K_WIDE}; T in {WIDE_T}, P in {WIDE_P}, K <= {MAX_K_WIDE} "
+    "(the cluster kernels: T = 1 to K = " + f"{MAX_K}; "
+    + "; ".join(f"T = {t}, P in {PEDIGREE_P}, K <= {k}" for t, k in MAX_K_T.items()) + ")"
 )
 
 
 def kernel_supported(K: int, T: int, P: int) -> bool:
     """Shapes the CUDA kernels of this module take: one individual (T == 1,
     P == 2) with 1 <= K <= MAX_K_WIDE slots (the cluster kernel up to MAX_K,
-    the wide kernel above), or a pedigree of T = 4 or 16 transmission values
-    with P in PEDIGREE_P and K <= MAX_K_T[T]."""
+    the wide kernel above), or a pedigree of T in WIDE_T transmission values
+    with P in WIDE_P and 1 <= K <= MAX_K_WIDE (the cluster kernel where
+    cluster_supported, the wide kernel elsewhere)."""
     if T == 1:
         return P == 2 and 1 <= K <= MAX_K_WIDE
+    return T in WIDE_T and P in WIDE_P and 1 <= K <= MAX_K_WIDE
+
+
+def cluster_supported(K: int, T: int, P: int) -> bool:
+    """Shapes the thread-block cluster kernels take (the state on chip):
+    T = 1 up to MAX_K, T = 4 or 16 with P in PEDIGREE_P up to MAX_K_T[T].
+    Past them, within kernel_supported, run the wide kernels."""
+    if T == 1:
+        return P == 2 and 1 <= K <= MAX_K
     return T in MAX_K_T and P in PEDIGREE_P and 1 <= K <= MAX_K_T[T]
 
 
-def state_bytes(K: int, T: int = 1) -> int:
+def state_bytes(K: int, T: int = 1, P: int = 2) -> int:
     """Device memory a forward kernel needs per block beyond its tables.
     The cluster kernels keep the block's state in the shared memory of its
-    cluster (forward_t1_layout, forward_t_layout): nothing.  Above MAX_K at
-    T = 1 the wide kernel keeps it in device memory, in its final-state
-    outputs: the cost plane, which it updates in place, and the key plane,
-    8 * 2^K bytes a block (its scratch of 4 * (C + 1) bytes a block, the
-    columns' dying masks and passes, is left out)."""
-    return 8 << K if T == 1 and K > MAX_K else 0
+    cluster (forward_t1_layout, forward_t_layout): nothing.  The wide
+    kernels keep it in device memory: at T = 1 in its final-state outputs,
+    the cost plane, which it updates in place, and the key plane, 8 * 2^K
+    bytes a block; at T > 1 the T cost planes, the T jmin planes and the key
+    plane, (2T + 1) * 4 * 2^K bytes a block (the m-only mode keeps only the
+    cost planes).  The scratch of 4 * (C + 1) bytes a block, the columns'
+    dying masks and passes, is left out."""
+    if not kernel_supported(K, T, P) or cluster_supported(K, T, P):
+        return 0
+    return 8 << K if T == 1 else (2 * T + 1) * 4 << K
 
 
 #: Launches of the T=1 forward kernel above this many blocks take its wide
@@ -258,6 +290,9 @@ _SIGNATURES = {
     "wmec_forward_carry_t": [_P] * 12 + [_I] * 5 + [_P],
     "wmec_forward_m_t": [_P] * 7 + [_I] * 5 + [_P],
     "wmec_backtrace_t": [_P] * 7 + [_I] * 5 + [_P],
+    "wmec_forward_t_wide": [_P] * 16 + [_I] * 5 + [_P],
+    "wmec_forward_carry_t_wide": [_P] * 13 + [_I] * 5 + [_P],
+    "wmec_forward_m_t_wide": [_P] * 9 + [_I] * 5 + [_P],
     "geno_backward": [_P] * 8 + [_I] * 5 + [_P],
     "geno_forward": [_P] * 8 + [_I] * 5 + [_P],
 }
@@ -436,7 +471,7 @@ forward_carry_t1.launches = 0
 
 
 def _wide_scratch(B, C, dev):
-    """The wide kernel's scratch: the columns' dying masks (B, C) and the
+    """The wide kernels' scratch: the columns' dying masks (B, C) and the
     passes of each column (C,), int32, written by the kernel itself."""
     return torch.empty(B * C + C, dtype=torch.int32, device=dev)
 
@@ -639,13 +674,17 @@ def forward_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None, carry
     (B, 2^K)) i32 of a preceding segment, or (neither) zero.  Returns pidx
     and pjmin (B, C, T, 2^K), the projection index and transmission-argmin
     tables of every column, and the final state dp_last and jmin_last (B, T,
-    2^K) and key_last (B, 2^K), all int32.
+    2^K) and key_last (B, 2^K), all int32.  Past the cluster kernel's
+    envelope (cluster_supported) it hands CUDA tensors to forward_t_wide,
+    which counts that launch.
     """
     dev = _check_pedigree_inputs(
         "forward_t", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, carry
     )
     if dev.type == "cpu":
         return forward_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, carry)
+    if not cluster_supported(K, T, P):
+        return forward_t_wide(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, carry)
 
     B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
     cost0, jmin0, key0 = carry if carry is not None else (None, None, None)
@@ -684,7 +723,8 @@ def forward_carry_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
     jmin (B, T, 2^K), key (B, 2^K)) i32 required; writes no tables and
     returns the carry after the last column, (dp_last (B, T, 2^K), jmin_last
     (B, T, 2^K), key_last (B, 2^K)) i32, in new tensors (a checkpoint is
-    read again)."""
+    read again).  Past the cluster kernel's envelope it hands CUDA tensors
+    to forward_carry_t_wide, which counts that launch."""
     if carry is None:
         raise ValueError("forward_carry_t: the carry mode needs a carry (cost, jmin, key)")
     dev = _check_pedigree_inputs(
@@ -692,6 +732,8 @@ def forward_carry_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
     )
     if dev.type == "cpu":
         return forward_carry_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+    if not cluster_supported(K, T, P):
+        return forward_carry_t_wide(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
 
     B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
     dp_last = torch.empty((B, T, S), dtype=torch.int32, device=dev)
@@ -726,12 +768,16 @@ def forward_m_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
     inputs as forward_t with the seed dp0 (B, T) i32 required; returns only
     m (B, T) i32, the final cost of each transmission plane minimised over
     the bipartitions.  No tables, no tie key and no transmission argmin are
-    kept (fold winners have equal cost, so m does not depend on them)."""
+    kept (fold winners have equal cost, so m does not depend on them).  Past
+    the cluster kernel's envelope it hands CUDA tensors to forward_m_t_wide,
+    which counts that launch."""
     if dp0 is None:
         raise ValueError("forward_m_t: the m-only mode is seeded: dp0 (B, T) is required")
     dev = _check_pedigree_inputs("forward_m_t", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
     if dev.type == "cpu":
         return forward_m_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
+    if not cluster_supported(K, T, P):
+        return forward_m_t_wide(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
 
     B, C = wdiff.shape[0], wdiff.shape[1]
     m = torch.empty((B, T), dtype=torch.int32, device=dev)
@@ -748,6 +794,108 @@ def forward_m_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
 
 
 forward_m_t.launches = 0
+
+
+def forward_t_wide(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=None, carry=None):
+    """forward_t on csrc/wmec_forward_t_wide.cu, the general-T forward scan
+    with tables and the block's T planes in device memory, at any shape of
+    kernel_supported with T > 1 (the route gives it the shapes past the
+    cluster kernel's).  Inputs and outputs as forward_t; its plain version
+    on CPU tensors is forward_t_plain."""
+    dev = _check_pedigree_inputs(
+        "forward_t_wide", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, carry
+    )
+    if dev.type == "cpu":
+        return forward_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, carry)
+
+    B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
+    cost0, jmin0, key0 = carry if carry is not None else (None, None, None)
+    pidx = torch.empty((B, C, T, S), dtype=torch.int32, device=dev)
+    pjmin = torch.empty_like(pidx)
+    dp_last = torch.empty((B, T, S), dtype=torch.int32, device=dev)
+    jmin_last = torch.empty_like(dp_last)
+    key_last = torch.empty((B, S), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(
+            "wmec_forward_t_wide",
+            wdiff.data_ptr(), wbase.data_ptr(), rankw.data_ptr(), acost.data_ptr(),
+            die_prev.data_ptr(), rc.data_ptr(), _ptr(dp0), _ptr(cost0), _ptr(jmin0), _ptr(key0),
+            pidx.data_ptr(), pjmin.data_ptr(), dp_last.data_ptr(), jmin_last.data_ptr(),
+            key_last.data_ptr(), _wide_scratch(B, C, dev).data_ptr(),
+            B, C, K, T, P,
+        )
+    forward_t_wide.launches += 1
+    return pidx, pjmin, dp_last, jmin_last, key_last
+
+
+forward_t_wide.launches = 0
+
+
+def forward_carry_t_wide(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry):
+    """forward_carry_t on csrc/wmec_forward_t_wide.cu (its carry mode), at
+    any shape of kernel_supported with T > 1.  Inputs and outputs as
+    forward_carry_t; its plain version on CPU tensors is
+    forward_carry_t_plain."""
+    if carry is None:
+        raise ValueError("forward_carry_t_wide: the carry mode needs a carry (cost, jmin, key)")
+    dev = _check_pedigree_inputs(
+        "forward_carry_t_wide", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, None, carry
+    )
+    if dev.type == "cpu":
+        return forward_carry_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+
+    B, C, S = wdiff.shape[0], wdiff.shape[1], 1 << K
+    dp_last = torch.empty((B, T, S), dtype=torch.int32, device=dev)
+    jmin_last = torch.empty_like(dp_last)
+    key_last = torch.empty((B, S), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(
+            "wmec_forward_t_wide",
+            wdiff.data_ptr(), wbase.data_ptr(), rankw.data_ptr(), acost.data_ptr(),
+            die_prev.data_ptr(), rc.data_ptr(),
+            carry[0].data_ptr(), carry[1].data_ptr(), carry[2].data_ptr(),
+            dp_last.data_ptr(), jmin_last.data_ptr(), key_last.data_ptr(),
+            _wide_scratch(B, C, dev).data_ptr(),
+            B, C, K, T, P,
+            fn_name="wmec_forward_carry_t_wide",
+        )
+    forward_carry_t_wide.launches += 1
+    return dp_last, jmin_last, key_last
+
+
+forward_carry_t_wide.launches = 0
+
+
+def forward_m_t_wide(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
+    """forward_m_t on csrc/wmec_forward_t_wide.cu (its m-only mode), at any
+    shape of kernel_supported with T > 1; the T cost planes of a block are
+    scratch it allocates.  Inputs and output as forward_m_t; its plain
+    version on CPU tensors is forward_m_t_plain."""
+    if dp0 is None:
+        raise ValueError("forward_m_t_wide: the m-only mode is seeded: dp0 (B, T) is required")
+    dev = _check_pedigree_inputs(
+        "forward_m_t_wide", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0
+    )
+    if dev.type == "cpu":
+        return forward_m_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
+
+    B, C = wdiff.shape[0], wdiff.shape[1]
+    m = torch.empty((B, T), dtype=torch.int32, device=dev)
+    planes = torch.empty((B, T, 1 << K), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(
+            "wmec_forward_t_wide",
+            wdiff.data_ptr(), wbase.data_ptr(), acost.data_ptr(), die_prev.data_ptr(),
+            rc.data_ptr(), dp0.data_ptr(), m.data_ptr(), planes.data_ptr(),
+            _wide_scratch(B, C, dev).data_ptr(),
+            B, C, K, T, P,
+            fn_name="wmec_forward_m_t_wide",
+        )
+    forward_m_t_wide.launches += 1
+    return m
+
+
+forward_m_t_wide.launches = 0
 
 
 def backtrace_t_plain(init, pidx, pjmin, die=None):
@@ -783,7 +931,7 @@ def backtrace_t(init, pidx, pjmin, die):
         raise ValueError("backtrace_t: pidx must be (B, C, T, 2^K)")
     T, S = pidx.shape[2], pidx.shape[3]
     K = S.bit_length() - 1
-    if S & (S - 1) or not 1 <= K <= MAX_K_T.get(T, 0):
+    if S & (S - 1) or T not in WIDE_T or not 1 <= K <= MAX_K_WIDE:
         raise ValueError(f"backtrace_t: unsupported table shape T={T}, 2^K={S} ({ENVELOPE})")
     M = init.shape[1] if init.dim() == 3 else 0
     _check(init, "init", torch.int32, (B, M, 3))
@@ -912,8 +1060,9 @@ def _walk(state, pidx, pjmin, die_prev):
 def solve_segmented_cuda(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, seg):
     """The segmented solve on the kernels, the mirror of
     wmec_pallas.solve_segmented: the host loop wmec.solve_segmented over the
-    carry kernels (kernel row 9), the tables kernels from a carry (row 10)
-    and the backtraces (rows 2 and 5).  On CUDA tensors it launches only
+    carry kernels (kernel row 9), the tables kernels from a carry (row 10),
+    past the cluster kernels' envelope their wide counterparts (rows 13 and
+    14), and the backtraces (rows 2 and 5).  On CUDA tensors it launches only
     kernels and never waits for the device.  Returns (costs (B,), index
     paths (B, C), transmission paths (B, C)), int32, matching
     solve_batched_cuda."""
