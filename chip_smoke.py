@@ -537,8 +537,9 @@ def plain_solve_seeded(K, T, P, *arrays):
 def plain_forward_m(K, T, P, *arrays):
     """Pass 1 of the pedigree route with the torch mirror, chunked so that
     its state and temporaries fit (at T = 64 a block of the seam pass holds
-    T x T min-plus terms of every state)."""
-    per_block = (T * 4 << K) + _mirror_bytes(K, T, P)
+    T x T min-plus terms of every state, for each of its R seeds)."""
+    R = arrays[-1].shape[1] if arrays[-1].dim() == 3 else 1
+    per_block = R * ((T * 4 << K) + _mirror_bytes(K, T, P))
     return wmec._launch_batched(wmec.forward_m_batched, K, T, P, arrays, per_block)
 
 
@@ -759,10 +760,25 @@ def compare_pedigree_kernels(device, shapes=((4, 3), (4, 4), (4, 7), (4, 9), (4,
             torch.cuda.synchronize()
             e_fwd = max(e_fwd, _max_err(zip(kern, plain)))
             del plain
+        # m-only from dp0, and on row 14 grouped: R = 2 seeds a block (B, R,
+        # T), where the plain version's T x T min-plus of every state stays
+        # small (the largest shapes hold the grouped mode at
+        # phase-cli-fam5's bucket and on the tie-heavy buckets; the cluster
+        # kernel takes each seed as a block, which the pedigree cells'
+        # routes run)
         m = wmec_cuda.forward_m_t(K, T, P, *arrays, dp0)
         m_plain = wmec_cuda.forward_m_t_plain(K, T, P, *arrays, dp0)
         torch.cuda.synchronize()
         e_m = _max_err([(m, m_plain)])
+        wide = not wmec_cuda.cluster_supported(K, T, P)
+        seeds_r = (1, 2) if wide and T << K <= 1 << 20 else (1,)
+        if len(seeds_r) > 1:
+            grouped = torch.stack([dp0, dp0.roll(1, dims=0)], dim=1).contiguous()
+            m = wmec_cuda.forward_m_t(K, T, P, *arrays, grouped)
+            m_plain = wmec_cuda.forward_m_t_plain(K, T, P, *arrays, grouped)
+            torch.cuda.synchronize()
+            e_m = max(e_m, _max_err([(m, m_plain)]))
+        del m_plain
         die_next = torch.rand((n_blocks, K), generator=torch.Generator().manual_seed(K)) < 0.7
         inits = _walk_inits(K, T, kern, die_next.to(device))
         die = wmec_cuda.pack_die(arrays[4])
@@ -775,7 +791,8 @@ def compare_pedigree_kernels(device, shapes=((4, 3), (4, 4), (4, 7), (4, 9), (4,
         del kern
         fwd, m_name = _t_name(K, T, P, "wmec_forward_t"), _t_name(K, T, P, "wmec_forward_m_t")
         print(f"kernels T={T:2d} K={K:2d} P={P} B={n_blocks} C={n_cols}: {fwd} (tables, unseeded and "
-              f"seeded) max|err|={e_fwd} {m_name} max|err|={e_m} backtrace (M=1, M={T + 1}) "
+              f"seeded) max|err|={e_fwd} {m_name} (R = {', '.join(map(str, seeds_r))}) max|err|={e_m} "
+              f"backtrace (M=1, M={T + 1}) "
               f"max|err|={e_bt}", flush=True)
         _require(e_fwd == 0 and e_m == 0 and e_bt == 0, f"general-T kernels bit-equal to plain at T={T}, K={K}")
         for name, e in ((fwd, e_fwd), (m_name, e_m), ("wmec_backtrace_t", e_bt)):
@@ -886,14 +903,19 @@ def compare_tie_kernels(device, shapes=((4, 1, 4), (4, 4, 4), (4, 5, 4), (4, 9, 
     for T, K, P in shapes:
         arrays = tie_bucket(n_blocks, n_cols, K, T, P, 6000 + 100 * T + 10 * K + P, device)
         dp0 = torch.from_numpy(np.random.RandomState(K).randint(0, 2, (n_blocks, T)).astype(np.int32)).to(device)
+        # the m-only mode from dp0, and on row 14 also with R = 2 seeds a block
+        seeds = [dp0]
+        if not wmec_cuda.cluster_supported(K, T, P):
+            seeds.append(torch.stack([dp0, 1 - dp0], dim=1).contiguous())
         head = [a[:, :head_cols].contiguous() for a in arrays]
         tail = [a[:, head_cols:].contiguous() for a in arrays]
         carry = _carry_after(K, T, P, head)
         runs = {
             "wmec_forward_t": [(lambda s=s: wmec_cuda.forward_t(K, T, P, *arrays, s),
                                 lambda s=s: wmec_cuda.forward_t_plain(K, T, P, *arrays, s)) for s in (None, dp0)],
-            "wmec_forward_m_t": [(lambda: [wmec_cuda.forward_m_t(K, T, P, *arrays, dp0)],
-                                  lambda: [wmec_cuda.forward_m_t_plain(K, T, P, *arrays, dp0)])],
+            "wmec_forward_m_t": [(lambda s=s: [wmec_cuda.forward_m_t(K, T, P, *arrays, s)],
+                                  lambda s=s: [wmec_cuda.forward_m_t_plain(K, T, P, *arrays, s)])
+                                 for s in seeds],
             "wmec_forward_carry_t": [(lambda: wmec_cuda.forward_carry_t(K, T, P, *tail, carry),
                                       lambda: wmec_cuda.forward_carry_t_plain(K, T, P, *tail, carry))],
             "wmec_forward_t:carry_in": [(lambda: wmec_cuda.forward_t(K, T, P, *tail, carry=carry),
@@ -1005,8 +1027,9 @@ def compare_wide_t_cluster(device, shapes=((4, 7), (4, 12), (4, 16), (16, 9), (1
             pairs = {
                 "wmec_forward_t_wide": [(wmec_cuda.forward_t_wide(K, T, P, *arrays, s), wmec_cuda.forward_t(K, T, P, *arrays, s))
                                         for s in (None, dp0)],
-                "wmec_forward_m_t_wide": [([wmec_cuda.forward_m_t_wide(K, T, P, *arrays, dp0)],
-                                           [wmec_cuda.forward_m_t(K, T, P, *arrays, dp0)])],
+                "wmec_forward_m_t_wide": [([wmec_cuda.forward_m_t_wide(K, T, P, *arrays, s)],
+                                           [wmec_cuda.forward_m_t(K, T, P, *arrays, s)])
+                                          for s in (dp0, torch.stack([dp0, dp0.flip(0)], dim=1).contiguous())],
                 "wmec_forward_carry_t_wide": [(wmec_cuda.forward_carry_t_wide(K, T, P, *tail, carry),
                                                wmec_cuda.forward_carry_t(K, T, P, *tail, carry))],
                 "wmec_forward_t_wide:carry_in": [(wmec_cuda.forward_t_wide(K, T, P, *tail, carry=carry),
@@ -1227,21 +1250,23 @@ def _bound(in_bytes, out_bytes, ops):
     return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def _general_t_ops(K, T, P, die_prev, tables=True):
+def _general_t_ops(K, T, P, die_prev, tables=True, seeds=1):
     """int32 operations a general-T forward function needs over a bucket
     (die_prev (B, C, K)), as the bounds count them.  Inside the cluster
     kernel's envelope (rows 3-10) per state and column 2TP (the cost sums,
     in Gray order one add each), T^2 (the min-plus) and with tables one for
     the key.  Past it (row 14) what this run's data needs: a compare per
-    state and plane of each pair a dying slot folds, and per state and
-    column T log2 T compares of the min-plus's distance transform and the
-    column cost's T (2P + 2^P) (its sums and the assignments)."""
+    state and plane of each pair a dying slot folds and per state and
+    column T log2 T compares of the min-plus's distance transform, for each
+    of a block's `seeds` scans (the m-only mode's R), and once per block
+    the column cost's T (2P + 2^P) (its sums and the assignments), which
+    does not depend on the seed."""
     B, C = die_prev.shape[0], die_prev.shape[1]
     S = 1 << K
     if wmec_cuda.cluster_supported(K, T, P):
-        return (2 * T * P + T * T + (1 if tables else 0)) * B * C * S
+        return (2 * T * P + T * T + (1 if tables else 0)) * B * C * S * seeds
     folds = int(die_prev.sum()) * T * S // 2
-    return folds + B * C * S * T * ((T.bit_length() - 1) + 2 * P + (1 << P))
+    return seeds * (folds + B * C * S * T * (T.bit_length() - 1)) + B * C * S * T * (2 * P + (1 << P))
 
 
 def time_pedigree_kernels(packed, device="cuda", label="trio", max_blocks=None, plain_blocks=None):
@@ -1266,26 +1291,32 @@ def time_pedigree_kernels(packed, device="cuda", label="trio", max_blocks=None, 
     R = len(reps)
     unit = np.full((R, T), wmec.INF, dtype=np.int32)
     unit[np.arange(R), reps] = 0
-    seeds = torch.from_numpy(unit).to(device).repeat(B, 1)
-    rep = tuple(a.repeat_interleave(R, dim=0) for a in arrays)
+    seeds = torch.from_numpy(unit).to(device).expand(B, R, T).contiguous()
     names = {n: _t_name(K, T, P, n) for n in ("wmec_forward_m_t", "wmec_forward_t", "wmec_forward_carry_t",
                                               "wmec_forward_t:carry_in")}
     out = {}
 
-    # pass 1: m-only
-    m_ms = _time(lambda: wmec_cuda.forward_m_t(K, T, P, *rep, seeds), reps=3)
-    m = wmec_cuda.forward_m_t(K, T, P, *rep, seeds)
-    m_plain, m_plain_ms = _plain_ms(lambda: plain_forward_m(K, T, P, *(a[: nb * R] for a in rep), seeds[: nb * R]))
-    wdiff, wbase, rankw, acost, die, rc = rep
+    # pass 1: m-only, the R coset seeds of each block; the cluster kernel
+    # takes each seed as a block (timed on the repeated blocks), row 14 the
+    # blocks once with their seeds
+    if wmec_cuda.cluster_supported(K, T, P):
+        ins, sd = tuple(a.repeat_interleave(R, dim=0) for a in arrays), seeds.reshape(B * R, T)
+    else:
+        ins, sd = arrays, seeds
+    m_ms = _time(lambda: wmec_cuda.forward_m_t(K, T, P, *ins, sd), reps=3)
+    m = wmec_cuda.forward_m_t(K, T, P, *arrays, seeds)
+    m_plain, m_plain_ms = _plain_ms(lambda: plain_forward_m(K, T, P, *(a[:nb] for a in arrays), seeds[:nb]))
+    wdiff, wbase, rankw, acost, die, rc = ins
     out[names["wmec_forward_m_t"]] = dict(
-        ms=m_ms, plain_ms=m_plain_ms, max_abs_err=_max_err([(m[: nb * R], m_plain)]),
+        ms=m_ms, plain_ms=m_plain_ms, max_abs_err=_max_err([(m[:nb], m_plain)]),
         **dict(zip(("bound_ms", "bound_by"), _bound(
-            _nbytes(wdiff, wbase, acost, die, rc, seeds), _nbytes(m), _general_t_ops(K, T, P, die, tables=False)))),
+            _nbytes(wdiff, wbase, acost, die, rc, sd), _nbytes(m),
+            _general_t_ops(K, T, P, arrays[4], tables=False, seeds=R)))),
     )
 
     # pass 2: seeded, with tables (the seeds: each block's folded minima)
-    dp0 = m.reshape(B, R, T)[:, 0].contiguous()
-    del rep, m_plain
+    dp0 = m[:, 0].contiguous()
+    del ins, m_plain
     fwd_ms = _time(lambda: wmec_cuda.forward_t(K, T, P, *arrays, dp0), reps=2)
     kern = wmec_cuda.forward_t(K, T, P, *arrays, dp0)
     plain, fwd_plain_ms = _plain_ms(
@@ -1303,7 +1334,8 @@ def time_pedigree_kernels(packed, device="cuda", label="trio", max_blocks=None, 
             note = _layout(K, T, P, name == "wmec_forward_t", r["ms"], C, B * (R if "_m_" in name else 1))
         else:
             note = (f"[row 14, the T planes in device memory; {r['ms'] * 1e3 / C:.2f} us per column of "
-                    f"{B * (R if '_m_' in name else 1)} blocks; {100 * r['bound_ms'] / r['ms']:.2f} % of the bound]")
+                    f"{B} blocks" + (f" x {R} seeds" if "_m_" in name else "")
+                    + f"; {100 * r['bound_ms'] / r['ms']:.2f} % of the bound]")
         print(f"{label} {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms on {nb} block(s)), bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']} {note}", flush=True)
 

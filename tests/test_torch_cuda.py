@@ -588,6 +588,56 @@ def test_wide_t_kernel_breaks_ties_as_plain(cuda_device, T, K, P):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,K,P", [(4, 18, 2), (16, 14, 6), (64, 12, 4), (64, 9, 8), (256, 12, 2), (256, 6, 8)])
+def test_wide_t_kernel_pre_passes_match_plain(cuda_device, T, K, P):
+    """Row 14 where more slots die in a column than its tile holds (4096 / T
+    states: 10 tile bits at T = 4, 8 at 16, 6 at 64, 4 at 256): two thirds
+    of the slots die before each column, so the kernel folds the lowest in
+    pre-passes (two at T = 256, K = 12) before the column's tile pass;
+    every mode on a tie-heavy bucket equals the plain versions."""
+    ta = _tie_bucket(K, T, P, cuda_device, n_blocks=2, n_cols=12, seed=90 * T + K + P)
+    die = torch.from_numpy(np.random.RandomState(K * T).rand(2, 12, K) < 0.67).to(cuda_device)
+    lb = (4096 // T).bit_length() - 1
+    assert int(die.sum(dim=2).max()) > lb  # a pre-pass in some column
+    ta = [*ta[:4], die, ta[5]]
+    rng = np.random.RandomState(K + T)
+    dp0_np = rng.randint(0, 3, (2, T)).astype(np.int32)
+    dp0_np[rng.rand(2, T) < 0.3] = wmec.INF
+    dp0 = torch.from_numpy(dp0_np).to(cuda_device)
+    pairs = _t_pairs(WIDE_T, PLAIN_T, K, T, P, ta, dp0, 4)
+    torch.cuda.synchronize()
+    for kern, plain in pairs:
+        for x, y in zip(kern, plain):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 2, 16])
+@pytest.mark.parametrize("T,K,P", [(4, 17, 4), (16, 9, 6), (64, 8, 4), (64, 6, 8), (256, 5, 2)])
+def test_wide_t_grouped_m_matches_plain(cuda_device, T, K, P, R):
+    """Row 14's m-only mode with R seeds a block (B, R, T), one launch over
+    the blocks' inputs, against the plain version (each seed a copy of its
+    block) on a tie-heavy bucket whose columns reach the pre-passes, from
+    seeds with INF entries; one launch counted, of the wide kernel."""
+    B = 2
+    ta = _tie_bucket(K, T, P, cuda_device, n_blocks=B, n_cols=10, seed=80 * T + K + P + R)
+    die = torch.from_numpy(np.random.RandomState(K + R).rand(B, 10, K) < 0.5).to(cuda_device)
+    ta = [*ta[:4], die, ta[5]]
+    rng = np.random.RandomState(T + R)
+    seeds = rng.randint(0, 5, (B, R, T)).astype(np.int32)
+    seeds[rng.rand(B, R, T) < 0.4] = wmec.INF
+    seeds[:, 0] = wmec.INF
+    seeds[:, 0, T // 2] = 0
+    dp0 = torch.from_numpy(seeds).to(cuda_device)
+    before = [f.launches for f in WIDE_T + CLUSTER_T]
+    m = wmec_cuda.forward_m_t(K, T, P, *ta, dp0)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(WIDE_T + CLUSTER_T, before)] == [0, 1, 0, 0, 0, 0]
+    assert m.shape == (B, R, T) and torch.equal(m, wmec_cuda.forward_m_t_plain(K, T, P, *ta, dp0))
+    assert torch.equal(m[:, :1], wmec_cuda.forward_m_t_wide(K, T, P, *ta, dp0[:, :1].contiguous()))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T,K", [(4, 1), (4, 9), (4, 12), (4, 16), (16, 5), (16, 13)])
 def test_wide_t_kernel_matches_cluster_kernel(cuda_device, T, K):
     """Inside the cluster kernel's envelope (kernel rows 3, 4, 6, 7, 9, 10)

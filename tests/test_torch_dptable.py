@@ -18,6 +18,16 @@ from whatshap_torch.ops import wmec
 from whatshap_torch.parallel import blocks
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The torch mirror's column loops are many small ops, which run faster
+    on one thread than on threads that the test workers of a run share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _read_specs(seed, n_blocks=3, n_cols=20, coverage=5, gap=1000, max_q=40):
     """Reads of a chromosome made of `n_blocks` read-connected blocks:
     [(name, [(position, allele, quality), ...])], from a numpy seed."""

@@ -16,6 +16,8 @@ wide kernel itself is held against these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,17 @@ from whatshap_tpu.ops import wmec as ref_wmec
 import whatshap_torch.core as core
 from whatshap_torch.ops import wmec, wmec_cuda
 from whatshap_torch.parallel import blocks
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The torch mirror's column loops are many small ops, which run faster
+    on one thread than on threads that the test workers of a run share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 INF = wmec.INF
 DOUBLE_TRIO = (5, ((0, 1, 2), (2, 3, 4)))  # three founders: P = 6, T = 16
@@ -141,6 +154,73 @@ def test_wide_forward_m_matches_reference(K, T, P, B, C, ties):
     ref = ref_wmec.forward_m_batched(K, T, P, *_j(arrays), jnp.asarray(dp0))
     for fwd in (wmec_cuda.forward_m_t, wmec.forward_m_auto):
         assert _eq(fwd(K, T, P, *_t(arrays), torch.from_numpy(dp0)), ref), fwd.__name__
+
+
+# (K, T, P, B, C) of the grouped m-only mode: a trio and a quartet past the
+# cluster kernel by their founders (P = 6), three trios
+GROUPED_SHAPES = {4: (4, 4, 6, 2, 3), 16: (3, 16, 6, 2, 2), 64: (3, 64, 4, 2, 2)}
+GROUPED_R = 16
+
+
+@functools.lru_cache(maxsize=None)
+def _grouped_case(T):
+    """A bucket, GROUPED_R seeds a block (INF entries, unit rows) and the
+    reference's forward_m_batched over the bucket repeated once per seed,
+    m (B, GROUPED_R, T)."""
+    K, T, P, B, C = GROUPED_SHAPES[T]
+    arrays = _bucket(K, T, P, B, C, seed=500 + T, ties=T != 16)
+    seeds = _seeds(B * GROUPED_R, T, seed=T).reshape(B, GROUPED_R, T)
+    seeds[:, 1] = INF
+    seeds[:, 1, T - 1] = 0
+    rep = [np.repeat(a, GROUPED_R, axis=0) for a in arrays]
+    ref = np.asarray(ref_wmec.forward_m_batched(K, T, P, *_j(rep), jnp.asarray(seeds.reshape(-1, T))))
+    return (K, T, P), arrays, seeds, ref.reshape(B, GROUPED_R, T)
+
+
+@pytest.mark.parametrize("R", [1, 2, GROUPED_R])
+@pytest.mark.parametrize("T", sorted(GROUPED_SHAPES))
+def test_grouped_forward_m_matches_reference(T, R):
+    """Pass 1's grouped m-only mode, R seeds a block over the block's inputs
+    (seeds (B, R, T), m (B, R, T)): the wrappers' plain versions and
+    forward_m_auto against the reference's forward_m_batched on the inputs
+    repeated once per seed and the same seeds, bit for bit."""
+    (K, T, P), arrays, seeds, ref = _grouped_case(T)
+    assert _past_cluster(K, T, P)
+    dp0 = torch.from_numpy(np.ascontiguousarray(seeds[:, :R]))
+    for fwd in (wmec_cuda.forward_m_t_plain, wmec_cuda.forward_m_t, wmec_cuda.forward_m_t_wide, wmec.forward_m_auto):
+        assert _eq(fwd(K, T, P, *_t(arrays), dp0), ref[:, :R]), fwd.__name__
+
+
+def test_pedigree_route_runs_pass_1_grouped(monkeypatch):
+    """run_dp_batched_pedigree hands pass 1 each bucket's blocks once with
+    their R coset seeds (B, R, T), not the blocks repeated R times, and its
+    m (B, R, T) equals the reference's forward_m_batched on the repeated
+    blocks; the route's result equals the one with the mirror's
+    forward_m_batched in pass 1."""
+    seen = []
+
+    def spy(K, T, P, *arrays):
+        m = wmec.forward_m_auto(K, T, P, *arrays)
+        seen.append((K, T, P, [a.numpy() for a in arrays], m.numpy()))
+        return m
+
+    rs, recomb, positions, ped = _family_instance(core, FAMILY5, 6, 1, seed=5)
+    packed = core.PedigreeDPTable(rs, recomb, ped, False, positions, device="cpu")._packed
+    assert len(wmec.connected_column_ranges(packed)) > 1
+    res = wmec.run_dp_batched_pedigree(packed, torch.device("cpu"), forward_m=spy)
+    mirror = wmec.run_dp_batched_pedigree(packed, torch.device("cpu"), forward_m=wmec.forward_m_batched)
+    assert res.optimal_cost == mirror.optimal_cost
+    assert np.array_equal(res.index_path, mirror.index_path) and np.array_equal(res.trans_path, mirror.trans_path)
+    _rep_of, reps = wmec.coset_representatives(packed.T, packed.t_sym_masks)
+    R = len(reps)
+    assert R == 16 and seen
+    for K, T, P, arrays, m in seen:
+        *inputs, seeds = arrays
+        B = inputs[0].shape[0]
+        assert seeds.shape == (B, R, T) and m.shape == (B, R, T)
+        rep = [np.repeat(a, R, axis=0) for a in inputs]
+        ref = ref_wmec.forward_m_batched(K, T, P, *_j(rep), jnp.asarray(seeds.reshape(B * R, T)))
+        assert _eq(m.reshape(B * R, T), ref)
 
 
 @pytest.mark.parametrize("K,T,P,B,C,ties", SEEDED_SHAPES)
@@ -323,7 +403,7 @@ def test_wide_t_budgets_count_the_state_planes(monkeypatch):
     """The route's three pedigree solvers chunk their launches under the
     table budget counting the wide kernel's planes beside the tables: the
     batched and seeded solves' index and transmission tables plus 2T + 1
-    planes a block, pass 1's planes alone."""
+    planes a block, pass 1's T cost planes for each of a block's seeds."""
     K, T, P, B, C = 3, 64, 4, 2, 3
     arrays = _t(_bucket(K, T, P, B, C, seed=13, ties=True))
     seen = []
@@ -332,10 +412,11 @@ def test_wide_t_budgets_count_the_state_planes(monkeypatch):
     wmec.solve_batched_auto(K, T, P, *arrays)
     dp0 = torch.from_numpy(_seeds(B, T, seed=3))
     wmec.forward_m_auto(K, T, P, *arrays, dp0)
+    wmec.forward_m_auto(K, T, P, *arrays, dp0[:, None].expand(B, 3, T).contiguous())
     wmec.solve_seeded_auto(K, T, P, *arrays, dp0, torch.ones((B, K), dtype=torch.bool))
     state = (2 * T + 1) * 4 << K
     tables = C * T * 8 << K
-    assert seen == [tables + state, state, tables + state]
+    assert seen == [tables + state, T * 4 << K, 3 * T * 4 << K, tables + state]
 
 
 def test_wide_t_segment_rule_follows_the_xla_route(monkeypatch):

@@ -27,6 +27,17 @@ from whatshap_tpu.testhelpers import canonic_index_to_biallelic_gt
 from whatshap_torch.ops import wmec, wmec_cuda
 from whatshap_torch.parallel import blocks
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The torch mirror's column loops are many small ops, which run faster
+    on one thread than on threads that the test workers of a run share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -415,11 +415,6 @@ def pack_problem(
 # ---------------------------------------------------------------------------
 
 
-def _assign_bits(P: int) -> np.ndarray:
-    idx = np.arange(1 << P, dtype=np.uint32)
-    return ((idx[:, None] >> np.arange(P)[None, :]) & 1).astype(np.int32)
-
-
 def _popcount_matrix(T: int) -> np.ndarray:
     i = np.arange(T)
     x = i[:, None] ^ i[None, :]
@@ -475,7 +470,7 @@ def _fold_dying(K: int, T: int, die_c, cost, key_vec, jmin=None, bits=None):
     return cost, key, idx, jmin
 
 
-def _col_cost(bits, abits, wdiff_c, wbase_c, acost_c, T: int, P: int):
+def _col_cost(bits, wdiff_c, wbase_c, acost_c, T: int, P: int):
     """Column cost of every bipartition, min over the 2^P allele assignments:
     (B, S, T) int32.  f = bits @ wdiff is taken in float64, which is exact for
     the integer weights (the reference's f32 is exact below 2^24)."""
@@ -484,12 +479,17 @@ def _col_cost(bits, abits, wdiff_c, wbase_c, acost_c, T: int, P: int):
     cp = f.to(torch.int32).reshape(B, S, T, P, 2) + wbase_c[:, None]
     s0 = cp[..., 0].sum(dim=-1, dtype=torch.int32)  # (B, S, T)
     d = cp[..., 1] - cp[..., 0]  # (B, S, T, P)
-    # per-assignment partition cost, exact int32 (P is tiny: unrolled)
-    pa = torch.zeros((B, S, T, 1 << P), dtype=torch.int32, device=bits.device)
-    for p in range(P):
-        pa = pa + torch.where(abits[:, p] == 1, d[..., p : p + 1], 0)
-    total = torch.clamp(s0[..., None] + pa + acost_c[:, None], max=INF)
-    return total.amin(dim=-1)
+    # min over the assignments x of pa[x] + acost[x], pa[x] the sum of d[p]
+    # over the bits p of x (exact int32), the x in Gray order so that each
+    # pa takes one add; min(s0 + pa + acost, INF) is min(s0 + its minimum, INF)
+    ac = acost_c[:, None]  # (B, 1, T, 2^P)
+    pa = torch.zeros_like(s0)
+    best = ac[..., 0] + pa
+    for g in range(1, 1 << P):
+        p, x = (g & -g).bit_length() - 1, g ^ (g >> 1)
+        pa = pa + d[..., p] if (x >> p) & 1 else pa - d[..., p]
+        best = torch.minimum(best, pa + ac[..., x])
+    return torch.clamp(s0 + best, max=INF)
 
 
 def forward_scan(
@@ -519,7 +519,9 @@ def forward_scan(
       table outputs None: the checkpoint pass of the segmented solve;
     - "m": the m-only mode of the seam pass: no tables, and neither the tie
       key nor jmin is tracked (key_last and jmin_last come back zero); fold
-      winners have equal cost, so dp_last is the same.
+      winners have equal cost, so dp_last is the same.  Here dp0 may also be
+      (B, R, T): R scans a block, rows b * R + r of dp_last (B * R, S, T),
+      sharing the block's column cost.
     """
     if dp0 is not None and carry0 is not None:
         raise ValueError("forward_scan: a seed (dp0) and a carry (carry0) are exclusive")
@@ -531,7 +533,6 @@ def forward_scan(
     dev = wdiff.device
     idx = torch.arange(S, dtype=torch.int64, device=dev)
     bits = ((idx[:, None] >> torch.arange(K, device=dev)[None, :]) & 1).to(torch.float64)
-    abits = torch.as_tensor(_assign_bits(P), device=dev)
     pcmat_np = _popcount_matrix(T)
     max_pc = max(int(pcmat_np.max()), 1)
     # clamp rc so pcmat * rc cannot overflow int32 (pcmat max is static)
@@ -544,6 +545,16 @@ def forward_scan(
     # slots that die before each column in at least one block: folding any
     # other bit is an identity, so the Python loop skips it
     die_any = die_prev.any(dim=0).cpu().numpy()
+    R = 1
+    if dp0 is not None and dp0.dim() == 3:
+        if track:
+            raise ValueError("forward_scan: R seeds a block (dp0 (B, R, T)) only in the m-only mode")
+        # each scan takes its block's fold and recombination; the column cost
+        # is the block's
+        R = dp0.shape[1]
+        die_prev = die_prev.repeat_interleave(R, dim=0)
+        recomb = recomb.repeat_interleave(R, dim=0)
+        dp0 = dp0.reshape(B * R, T)
 
     jmin = None
     if carry0 is not None:
@@ -555,10 +566,10 @@ def forward_scan(
         if dp0 is None:
             dp = torch.zeros((B, S, T), dtype=torch.int32, device=dev)
         else:
-            dp = dp0.to(torch.int32)[:, None, :].expand(B, S, T).contiguous()
+            dp = dp0.to(torch.int32)[:, None, :].expand(B * R, S, T).contiguous()
         if T > 1 and track:
             jmin = torch.zeros_like(dp)
-        key = torch.zeros((B, S), dtype=torch.int32, device=dev)
+        key = torch.zeros((B * R, S), dtype=torch.int32, device=dev)
     proj_idx = proj_jmin = None
     if emit_tables:
         proj_idx = torch.empty((B, C, T, S), dtype=torch.int32, device=dev)
@@ -581,8 +592,8 @@ def forward_scan(
         jmin_new = jmin_new.to(torch.int32)
 
         # ---- current column cost over all bipartitions
-        cc = _col_cost(bits, abits, wdiff64[:, c], wbase[:, c], acost[:, c], T, P)
-        dp = torch.clamp(cc + trans_min, max=INF)
+        cc = _col_cost(bits, wdiff64[:, c], wbase[:, c], acost[:, c], T, P)
+        dp = torch.clamp((cc if R == 1 else cc.repeat_interleave(R, dim=0)) + trans_min, max=INF)
         if jmin is not None:
             jmin = jmin_new
 
@@ -649,9 +660,12 @@ def forward_m_batched(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
     """Seeded forward scan, folded final cost only (the reference's
     forward_m_batched): per block, m (T,) = min over bipartitions of the
     final dp of a scan started from dp0 (B, T).  With a unit seed this is
-    one row of the block's T x T seam matrix.  Returns m (B, T) int32."""
+    one row of the block's T x T seam matrix.  Returns m (B, T) int32.
+    Seeds (B, R, T) run R scans a block over the block's inputs (the
+    reference's route repeats the block once per seed; the scans here share
+    its column cost) and return m (B, R, T)."""
     dp_last = forward_scan(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0=dp0, mode="m")[0]
-    return dp_last.amin(dim=1)
+    return dp_last.amin(dim=1).reshape(dp0.shape)
 
 
 def _seam_fold(K, T, dp_last, key_last, jmin_last, die_next):
@@ -811,7 +825,7 @@ def coset_representatives(T: int, t_sym_masks: Sequence[int]) -> Tuple[np.ndarra
 
 def chain_seams(parts, nb: int, rep_of: np.ndarray, reps: np.ndarray) -> np.ndarray:
     """The exact min-plus seam chain on the host.  `parts` lists pass 1's
-    output per bucket, (block indices (n,), m (n * R, T)): each block's
+    output per bucket, (block indices (n,), m (n, R, T)): each block's
     folded minima from its R coset seeds, block after block.  Puts the rows
     in block order, expands each block's seam matrix G from its coset rows,
     then chains m_j = minplus(m_{j-1}, G_j) with INF saturation, in int64.
@@ -926,10 +940,14 @@ def solve_batched_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
 
 
 def forward_m_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
-    """Pass 1 of the pedigree route, forward_m_batched's signature, through
-    the m-only kernel wmec_cuda.forward_m_t where it takes the shape."""
+    """Pass 1 of the pedigree route, forward_m_batched's signature (seeds
+    (B, T) or (B, R, T)), through the m-only kernel wmec_cuda.forward_m_t
+    where it takes the shape, chunked along the blocks (a block's seeds
+    stay in one launch) under the table budget counting the wide kernel's
+    cost planes of every seed."""
     fwd = _pick(K, T, P, wdiff.device, wmec_cuda.forward_m_t, forward_m_batched)
-    per_block = wmec_cuda.state_bytes(K, T, P) if fwd is not forward_m_batched else 0
+    R = dp0.shape[1] if dp0.dim() == 3 else 1
+    per_block = wmec_cuda.state_bytes(K, T, P, seeds=R) if fwd is not forward_m_batched else 0
     return _launch_batched(
         fwd, K, T, P, (wdiff, wbase, rankw, acost, die_prev, rc, dp0), per_block
     )
@@ -1183,10 +1201,11 @@ def run_dp_batched_pedigree(
     The blocks are coupled only through the transmission chain, and the DP
     is min-plus linear in its incoming folded state, so:
 
-      1. pass 1 (`forward_m`, forward_m_auto): each bucket of blocks, every
-         block repeated once per transmission-symmetry coset (R of them) on
-         the device, runs unit-seeded table-free scans giving the rows of
-         each block's T x T seam matrix; all m come back in one fetch;
+      1. pass 1 (`forward_m`, forward_m_auto): each bucket of blocks runs
+         unit-seeded table-free scans, one per transmission-symmetry coset
+         (R seeds (B, R, T) a block, over the block's inputs), giving the
+         rows of each block's T x T seam matrix; all m come back in one
+         fetch;
       2. the host chains the seam vectors in exact int64 min-plus
          (chain_seams, with the coset expansion);
       3. pass 2 (`solve_seeded`, solve_seeded_auto): each bucket re-runs
@@ -1232,8 +1251,7 @@ def run_dp_batched_pedigree(
     for (c_pad, k_b), (idxs, members, dnext) in buckets.items():
         arrays = to_device(stack_blocks(members) + (np.stack(dnext),), device)
         on_device[(c_pad, k_b)] = arrays
-        rep = tuple(a.repeat_interleave(R, dim=0) for a in arrays[:6])
-        pending.append(forward_m(k_b, T, P, *rep, seeds.repeat(len(idxs), 1)))
+        pending.append(forward_m(k_b, T, P, *arrays[:6], seeds.expand(len(idxs), R, T).contiguous()))
     parts = [(idxs, m) for (idxs, _m, _d), m in zip(buckets.values(), _fetch(pending))]
 
     # ---- host chain: the incoming seam vector of every block

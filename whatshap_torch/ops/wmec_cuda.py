@@ -34,13 +34,16 @@ Replaces whatshap_tpu/ops/wmec_pallas.py:
   the cluster's shared memory (forward_t_layout);
 - forward_t_wide, forward_m_t_wide and forward_carry_t_wide launch
   csrc/wmec_forward_t_wide.cu, the general-T modes with the block's T planes
-  in device memory (one cooperative launch, grid-wide barriers between a
-  column's passes), at T up to 256, P up to 8 and K up to MAX_K_WIDE: the
-  XLA scan the reference runs for pedigrees past its Pallas envelope
-  (whatshap_tpu/ops/wmec.py _forward_scan_impl, through solve_batched,
-  forward_m_batched, solve_seeded_batched and the segmented
-  solve_scan_segmented); forward_t, forward_m_t and forward_carry_t hand
-  them the shapes past the cluster kernel's envelope (cluster_supported);
+  in device memory (one cooperative launch, a grid-wide barrier after each
+  column's pass over tiles of the state in shared memory), at T up to 256, P
+  up to 8 and K up to MAX_K_WIDE: the XLA scan the reference runs for
+  pedigrees past its Pallas envelope (whatshap_tpu/ops/wmec.py
+  _forward_scan_impl, through solve_batched, forward_m_batched,
+  solve_seeded_batched and the segmented solve_scan_segmented); the m-only
+  mode takes R seeds a block (B, R, T) over the blocks' inputs, the seam
+  pass's coset seeds, with the column cost computed once for all R;
+  forward_t, forward_m_t and forward_carry_t hand them the shapes past the
+  cluster kernel's envelope (cluster_supported);
 - backtrace_t launches csrc/wmec_backtrace_t.cu, the general-T walk of
   (index, transmission, preceding transmission) that replaces
   _make_backtrace_kernel_t, M walks per block over its tables
@@ -115,19 +118,22 @@ def cluster_supported(K: int, T: int, P: int) -> bool:
     return T in MAX_K_T and P in PEDIGREE_P and 1 <= K <= MAX_K_T[T]
 
 
-def state_bytes(K: int, T: int = 1, P: int = 2) -> int:
+def state_bytes(K: int, T: int = 1, P: int = 2, seeds: int = None) -> int:
     """Device memory a forward kernel needs per block beyond its tables.
     The cluster kernels keep the block's state in the shared memory of its
     cluster (forward_t1_layout, forward_t_layout): nothing.  The wide
     kernels keep it in device memory: at T = 1 in its final-state outputs,
     the cost plane, which it updates in place, and the key plane, 8 * 2^K
     bytes a block; at T > 1 the T cost planes, the T jmin planes and the key
-    plane, (2T + 1) * 4 * 2^K bytes a block (the m-only mode keeps only the
-    cost planes).  The scratch of 4 * (C + 1) bytes a block, the columns'
-    dying masks and passes, is left out."""
+    plane, (2T + 1) * 4 * 2^K bytes a block, and in the m-only mode with
+    `seeds` scans a block only their cost planes, seeds * T * 4 * 2^K bytes.
+    The scratch of 4 * (C + 1) bytes a block, the columns' dying masks and
+    passes, is left out."""
     if not kernel_supported(K, T, P) or cluster_supported(K, T, P):
         return 0
-    return 8 << K if T == 1 else (2 * T + 1) * 4 << K
+    if T == 1:
+        return 8 << K
+    return (2 * T + 1 if seeds is None else seeds * T) * 4 << K
 
 
 #: Launches of the T=1 forward kernel above this many blocks take its wide
@@ -292,7 +298,7 @@ _SIGNATURES = {
     "wmec_backtrace_t": [_P] * 7 + [_I] * 5 + [_P],
     "wmec_forward_t_wide": [_P] * 16 + [_I] * 5 + [_P],
     "wmec_forward_carry_t_wide": [_P] * 13 + [_I] * 5 + [_P],
-    "wmec_forward_m_t_wide": [_P] * 9 + [_I] * 5 + [_P],
+    "wmec_forward_m_t_wide": [_P] * 9 + [_I] * 6 + [_P],
     "geno_backward": [_P] * 8 + [_I] * 5 + [_P],
     "geno_forward": [_P] * 8 + [_I] * 5 + [_P],
 }
@@ -623,10 +629,13 @@ def _select_optimum(K: int, T: int, dp_last, key_last):
     return m, best // S, best % S
 
 
-def _check_pedigree_inputs(name, K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, carry=None):
+def _check_pedigree_inputs(
+    name, K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, carry=None, seeds=False
+):
     """Shape checks shared by the general-T forward wrappers; returns the
     device.  dp0 and carry may be None (unseeded); they are exclusive, as in
-    the reference's kernel."""
+    the reference's kernel.  dp0 is (B, T), or with `seeds` (the m-only
+    mode) (B, T) or (B, R, T): R seeds a block."""
     B, C = wdiff.shape[0], wdiff.shape[1]
     if T == 1 or not kernel_supported(K, T, P):
         raise ValueError(f"{name}: unsupported shape K={K}, T={T}, P={P} ({ENVELOPE})")
@@ -640,7 +649,7 @@ def _check_pedigree_inputs(name, K, T, P, wdiff, wbase, rankw, acost, die_prev, 
     _check(rc, "rc", torch.int32, (B, C))
     tensors = [wdiff, wbase, rankw, acost, die_prev, rc]
     if dp0 is not None:
-        _check(dp0, "dp0", torch.int32, (B, T))
+        _check(dp0, "dp0", torch.int32, (B, dp0.shape[1], T) if seeds and dp0.dim() == 3 else (B, T))
         tensors.append(dp0)
     if carry is not None:
         tensors += _check_carry(carry, B, T, 1 << K)
@@ -757,7 +766,9 @@ forward_carry_t.launches = 0
 
 
 def forward_m_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
-    """Plain torch version of the m-only forward scan: wmec.forward_m_batched."""
+    """Plain torch version of the m-only forward scan: wmec.forward_m_batched
+    (with seeds (B, R, T) its R scans a block share the block's column
+    cost)."""
     from .wmec import forward_m_batched
 
     return forward_m_batched(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
@@ -765,19 +776,28 @@ def forward_m_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
 
 def forward_m_t(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
     """General-T forward scan in the seeded m-only mode of the seam pass:
-    inputs as forward_t with the seed dp0 (B, T) i32 required; returns only
-    m (B, T) i32, the final cost of each transmission plane minimised over
-    the bipartitions.  No tables, no tie key and no transmission argmin are
-    kept (fold winners have equal cost, so m does not depend on them).  Past
-    the cluster kernel's envelope it hands CUDA tensors to forward_m_t_wide,
-    which counts that launch."""
+    inputs as forward_t with the seeds dp0 required, (B, T) or (B, R, T) (R
+    scans a block over the block's inputs); returns only m, (B, T) or (B, R,
+    T) i32, the final cost of each transmission plane minimised over the
+    bipartitions.  No tables, no tie key and no transmission argmin are kept
+    (fold winners have equal cost, so m does not depend on them).  Past the
+    cluster kernel's envelope it hands CUDA tensors to forward_m_t_wide,
+    which counts that launch; inside it the cluster kernel takes each seed
+    as a block of its own."""
     if dp0 is None:
         raise ValueError("forward_m_t: the m-only mode is seeded: dp0 (B, T) is required")
-    dev = _check_pedigree_inputs("forward_m_t", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
+    dev = _check_pedigree_inputs(
+        "forward_m_t", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, seeds=True
+    )
     if dev.type == "cpu":
         return forward_m_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
     if not cluster_supported(K, T, P):
         return forward_m_t_wide(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
+    if dp0.dim() == 3:
+        B, R = dp0.shape[0], dp0.shape[1]
+        ins = (wdiff, wbase, rankw, acost, die_prev, rc)
+        rep = ins if R == 1 else [x.repeat_interleave(R, dim=0) for x in ins]
+        return forward_m_t(K, T, P, *rep, dp0.reshape(B * R, T)).reshape(B, R, T)
 
     B, C = wdiff.shape[0], wdiff.shape[1]
     m = torch.empty((B, T), dtype=torch.int32, device=dev)
@@ -868,27 +888,31 @@ forward_carry_t_wide.launches = 0
 
 def forward_m_t_wide(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
     """forward_m_t on csrc/wmec_forward_t_wide.cu (its m-only mode), at any
-    shape of kernel_supported with T > 1; the T cost planes of a block are
-    scratch it allocates.  Inputs and output as forward_m_t; its plain
-    version on CPU tensors is forward_m_t_plain."""
+    shape of kernel_supported with T > 1: with seeds dp0 (B, R, T) one
+    launch runs the R scans of each block over the block's inputs, which it
+    reads once (the column cost of a state serves all R), and returns m (B,
+    R, T); with dp0 (B, T), R = 1 and m (B, T).  The R * T cost planes of a
+    block are scratch it allocates.  Its plain version on CPU tensors is
+    forward_m_t_plain."""
     if dp0 is None:
         raise ValueError("forward_m_t_wide: the m-only mode is seeded: dp0 (B, T) is required")
     dev = _check_pedigree_inputs(
-        "forward_m_t_wide", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0
+        "forward_m_t_wide", K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, seeds=True
     )
     if dev.type == "cpu":
         return forward_m_t_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0)
 
     B, C = wdiff.shape[0], wdiff.shape[1]
-    m = torch.empty((B, T), dtype=torch.int32, device=dev)
-    planes = torch.empty((B, T, 1 << K), dtype=torch.int32, device=dev)
+    R = dp0.shape[1] if dp0.dim() == 3 else 1
+    m = torch.empty(dp0.shape, dtype=torch.int32, device=dev)
+    planes = torch.empty((B, R, T, 1 << K), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch(
             "wmec_forward_t_wide",
             wdiff.data_ptr(), wbase.data_ptr(), acost.data_ptr(), die_prev.data_ptr(),
             rc.data_ptr(), dp0.data_ptr(), m.data_ptr(), planes.data_ptr(),
             _wide_scratch(B, C, dev).data_ptr(),
-            B, C, K, T, P,
+            B, C, K, T, P, R,
             fn_name="wmec_forward_m_t_wide",
         )
     forward_m_t_wide.launches += 1
