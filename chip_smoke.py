@@ -1007,6 +1007,53 @@ def compare_wide_cluster(device, Ks=tuple(range(7, wmec_cuda.MAX_K + 1)), n_bloc
     return err
 
 
+def compare_wide_edges(device, Ks=(20, 23), n_blocks=2, head_cols=8):
+    """Phase 2, row 13 at the edges of its layout, on tie-heavy buckets at K
+    = 20 and 23: windows of several columns (one slot in 20 dying before
+    each of 24 columns), and columns where more slots die than its tile's 12
+    bits hold (a pre-pass folds the lowest first: 13 to K - 4 slots before
+    two columns of 12, one in the head and one in the tail); both modes
+    (tables from zero, carry, tables from that carry) against their plain
+    versions, bit for bit.  Returns {entry: max abs error}."""
+    err = {}
+    for K in Ks:
+        for kind, n_cols in (("windows", 24), ("a pre-pass", 12)):
+            arrays = tie_bucket(n_blocks, n_cols, K, 1, 2, 8200 + K + n_cols, device)
+            if kind == "windows":
+                die = torch.from_numpy(np.random.RandomState(K).rand(n_blocks, n_cols, K) < 0.05).to(device)
+            else:
+                die = arrays[4].clone()
+                die[0, 2, : K - 4] = True
+                die[1, 2, 4:17] = True
+                die[:, 8, :13] = True
+            arrays = [*arrays[:4], die.contiguous(), arrays[5]]
+            h = head_cols if kind == "windows" else 4
+            head = [a[:, :h].contiguous() for a in arrays]
+            tail = [a[:, h:].contiguous() for a in arrays]
+            carry = _carry_after(K, 1, 2, head)
+            runs = {
+                "wmec_forward_t1_wide": (lambda: wmec_cuda.forward_t1_wide(K, 2, *arrays),
+                                         lambda: wmec_cuda.forward_t1_plain(K, 2, *arrays)),
+                "wmec_forward_carry_t1_wide": (lambda: wmec_cuda.forward_carry_t1_wide(K, 2, *tail, carry),
+                                               lambda: wmec_cuda.forward_carry_t1_plain(K, 2, *tail, carry)),
+                "wmec_forward_t1_wide:carry_in": (lambda: wmec_cuda.forward_t1_wide(K, 2, *tail, carry),
+                                                  lambda: wmec_cuda.forward_t1_plain(K, 2, *tail, carry)),
+            }
+            e = {}
+            for name, (kern_fn, plain_fn) in runs.items():
+                kern, plain = kern_fn(), plain_fn()
+                torch.cuda.synchronize()
+                e[name] = _max_err(zip(kern, plain))
+                del kern, plain
+            print(f"kernels row 13 with {kind} K={K:2d} B={n_blocks} C={n_cols} (up to "
+                  f"{int(die.sum(dim=2).max())} slots dying a column): "
+                  + " ".join(f"{n} max|err|={v}" for n, v in e.items()), flush=True)
+            _require(all(v == 0 for v in e.values()), f"row 13 bit-equal with {kind} at K={K}")
+            for name, v in e.items():
+                err[name] = max(err.get(name, 0), v)
+    return err
+
+
 def compare_wide_t_cluster(device, shapes=((4, 7), (4, 12), (4, 16), (16, 9), (16, 13)), n_blocks=3, n_cols=64,
                            head_cols=24):
     """Phase 2, row 14 against rows 3, 4, 6, 7, 9 and 10: inside the general-T
@@ -2389,7 +2436,8 @@ def time_wide_bucket(label, arrays, K, plain_blocks=None, reps=3):
     bound = _bound(_nbytes(*arrays[:5]), _nbytes(*kern), 5.0 * B * C * (1 << K))
     del kern
     torch.cuda.empty_cache()
-    print(f"{label} wmec_forward_t1_wide (B={B} C={C} K={K}): {ms:.3f} ms (plain {plain_ms:.3f} ms on {nb} "
+    print(f"{label} wmec_forward_t1_wide (B={B} C={C} K={K}, L2 sweep in groups of "
+          f"{wmec_cuda.forward_t1_wide_group(K, B)}): {ms:.3f} ms (plain {plain_ms:.3f} ms on {nb} "
           f"block(s)), bound {bound[0]:.4f} ms by {bound[1]} ({bound[0] / ms:.4f} of it), max|err|={err}; "
           f"{B * C * (4 << K) / ms / 1e6:.1f} GB/s of tables", flush=True)
     _require(err == 0, f"{label}: row 13 bit-equal to plain")
@@ -2454,13 +2502,18 @@ def wide_segmented_instance(n_cols=2048, K=23, seed=37):
     _require(seg is not None, f"segmented-k{K}: its tables exceed the default budget")
     n_seg = -(-C // seg)
     print(f"segmented-k{K}: built in {time.perf_counter() - t0:.1f} s", flush=True)
-    table, (cost, partition, (superreads, _tr)), wall, launches, peak = _phase_table(rs, positions, het, rc)
+    events = []
+    with solve_events(events):
+        table, (cost, partition, (superreads, _tr)), wall, launches, peak = _phase_table(rs, positions, het, rc)
+    solves = sum(a.elapsed_time(b) for a, b in events) / 1e3
     path = ("wmec_forward_carry_t1_wide", "wmec_forward_t1_wide", "wmec_backtrace_t1")
     budget = wmec._table_budget(torch.device("cuda"))
     print(f"segmented-k{K}: {C} variants, {len(rs)} reads, K={K}, one read-connected range; default table "
           f"budget {budget} bytes; {n_seg} segments of {seg}; cost {cost}; wall {wall:.3f} s = {C / wall:.1f} "
           f"variants/s; peak device memory {peak / 2**30:.3f} GiB (unsegmented tables alone "
           f"{wmec._next_pow2(C) * (4 << K) / 2**30:.1f} GiB); launches {launches}", flush=True)
+    print(f"segmented-k{K}: device time of the {len(events)} solve(s) (CUDA events) {solves:.4f} s = "
+          f"{solves / wall:.4f} of the wall: the card idles at least {1 - solves / wall:.4f} of it", flush=True)
     _require(all(launches[n] == n_seg for n in path), f"segmented-k{K}: {n_seg} launches of each kernel of the path")
     _require(sum(launches[n] for n in WRAPPERS if n not in path) == 0, f"segmented-k{K}: no other kernel launched")
     _require(len(superreads[0][0]) == C, f"segmented-k{K}: output shapes")
@@ -2796,6 +2849,7 @@ def main() -> int:
     merge(compare_tie_kernels_t1("cuda"))
     merge(compare_tie_kernels_t1("cuda", shapes=WIDE_SHAPES))
     merge(compare_wide_cluster("cuda"))
+    merge(compare_wide_edges("cuda"))
     merge(compare_wide_t_cluster("cuda"))
     torch.cuda.empty_cache()
     merge(compare_geno_kernels("cuda"))

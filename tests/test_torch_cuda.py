@@ -392,6 +392,68 @@ def test_wide_kernel_matches_plain(cuda_device, K):
     assert _walks_equal(1, (pidx,), opt, wmec_cuda.pack_die(ta[4]))
 
 
+def _wide_edge_bucket(case, device):
+    """(K, arrays, head columns) of a T = 1 bucket at an edge of the wide
+    kernel's layout: its L2 sweep's last group cut short (B one past a
+    multiple of the group at K = 20), one block at K = 22 and 23, windows
+    of several columns on a tie-heavy bucket (one slot in 20 dying a
+    column), blocks whose dying masks differ in one column only, and a
+    column where 13 or more slots die (more than a tile's 12 bits: a
+    pre-pass) at K = 20 and 23."""
+    K = int(case[-2:])
+    if case in ("group-boundary-k20", "one-block-k22", "one-block-k23"):
+        B = wmec_cuda.forward_t1_wide_group(K, 1 << 10) + 1 if case.startswith("group") else 1
+        ta = blocks.to_device(_bucket(K, n_blocks=B, n_cols=16, seed=60 + K), device)
+        assert ta[0].shape[2] == K
+        return K, ta, 6
+    if case.startswith("windows"):
+        ta = _tie_bucket(K, 1, 2, device, n_blocks=2, n_cols=24, seed=80 + K)
+        die = torch.from_numpy(np.random.RandomState(K).rand(2, 24, K) < 0.05).to(device)
+        return K, [*ta[:4], die, ta[5]], 8
+    B = 3 if case.startswith("masks") else 2
+    ta = _tie_bucket(K, 1, 2, device, n_blocks=B, n_cols=12, seed=70 + K + B)
+    die = ta[4].clone()
+    if case.startswith("masks"):
+        die[:] = die[0].clone()
+        die[1, 7] = ~die[1, 7]
+        die[2, 7, :3] = True
+    else:
+        die[0, 2, : K - 4] = True
+        die[1, 2, 4:17] = True
+        die[:, 8, :13] = True
+    assert int(die.sum(dim=2).max()) >= 13 or case.startswith("masks")
+    return K, [*ta[:4], die.contiguous(), ta[5]], 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["group-boundary-k20", "one-block-k22", "one-block-k23", "windows-k20",
+                                  "windows-k23", "masks-differ-k20", "pre-pass-k20", "pre-pass-k23"])
+def test_wide_kernel_edges_match_plain(cuda_device, case):
+    """The wide kernel at the edges of its layout (_wide_edge_bucket):
+    tables from zero, carry, and tables from a nonzero carry, bit-equal to
+    the plain versions, and only the wide kernel's counters count."""
+    K, ta, head_cols = _wide_edge_bucket(case, cuda_device)
+    before = [f.launches for f in WIDE + CLUSTER_T1]
+    pairs = _wide_pairs(K, ta, head_cols)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(WIDE + CLUSTER_T1, before)] == [3, 1, 0, 0]
+    for kern, plain in pairs:
+        for x, y in zip(kern, plain):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_wide_kernel_group_rule_matches_its_mirror(cuda_device):
+    """wmec_cuda.forward_t1_wide_group is the kernel's own rule for the
+    blocks of a group of its L2 sweep, at every K it takes."""
+    from whatshap_torch.ops import _build
+
+    fn = _build.load("wmec_forward_t1_wide").wmec_forward_t1_wide_group
+    for K in range(1, wmec_cuda.MAX_K_WIDE + 1):
+        for B in (1, 2, 5, 7, 19, 64, 1 << 20):
+            assert fn(K, B) == wmec_cuda.forward_t1_wide_group(K, B)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [18, 19, 20, 21])
 def test_wide_kernel_breaks_ties_as_plain(cuda_device, K):

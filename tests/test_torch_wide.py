@@ -257,6 +257,21 @@ def test_wide_wrappers_check_inputs_and_count_no_launch():
         wmec_cuda.backtrace_t1(torch.zeros(1, dtype=torch.int32), empty, torch.zeros((1, 0), dtype=torch.int32))
 
 
+def test_wide_group_rule_fills_the_l2_share():
+    """The wide kernel's L2 sweep takes as many blocks a group as their cost
+    planes (4 * 2^K bytes each) fit the share, at least one and at most the
+    launch's: one at K = 23, whose plane alone is 32 MiB."""
+    share = wmec_cuda.T1_WIDE_L2_SHARE
+    for K in range(1, wmec_cuda.MAX_K_WIDE + 1):
+        for B in (1, 2, 3, 7, 16, 19, 1 << 20):
+            g = wmec_cuda.forward_t1_wide_group(K, B)
+            plane = 4 << K
+            assert 1 <= g <= B
+            assert g == 1 or g * plane <= share
+            assert g == B or (g + 1) * plane > share
+    assert wmec_cuda.forward_t1_wide_group(23, 19) == 1
+
+
 def test_wide_trio_forward_m_matches_reference():
     """A trio (T = 4, P = 4) at K = 18, past the general-T cluster kernel's
     K = 16: the port's pass 1 of the pedigree route (forward_m_auto, row

@@ -506,10 +506,8 @@ def test_launch_chunking_is_exact(monkeypatch):
 
 
 def _port_files():
-    return sorted((REPO / "whatshap_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "profile_forward_t.py", REPO / "profile_forward_t1.py",
-        REPO / "profile_backtrace.py",
-    ]
+    return sorted((REPO / "whatshap_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted(
+        REPO.glob("profile_*.py"))
 
 
 BANNED_ROOTS = ("jax", "jaxlib", "whatshap_tpu", "tools", "native")

@@ -13,8 +13,10 @@ Replaces whatshap_tpu/ops/wmec_pallas.py:
   (forward_t1_layout), up to K = MAX_K;
 - forward_t1_wide and forward_carry_t1_wide launch
   csrc/wmec_forward_t1_wide.cu, the same two modes with the block's state in
-  device memory (one cooperative launch, grid-wide barriers between a
-  column's passes), at any K up to MAX_K_WIDE: the T=1 XLA scan the
+  device memory (one cooperative launch; windows of columns over tiles of
+  the state held in registers, a grid-wide barrier after each; the blocks
+  in groups whose state fits a share of the L2, forward_t1_wide_group), at
+  any K up to MAX_K_WIDE: the T=1 XLA scan the
   reference runs past its Pallas envelope (whatshap_tpu/ops/wmec.py
   _forward_scan_impl, through solve_batched, _solve_scan and the segmented
   solve_scan_segmented); forward_t1 and forward_carry_t1 hand K above
@@ -542,6 +544,18 @@ def forward_carry_t1_wide(K, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
 
 
 forward_carry_t1_wide.launches = 0
+
+#: The L2 share (bytes) that the cost planes of one group of blocks may take
+#: in csrc/wmec_forward_t1_wide.cu's sweep (its kL2Share).
+T1_WIDE_L2_SHARE = 12 << 20
+
+
+def forward_t1_wide_group(K: int, B: int) -> int:
+    """Blocks a group of forward_t1_wide's L2 sweep at K in a launch of B
+    blocks: as many 4 * 2^K-byte cost planes as fit T1_WIDE_L2_SHARE, at
+    least one, at most B (the kernel's blocks_a_group, which its C entry
+    wmec_forward_t1_wide_group returns)."""
+    return max(1, min(B, T1_WIDE_L2_SHARE >> (K + 2)))
 
 
 def pack_die(die_prev):
