@@ -54,7 +54,18 @@ Phases, every one of which must pass:
             level of the state index (register, lane, warp and CTA bits,
             the top CTA-rank bit included) at K = 15 and 17: red and
             scaling within rtol 1e-4, likelihoods within atol 1e-5,
-            identical NaN patterns.  Both backtraces, bit for bit, also on
+            identical NaN patterns.  Rows 15-16, the genotyping kernels with
+            the state in device memory (csrc/geno_backward_wide.cu,
+            csrc/geno_forward_wide.cu), which backward and forward take past
+            the cluster kernels: held to their float32 plain versions with
+            the same bars at T = 1, K = 18, 20, 23; T = 4, K = 17, 20; T =
+            16, K = 14; three founders (T = 16, P = 6, K = 12), four (P = 8,
+            K = 10); three children (T = 64, K = 9 and 15), four (T = 256,
+            K = 8); four trios of four founders (T = 256, P = 8, K = 6) (B =
+            3 instances of 64-128 columns, one with a zero-sum prior column,
+            one with a new range whose slots are all born: further fold
+            passes), and to the cluster kernels at T = 1, K = 7 and 17; T =
+            4, K = 12 and 16; T = 16, K = 13.  Both backtraces, bit for bit, also on
             random tables that break the forward's shape (whole, or in 5 %
             of the entries of shaped ones; random masks, half of them
             empty) at T = 1, 4, 16, 64, 256, K up to 20, M = 1 and T + 1, narrow and
@@ -169,12 +180,31 @@ Phases, every one of which must pass:
             meet the reference's own CLI bar (tests/test_geno_backends_cli.py:
             GT exact, GL within 5e-3) against a second run with the float64
             plain route on the card handed in, and GQ exact except where a
-            difference of 1 is f32 rounding at a half-integer (each such site
-            printed with both unrounded values).
+            difference of 1 is f32 rounding at a half-integer, or where both
+            GQs are 300 or more (the f32 flush-to-zero edge at which the
+            reference's bar counts GLs as equal; each such site printed with
+            both unrounded values).
 13. genotype-cli-trio  the same on phase-cli-trio's files (8,192 variants,
             a trio at coverage 5 a sample, its PED file); its concordance
             gate is 0.85, since at that coverage the reference's own host
             engine recovers only 0.859-0.899 of these files' genotypes.
+    genotype-cli-fam5  the genotype CLI past the cluster kernels: a family
+            of two parents and three children (T = 64, P = 4), 4,096
+            variants at coverage 5 a sample, at the default --max-coverage
+            15 (K up to 15): one launch of each wide genotyping kernel
+            (rows 15-16) per GenotypeDPTable call, no plain version, no
+            cluster genotyping kernel and no wMEC kernel; wall, stages,
+            device time, idle share, budget and concordance printed (gate
+            0.85, from its cut's 0.887-0.934 on the float64 plain route).
+            The float64 plain route cannot hold the whole file's beta table,
+            so its CLI bar runs on a 512-variant file of the generator
+            (genotype-cli-fam5-512).  genotype-cli-cov20: one sample of
+            8,192 mixed-genotype variants at coverage 22 genotyped at
+            --max-coverage 20 (K up to 20), checked the same way, its CLI
+            bar on genotype-cli-cov20-512.  There GQs of 300 or more on both
+            routes count as equal: the wrong genotypes' likelihoods are
+            below 1e-30, where the float32 routes flush to zero and the
+            reference's bar counts GLs as equal.
 14. timing  the main paths' largest buckets copied to the card, and each
             kernel at its shape (CUDA events), beside its plain version and
             its bound: the T=1 kernels at the phase CLI's bucket (the
@@ -202,7 +232,10 @@ Phases, every one of which must pass:
             under the table budget (wide-t64, the kernels line): the m-only
             mode over each block's 16 coset seeds, the seeded tables mode,
             the carry mode and the tables mode from that carry; and in both
-            passes at a segment of segmented-trio-wide.
+            passes at a segment of segmented-trio-wide.  Rows 15-16 at the
+            instances of genotype-cli-fam5 (the kernels line) and
+            genotype-cli-cov20, beside their float32 plain versions on the
+            first 64 columns and their bounds.
 
 It prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}.  Where there is no CUDA device,
@@ -253,6 +286,8 @@ WRAPPERS = {
     "wmec_forward_carry_t_wide": wmec_cuda.forward_carry_t_wide,
     "geno_backward": genotyping_cuda.backward,
     "geno_forward": genotyping_cuda.forward,
+    "geno_backward_wide": genotyping_cuda.backward_wide,
+    "geno_forward_wide": genotyping_cuda.forward_wide,
 }
 # The kernels line: (entry, source, the TPU kernel it replaces).  Rows 9
 # and 10 at T = 1 and T > 1 are entries of their own; an entry's launches
@@ -265,7 +300,10 @@ WRAPPERS = {
 # T planes in device memory, replaces the same XLA scan past the Pallas
 # envelope at T > 1: with tables as solve_batched and solve_seeded_batched
 # run it and m-only as forward_m_batched does (read on phase-cli-fam5), and
-# in the segmented solve's two passes (read on segmented-trio-wide).
+# in the segmented solve's two passes (read on segmented-trio-wide).  Rows
+# 15-16, the genotyping kernels with the state in device memory, replace the
+# reference's XLA forward-backward past its Pallas envelope (read and timed
+# on genotype-cli-fam5).
 ENTRIES = [
     ("wmec_forward_t1", "wmec_forward_t1", "whatshap_tpu/ops/wmec_pallas.py:73"),
     ("wmec_backtrace_t1", "wmec_backtrace_t1", "whatshap_tpu/ops/wmec_pallas.py:626"),
@@ -285,6 +323,8 @@ ENTRIES = [
     ("wmec_forward_m_t_wide", "wmec_forward_t_wide", "whatshap_tpu/ops/wmec.py:796"),
     ("wmec_forward_carry_t_wide", "wmec_forward_t_wide", "whatshap_tpu/ops/wmec.py:679"),
     ("wmec_forward_t_wide:carry_in", "wmec_forward_t_wide", "whatshap_tpu/ops/wmec.py:687"),
+    ("geno_backward_wide", "geno_backward_wide", "whatshap_tpu/ops/genotyping_jax.py:214"),
+    ("geno_forward_wide", "geno_forward_wide", "whatshap_tpu/ops/genotyping_jax.py:237"),
 ]
 CARRY_KERNELS = ("wmec_forward_carry_t1", "wmec_forward_carry_t", "wmec_forward_carry_t1_wide",
                  "wmec_forward_carry_t_wide")
@@ -312,6 +352,8 @@ DOUBLE_TRIO = (5, ((0, 1, 2), (2, 3, 4)))
 FOUR_FOUNDERS = (6, ((0, 1, 4), (2, 3, 5)))
 FAMILY5 = (5, ((0, 1, 2), (0, 1, 3), (0, 1, 4)))
 FAMILY6 = (6, ((0, 1, 2), (0, 1, 3), (0, 1, 4), (0, 1, 5)))
+# four trios of four founders (T = 256, P = 8)
+FOUR_TRIOS = (8, ((0, 1, 4), (2, 3, 5), (0, 1, 6), (2, 3, 7)))
 
 
 def _require(ok: bool, what: str) -> None:
@@ -1679,17 +1721,19 @@ def time_carry_kernels(packed, seg, label, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def simulate_genotyping(n_cols, coverage, pedigree, seed, zero_prior=None):
+def simulate_genotyping(n_cols, coverage, pedigree, seed, zero_prior=None, break_at=None):
     """A simulated genotyping chromosome of n_cols variants: every
     individual's two haplotypes carry the alternative allele with probability
     1/2 at each variant (so hom ref, het and hom alt in the ratio 1:2:1);
     each child of a trio inherits one haplotype of each parent, switching
     once per parent at a random point.  Reads of every individual tile the
-    chromosome in `coverage` lanes (read length ~12 variants, 5 % allele
-    errors, qualities 10-39).  The priors are each individual's
-    compute_genotypes over its own reads, normalised as the genotype CLI
-    regularises them (constant 0); with zero_prior = c the first
-    individual's prior at column c is all 0.  Returns (readset, positions,
+    chromosome in `coverage` lanes (an int, or one count an individual; read
+    length ~12 variants, 5 % allele errors, qualities 10-39).  The priors
+    are each individual's compute_genotypes over its own reads, normalised
+    as the genotype CLI regularises them (constant 0); with zero_prior = c
+    the first individual's prior at column c is all 0; with break_at = c no
+    read spans columns c - 1 and c, so every slot dies after c - 1 and a new
+    range starts at c with all its slots born.  Returns (readset, positions,
     pedigree, numeric sample ids, true genotypes (n_ind, C))."""
     n_ind, trios = pedigree
     rng = np.random.RandomState(seed)
@@ -1703,12 +1747,17 @@ def simulate_genotyping(n_cols, coverage, pedigree, seed, zero_prior=None):
     nsi = core.NumericSampleIds()
     ped = core.Pedigree(nsi)
     rs = core.ReadSet()
+    lanes = [coverage] * n_ind if isinstance(coverage, int) else list(coverage)
     for ind in range(n_ind):
         own = core.ReadSet()
-        for lane in range(coverage):
+        for lane in range(lanes[ind]):
             start = int(rng.randint(0, 6))
             while start < n_cols - 1:
-                length = int(np.clip(rng.poisson(12), 2, n_cols - start))
+                end = break_at if break_at is not None and start < break_at else n_cols
+                if end - start < 2:
+                    start = end
+                    continue
+                length = int(np.clip(rng.poisson(12), 2, end - start))
                 side = int(rng.randint(0, 2))
                 cols = np.arange(start, start + length)
                 alleles = haps[ind, side, cols] ^ (rng.rand(length) < 0.05)
@@ -1744,16 +1793,19 @@ def _pad_k(stacked, k_pad):
     return [trans, passign, base, diff, birth, die_next, dup * 2.0 ** pad, gmask]
 
 
-def geno_bucket(T, K, n_blocks, n_cols, seed):
+def geno_bucket(T, K, n_blocks, n_cols, seed, pedigree=None, coverage=None, break_block=None):
     """Prepared inputs of n_blocks simulated genotyping instances of n_cols
-    columns (one sample, a trio or a quartet by T), padded to K slots; block
-    0 has a zero-sum prior at column n_cols // 2.  Returns (P, stacked)."""
-    pedigree = {1: SINGLE, 4: TRIO, 16: QUARTET}[T]
-    cov = max(1, K // pedigree[0])
+    columns (one sample, a trio or a quartet by T, or `pedigree` with its
+    read lanes `coverage`), padded to K slots; block 0 has a zero-sum prior
+    at column n_cols // 2, and block `break_block` a new range at column
+    n_cols // 3 with all its slots born.  Returns (P, stacked)."""
+    pedigree = pedigree or {1: SINGLE, 4: TRIO, 16: QUARTET}[T]
+    cov = coverage or max(1, K // pedigree[0])
     parts = []
     for b in range(n_blocks):
         rs, pos, ped, _nsi, _gt = simulate_genotyping(
-            n_cols, cov, pedigree, seed + b, zero_prior=n_cols // 2 if b == 0 else None
+            n_cols, cov, pedigree, seed + b, zero_prior=n_cols // 2 if b == 0 else None,
+            break_at=n_cols // 3 if b == break_block else None,
         )
         packed = wmec.pack_problem(rs, [10] * n_cols, ped, False, pos,
                                    check_conflicts=False, emission_tables=False)
@@ -1858,36 +1910,139 @@ def compare_geno_kernels(device, shapes=GENO_SHAPES, n_blocks=4, n_cols=128):
         red = genotyping_cuda.forward(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
         red_p = genotyping_cuda.forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling_p, beta_p)
         torch.cuda.synchronize()
-        rel = {"scaling": _rel_err(scaling, scaling_p), "beta_store": _col_err(beta, beta_p),
-               "red": _rel_err(red, red_p)}
-        _require(torch.equal(beta.isnan(), beta_p.isnan()), f"beta_store NaN patterns at T={T}, K={K}")
-        beta64, _s64 = genotyping_cuda.backward_plain(
-            K, T, P, diff.double(), base.double(), passign.double(), trans.double(), birth, dup.double()
-        )
-        print(f"geno kernels T={T:2d} K={K:2d}: beta_store against the float64 plain version, "
-              f"per entry / to its column's largest: kernel {_rel_err(beta, beta64):.3e} / "
-              f"{_col_err(beta, beta64):.3e}, float32 plain {_rel_err(beta_p, beta64):.3e} / "
-              f"{_col_err(beta_p, beta64):.3e}", flush=True)
-        del beta64
-        shape4 = (n_blocks, n_cols, T, 1 << P)
-        lik = genotyping.likelihoods_from_red(red.reshape(shape4).double().cpu().numpy(), stacked[7][0])
-        lik_p = genotyping.likelihoods_from_red(red_p.reshape(shape4).double().cpu().numpy(), stacked[7][0])
-        e_lik = _lik_err(lik, lik_p)
-        nan_blocks = int(np.isnan(lik).any(axis=(1, 2, 3)).sum())
-        e_bwd = max(_abs_err(beta, beta_p), _abs_err(scaling, scaling_p))
-        e_fwd = _abs_err(_per_col(red), _per_col(red_p))
-        print(f"geno kernels T={T:2d} K={K:2d} P={P} B={n_blocks} C={n_cols}: rel err scaling "
-              f"{rel['scaling']:.3e} red {rel['red']:.3e}, beta_store to its column's largest "
-              f"{rel['beta_store']:.3e}; "
-              f"likelihoods max|err|={e_lik:.3e}; blocks with NaN {nan_blocks}", flush=True)
-        _require(rel["scaling"] <= 1e-4 and rel["red"] <= 1e-4 and rel["beta_store"] <= 1e-4
-                 and e_lik <= 1e-5,
-                 f"genotyping kernels agree with plain at T={T}, K={K}")
-        _require(nan_blocks == 1, f"the zero-sum prior's NaN stays in its block at T={T}, K={K}")
+        _witness_f64(f"geno kernels T={T:2d} K={K:2d}", K, T, P, x, beta, beta_p)
+        e_bwd, e_fwd = _hold_geno(f"geno kernels T={T:2d} K={K:2d} P={P} B={n_blocks} C={n_cols}", K, T, P,
+                                  stacked, (beta, scaling, red), (beta_p, scaling_p, red_p), n_blocks, n_cols)
         err["geno_backward"] = max(err["geno_backward"], e_bwd)
         err["geno_forward"] = max(err["geno_forward"], e_fwd)
         del beta, beta_p, x
     return err
+
+
+def _lanes(K, n_ind):
+    """Read lanes an individual such that K slots are active: K split as
+    evenly as it goes, the first individuals taking the remainder."""
+    return [K // n_ind + (1 if i < K % n_ind else 0) for i in range(n_ind)]
+
+
+def wide_passes(K, T, flags) -> int:
+    """The most passes a wide genotyping kernel takes at a column where the
+    fold flags (B, C, K) fold: one, and one more for each further group of
+    log2(min(2^K, 4096 / T)) slots (csrc/geno_wide.cuh)."""
+    lb = int(math.log2(min(1 << K, genotyping_cuda.WIDE_TILE // T)))
+    nf = int(flags.sum(dim=2).max())
+    return -(-nf // lb) if nf > lb else 1
+
+
+# genotyping past the cluster kernels (kernel rows 15-16): (T, K, pedigree)
+# of the wide kernels' checks: one sample to K = 23, a trio, a quartet,
+# three founders (P = 6), four (P = 8), three children (T = 64) and four
+# (T = 256), four trios of four founders (T = 256, P = 8)
+GENO_WIDE_SHAPES = (
+    (1, 18, SINGLE), (1, 20, SINGLE), (1, 23, SINGLE), (4, 17, TRIO), (4, 20, TRIO), (16, 14, QUARTET),
+    (16, 12, DOUBLE_TRIO), (16, 10, FOUR_FOUNDERS), (64, 9, FAMILY5), (64, 15, FAMILY5), (256, 8, FAMILY6),
+    (256, 6, FOUR_TRIOS),
+)
+# inside the cluster kernels' envelope, where the wide kernels are held to them
+GENO_WIDE_CLUSTER_SHAPES = ((1, 7), (1, 17), (4, 12), (4, 16), (16, 13))
+
+
+def _witness_f64(label, K, T, P, x, beta, beta_p):
+    """Print a kernel's and the float32 plain version's beta_store against
+    the float64 plain version on the same inputs x (to_device's tensors),
+    per entry and to its column's largest: a witness of where their
+    differences come from, not gated."""
+    diff, base, passign, trans, birth, _die_next, dup = x
+    beta64, _s64 = genotyping_cuda.backward_plain(
+        K, T, P, diff.double(), base.double(), passign.double(), trans.double(), birth, dup.double()
+    )
+    print(f"{label}: beta_store against the float64 plain version, per entry / to its column's largest: "
+          f"kernel {_rel_err(beta, beta64):.3e} / {_col_err(beta, beta64):.3e}, float32 plain "
+          f"{_rel_err(beta_p, beta64):.3e} / {_col_err(beta_p, beta64):.3e}", flush=True)
+
+
+def _hold_geno(label, K, T, P, stacked, got, want, n_blocks, n_cols, nan_blocks=1):
+    """Hold one forward-backward's outputs got = (beta_store, scaling, red)
+    against want's on the same inputs: red and scaling within rtol 1e-4,
+    beta_store within 1e-4 of its column's largest, likelihoods within atol
+    1e-5, identical NaN patterns, and the zero-sum prior's NaN in
+    `nan_blocks` blocks.  Returns the largest absolute errors (backward:
+    beta_store and scaling; forward: red per column)."""
+    beta, scaling, red = got
+    beta_p, scaling_p, red_p = want
+    rel = {"scaling": _rel_err(scaling, scaling_p), "beta_store": _col_err(beta, beta_p), "red": _rel_err(red, red_p)}
+    _require(torch.equal(beta.isnan(), beta_p.isnan()), f"{label}: beta_store NaN patterns")
+    shape4 = (n_blocks, n_cols, T, 1 << P)
+    lik = genotyping.likelihoods_from_red(red.reshape(shape4).double().cpu().numpy(), stacked[7][0])
+    lik_p = genotyping.likelihoods_from_red(red_p.reshape(shape4).double().cpu().numpy(), stacked[7][0])
+    e_lik = _lik_err(lik, lik_p)
+    blocks = int(np.isnan(lik).any(axis=(1, 2, 3)).sum())
+    print(f"{label}: rel err scaling {rel['scaling']:.3e} red {rel['red']:.3e}, beta_store to its column's "
+          f"largest {rel['beta_store']:.3e}; likelihoods max|err|={e_lik:.3e}; blocks with NaN {blocks}", flush=True)
+    _require(rel["scaling"] <= 1e-4 and rel["red"] <= 1e-4 and rel["beta_store"] <= 1e-4 and e_lik <= 1e-5,
+             f"{label}: agree")
+    _require(blocks == nan_blocks, f"{label}: the zero-sum prior's NaN stays in its block")
+    return max(_abs_err(beta, beta_p), _abs_err(scaling, scaling_p)), _abs_err(_per_col(red), _per_col(red_p))
+
+
+def compare_geno_wide(device, shapes=GENO_WIDE_SHAPES, n_blocks=3):
+    """Phase geno-kernels, rows 15-16: both wide genotyping kernels (the state
+    in device memory) against their float32 plain versions on the same CUDA
+    tensors at (T, K, pedigree), C = 128 columns below K = 18 and 64 from
+    it: block 0 has a zero-sum prior column, block 1 a new range at column
+    C // 3 with all its slots born (past a tile's bits: further fold passes,
+    which each shape must take in the backward, and some in the forward).  The bars of
+    compare_geno_kernels (_hold_geno); each kernel's and the float32 plain
+    version's beta_store against the float64 plain version printed, not
+    gated.  Returns {kernel name: max abs error}."""
+    err = {"geno_backward_wide": 0.0, "geno_forward_wide": 0.0}
+    fwd_passes = 1
+    for T, K, pedigree in shapes:
+        n_cols = 128 if K < 18 else 64
+        P, stacked = geno_bucket(T, K, n_blocks, n_cols, 5000 + 10 * K + T, pedigree=pedigree,
+                                 coverage=_lanes(K, pedigree[0]), break_block=1)
+        x = genotyping.to_device(stacked, torch.device(device))
+        diff, base, passign, trans, birth, die_next, dup = x
+        label = f"geno wide T={T:3d} P={P} K={K:2d} B={n_blocks} C={n_cols}"
+        passes = (wide_passes(K, T, birth[:, 1:]), wide_passes(K, T, die_next))
+        print(f"{label}: tiles of {min(1 << K, genotyping_cuda.WIDE_TILE // T)} states in {T} planes, "
+              f"{genotyping_cuda.wide_tiles(K, T)} an instance; most passes a column {passes[0]} "
+              f"(backward), {passes[1]} (forward)", flush=True)
+        _require(passes[0] > 1, f"{label}: further fold passes in the backward")
+        fwd_passes = max(fwd_passes, passes[1])
+        before = (genotyping_cuda.backward_wide.launches, genotyping_cuda.forward_wide.launches)
+        beta, scaling = genotyping_cuda.backward_wide(K, T, P, diff, base, passign, trans, birth, dup)
+        red = genotyping_cuda.forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
+        torch.cuda.synchronize()
+        _require((genotyping_cuda.backward_wide.launches, genotyping_cuda.forward_wide.launches)
+                 == (before[0] + 1, before[1] + 1), f"{label}: one launch of each wide kernel")
+        beta_p, scaling_p = genotyping_cuda.backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
+        red_p = genotyping_cuda.forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling_p, beta_p)
+        e_bwd, e_fwd = _hold_geno(label, K, T, P, stacked, (beta, scaling, red), (beta_p, scaling_p, red_p),
+                                  n_blocks, n_cols)
+        _witness_f64(label, K, T, P, x, beta, beta_p)
+        err["geno_backward_wide"] = max(err["geno_backward_wide"], e_bwd)
+        err["geno_forward_wide"] = max(err["geno_forward_wide"], e_fwd)
+        del beta, beta_p, x
+    _require(fwd_passes > 1, "further fold passes in the forward")
+    return err
+
+
+def compare_geno_wide_cluster(device, shapes=GENO_WIDE_CLUSTER_SHAPES, n_blocks=3, n_cols=96):
+    """Phase geno-kernels: the wide genotyping kernels against the cluster
+    kernels (rows 11-12) inside the cluster kernels' envelope, at (T, K), on
+    the same CUDA tensors, with compare_geno_kernels' bars."""
+    for T, K in shapes:
+        P, stacked = geno_bucket(T, K, n_blocks, n_cols, 6000 + 10 * K + T, break_block=1)
+        diff, base, passign, trans, birth, die_next, dup = genotyping.to_device(stacked, torch.device(device))
+        _require(genotyping_cuda.kernel_supported(K, T, P), f"T={T}, K={K} inside the cluster envelope")
+        beta, scaling = genotyping_cuda.backward_wide(K, T, P, diff, base, passign, trans, birth, dup)
+        red = genotyping_cuda.forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
+        beta_c, scaling_c = genotyping_cuda.backward(K, T, P, diff, base, passign, trans, birth, dup)
+        red_c = genotyping_cuda.forward(K, T, P, diff, base, passign, trans, die_next, scaling_c, beta_c)
+        torch.cuda.synchronize()
+        _hold_geno(f"geno wide against cluster T={T:2d} K={K:2d}", K, T, P, stacked, (beta, scaling, red),
+                   (beta_c, scaling_c, red_c), n_blocks, n_cols)
 
 
 def genotype_instance(spec, device, label, check_cols, atol):
@@ -2635,14 +2790,15 @@ def genotype_probe(probe: dict):
 
 
 @contextlib.contextmanager
-def plain_genotyping():
-    """Every genotyping instance of the block on the float64 plain route on
-    the card: launch_genotyping's seam gets forward_backward_plain over
-    float64 copies of the prepared tables in place of the kernels."""
+def plain_genotyping(dtype=torch.float64):
+    """Every genotyping instance of the block on the plain route on the
+    card: launch_genotyping's seam gets forward_backward_plain over `dtype`
+    copies of the prepared tables in place of the kernels."""
     real = genotyping.launch_genotyping
 
     def launch(static, stacked, device):
-        trans, passign, base, diff, birth, die_next, dup, _gmask = (torch.from_numpy(a).to(device) for a in stacked)
+        trans, passign, base, diff, birth, die_next, dup, _gmask = (
+            torch.from_numpy(a).to(device, torch.bool if a.dtype == np.bool_ else dtype) for a in stacked)
         red, _scaling = genotyping.forward_backward_plain(*static[:3], diff, base, passign, trans, birth,
                                                           die_next, dup)
         return genotyping.likelihoods_from_red(red.cpu().numpy(), stacked[7][0])
@@ -2709,18 +2865,24 @@ def _gq_unrounded(lik, gt) -> float:
     return -10.0 * math.log10(wrong) if wrong > 0 else math.inf
 
 
-def geno_cli_instance(data, label, atol, min_concordance, **kwargs):
+def geno_cli_instance(data, label, atol, min_concordance, kernels=("geno_backward", "geno_forward"), plain=True,
+                      f32_range=False, **kwargs):
     """Genotype the files of `data` through run_genotype on the card (the
     launch counters set to 0 just before and read just after; one launch of
-    each genotyping kernel per GenotypeDPTable call, no plain version, no
-    wMEC kernel), then again with the float64 plain route on the card handed
+    each of `kernels` per GenotypeDPTable call, no plain version, no other
+    kernel), then, with `plain`, again with the float64 plain route on the card handed
     in and the first run's reads replayed; the first VCF must meet the
     reference's CLI bar against the second (cli_bar: GT exact, GL within
     5e-3, GQ exact but where a difference of 1 is f32 rounding: the float64
     value within 4.4e-4 of a half-integer, and the kernels' likelihoods
     there within `atol` of the plain route's), and agree with the simulated
-    genotypes above `min_concordance` in every sample.  Returns the counted
-    run's launches and (prepared static shape, stacked inputs) of its
+    genotypes above `min_concordance` in every sample.  With `f32_range` the
+    float32 plain route runs too, on the same reads: the kernels' VCF must
+    meet the CLI bar against it with GQ exact, and a GQ that differs from
+    the float64 route's is also excused where the float32 plain route's GQ
+    there is the kernels' (a wrong genotypes' likelihood past float32's
+    range: the float32 route itself departs, not the kernels).  Returns the
+    counted run's launches and (prepared static shape, stacked inputs) of its
     largest instance."""
     from whatshap_torch.cli import genotype as geno_cli
 
@@ -2751,14 +2913,17 @@ def geno_cli_instance(data, label, atol, min_concordance, **kwargs):
     shapes = [(t._packed.n_cols, t._packed.K, t._packed.T, t._packed.P) for t in tables]
     print(f"{label}: {len(tables)} GenotypeDPTable call(s) (C, K, T, P) {shapes}; launches {launches}; "
           f"plain genotyping calls {probe['plain']}", flush=True)
-    for (C, K, T, _P), budget in zip(shapes, probe["budgets"]):
+    for (C, K, T, P), budget in zip(shapes, probe["budgets"]):
         per_col = T * 4 << K
-        print(f"{label}: table budget at the call {budget} bytes: at K={K}, T={T} one instance takes at "
-              f"most {budget // per_col} columns (this one {C}, {C * per_col} bytes of beta table)", flush=True)
-    _require(len(tables) > 0 and launches["geno_backward"] == launches["geno_forward"] == len(tables),
-             f"{label}: one launch of each genotyping kernel per GenotypeDPTable call")
-    _require(probe["plain"] == 0 and all(v == 0 for k, v in launches.items() if not k.startswith("geno_")),
-             f"{label}: no plain version and no wMEC kernel")
+        room = budget - genotyping.chunk_bytes(torch.device("cuda"), K, T, P)
+        cols = (room - (genotyping.instance_bytes(1, K, T, P) - per_col)) // per_col
+        print(f"{label}: table budget at the call {budget} bytes: at K={K}, T={T}, P={P} one instance takes at "
+              f"most {cols} columns (this one {C}, {genotyping.instance_bytes(C, K, T, P)} bytes of beta "
+              "table and state)", flush=True)
+    _require(len(tables) > 0 and all(launches[k] == len(tables) for k in kernels),
+             f"{label}: one launch of each of {kernels} per GenotypeDPTable call")
+    _require(probe["plain"] == 0 and all(v == 0 for k, v in launches.items() if k not in kernels),
+             f"{label}: no plain version and no other kernel")
 
     with open(out + "geno.vcf") as f:
         calls = vcf_calls(f.read())
@@ -2771,40 +2936,144 @@ def geno_cli_instance(data, label, atol, min_concordance, **kwargs):
     print(f"{label}: GT concordance with the simulated genotypes: "
           + ", ".join(f"{s} {c:.4f}" for s, c in concordance.items()), flush=True)
     _require(all(c > min_concordance for c in concordance.values()), f"{label}: genotypes recovered")
+    biggest = max(tables, key=lambda t: t._packed.n_cols)
+    prepared = genotyping.prepare_genotyping_batch([biggest._packed], biggest._pedigree)
+    if not plain:
+        return launches, prepared
 
-    plain = {}
-    reset_launches()
-    t0 = time.perf_counter()
-    with plain_genotyping(), genotype_probe(plain), replayed_reads(reads):
-        geno_cli.run_genotype(**args, output=out + "plain.vcf")
-    plain_s = time.perf_counter() - t0
-    with open(out + "plain.vcf") as f:
-        diff = cli_bar(vcf_calls(f.read()), calls)
-    kernel_launches = sum(read_launches().values())
+    plain_probe, plain_calls = {}, {}
+    for dtype in (torch.float64, torch.float32) if f32_range else (torch.float64,):
+        reset_launches()
+        t0 = time.perf_counter()
+        with plain_genotyping(dtype), genotype_probe(plain_probe), replayed_reads(reads):
+            geno_cli.run_genotype(**args, output=out + "plain.vcf")
+        plain_s = time.perf_counter() - t0
+        with open(out + "plain.vcf") as f:
+            plain_calls[dtype] = vcf_calls(f.read())
+        diff = cli_bar(plain_calls[dtype], calls)
+        kernel_launches = sum(read_launches().values())
+        print(f"{label}: {dtype} plain route on the card, the reads replayed, {plain_s:.3f} s (genotyping stage "
+              f"{geno_cli.LAST_TIMERS.elapsed('genotyping'):.3f} s); kernel launches in it {kernel_launches}; "
+              f"against it: {len(calls)} calls, sites differing {diff['sites']}, GT {len(diff['GT'])}, "
+              f"GQ {len(diff['GQ'])}, GL {len(diff['GL'])}", flush=True)
+        _require(kernel_launches == 0 and len(plain_probe["tables"]) == len(tables), f"{label}: the {dtype} plain run")
+        _require(diff["sites"] == 0 and not diff["GT"] and not diff["GL"], f"{label}: GT and GL meet the CLI bar")
+        if dtype == torch.float32:
+            _require(not diff["GQ"], f"{label}: GQ meets the CLI bar against the float32 plain route")
+        else:
+            tables64, diff64 = plain_probe["tables"], diff
     del reads
-    print(f"{label}: float64 plain route on the card, the reads replayed, {plain_s:.3f} s (genotyping stage "
-          f"{geno_cli.LAST_TIMERS.elapsed('genotyping'):.3f} s); kernel launches in it {kernel_launches}; "
-          f"against it: {len(calls)} calls, sites differing {diff['sites']}, GT {len(diff['GT'])}, "
-          f"GQ {len(diff['GQ'])}, GL {len(diff['GL'])}", flush=True)
-    _require(kernel_launches == 0 and len(plain["tables"]) == len(tables), f"{label}: the plain run")
-    _require(diff["sites"] == 0 and not diff["GT"] and not diff["GL"], f"{label}: GT and GL meet the CLI bar")
-    rounding = 0
-    for (site, gt, gq_plain, _gl), (_site, _gt, gq, _gl2) in diff["GQ"]:
-        lik64, lik32 = _site_likelihoods(plain["tables"], site), _site_likelihoods(tables, site)
+    gq32 = {site: gq for site, _gt, gq, _gl in plain_calls.get(torch.float32, [])}
+    rounding = range32 = 0
+    for (site, gt, gq_plain, _gl), (_site, _gt, gq, _gl2) in diff64["GQ"]:
+        lik64, lik32 = _site_likelihoods(tables64, site), _site_likelihoods(tables, site)
         exact64, exact32 = _gq_unrounded(lik64, gt), _gq_unrounded(lik32, gt)
         edge = abs(exact64 - math.floor(exact64) - 0.5)
         err = float(np.max(np.abs(lik32 - lik64)))
         ok = (gq is not None and gq_plain is not None and abs(int(gq) - int(gq_plain)) == 1
               and edge <= 4.4e-4 and err <= atol)
+        past = not ok and f32_range and gq32[site] == gq
         rounding += ok
+        range32 += past
+        verdict = "f32 rounding" if ok else "the float32 plain route's GQ too" if past else "FAULT"
         print(f"{label}: GQ differs at {site}: kernels {gq} ({exact32!r} unrounded), float64 plain "
-              f"{gq_plain} ({exact64!r}), {edge:.3e} from a half-integer, likelihoods max|err| {err:.3e}: "
-              f"{'f32 rounding' if ok else 'FAULT'}", flush=True)
-    print(f"{label}: GQ differences that are f32 rounding at a half-integer: {rounding} of "
-          f"{len(diff['GQ'])}", flush=True)
-    _require(rounding == len(diff["GQ"]), f"{label}: GQ meets the CLI bar")
-    biggest = max(tables, key=lambda t: t._packed.n_cols)
-    return launches, genotyping.prepare_genotyping_batch([biggest._packed], biggest._pedigree)
+              f"{gq_plain} ({exact64!r}), {edge:.3e} from a half-integer, likelihoods max|err| {err:.3e}"
+              + (f", float32 plain {gq32[site]}" if f32_range else "") + f": {verdict}", flush=True)
+    print(f"{label}: GQ differences that are f32 rounding at a half-integer: {rounding} of {len(diff64['GQ'])}"
+          + (f"; that the float32 plain route makes too: {range32}" if f32_range else ""), flush=True)
+    _require(rounding + range32 == len(diff64["GQ"]), f"{label}: GQ meets the CLI bar")
+    return launches, prepared
+
+
+GENO_FAM5_VARIANTS = 4096
+GENO_COV20_VARIANTS = 8192
+GENO_WIDE_CUT_VARIANTS = 512
+# genotype-cli-fam5's concordance gate, set from its 512-variant cut's
+# concordance on the float64 plain route (PERF.md, the genotype CLI cells)
+GENO_FAM5_CONCORDANCE = 0.85
+WIDE_GENO = ("geno_backward_wide", "geno_forward_wide")
+
+
+def geno_cli_wide(tmp, label, n_vars, coverage, seed, shape_ok, atol, min_concordance, plain, **kwargs):
+    """Phases genotype-cli-fam5 and genotype-cli-cov20 and their cuts: the
+    genotype CLI on n_vars variants past the cluster kernels, genotyped on
+    the card (geno_cli_instance: one launch of each wide kernel per
+    GenotypeDPTable call, no plain version, no cluster genotyping kernel, no
+    wMEC kernel; wall, stages, device time, idle share, budget,
+    concordance).  The float64 plain route cannot hold a whole file's beta
+    table (twice the float32 one), so the reference's CLI bar against it
+    (`plain`) runs on a GENO_WIDE_CUT_VARIANTS-variant file of the same
+    generator.  shape_ok(K, T, P) must hold for the largest instance.
+    Returns the counted run's launches and (static, stacked) of its largest
+    instance."""
+    t0 = time.perf_counter()
+    data = write_synth(f"{tmp}/{label}", n_vars, coverage, seed=seed, **kwargs.pop("synth", {}))
+    print(f"{label}: files written in {time.perf_counter() - t0:.1f} s ({data['n_reads']} reads)", flush=True)
+    ped = {"ped": data["ped"]} if data["ped"] else {}
+    launches, prepared = geno_cli_instance(data, label, atol, min_concordance, kernels=WIDE_GENO, plain=plain,
+                                           **ped, **kwargs)
+    K, T, P, _n = prepared[0]
+    print(f"{label}: its largest instance C={prepared[1][3].shape[1]}, K={K}, T={T}, P={P}", flush=True)
+    _require(shape_ok(K, T, P) and not genotyping_cuda.kernel_supported(K, T, P), f"{label}: the instance's shape")
+    del data
+    torch.cuda.empty_cache()
+    return launches, prepared
+
+
+def time_geno_wide(static, stacked, label, plain_cols=64, device="cuda"):
+    """Phase timing, rows 15-16: each wide genotyping kernel at a CLI cell's
+    instance (CUDA events), beside its float32 plain version on the first
+    `plain_cols` columns (the kernels on the same cut are held to it: rtol
+    1e-4) and its bound: the larger of the bytes (the inputs read once,
+    beta_store written once by the backward and read once by the forward),
+    the exps (2P a state, plane and column: em[t, a] is the product over p
+    of exp(ab[2p + bit_p(a)]), as rows 11-12 count them) and the f32
+    operations (the emission sums' 2P adds, in Gray order, and the 2^P
+    multiply-adds of em against passign, a state, plane and column) over
+    their peak rates."""
+    K, T, P, _n = static
+    x = genotyping.to_device(stacked, torch.device(device))
+    diff, base, passign, trans, birth, die_next, dup = x
+    B, C, S = diff.shape[0], diff.shape[1], 1 << K
+    bwd_ms = _time(lambda: genotyping_cuda.backward_wide(K, T, P, diff, base, passign, trans, birth, dup), reps=1)
+    beta, scaling = genotyping_cuda.backward_wide(K, T, P, diff, base, passign, trans, birth, dup)
+    fwd_ms = _time(lambda: genotyping_cuda.forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta),
+                   reps=1)
+    red = genotyping_cuda.forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
+    torch.cuda.synchronize()
+    _require(bool(torch.isfinite(red).all()), f"{label}: red is finite")
+    common = _nbytes(diff, base, passign, trans)
+    nbytes = {"geno_backward_wide": common + _nbytes(birth, dup, beta, scaling),
+              "geno_forward_wide": common + _nbytes(die_next, scaling, beta, red)}
+    del beta, red
+    torch.cuda.empty_cache()
+    cut = [a[:, :plain_cols].contiguous() for a in x]
+    beta, scaling = genotyping_cuda.backward_wide(K, T, P, *cut[:5], cut[6])
+    red = genotyping_cuda.forward_wide(K, T, P, *cut[:4], cut[5], scaling, beta)
+    (beta_p, scaling_p), bwd_plain_ms = _plain_ms(lambda: genotyping_cuda.backward_plain(K, T, P, *cut[:5], cut[6]))
+    red_p, fwd_plain_ms = _plain_ms(
+        lambda: genotyping_cuda.forward_plain(K, T, P, *cut[:4], cut[5], scaling_p, beta_p))
+    rel = max(_rel_err(scaling, scaling_p), _col_err(beta, beta_p), _rel_err(red, red_p))
+    print(f"{label}: wide kernels against plain on the first {plain_cols} columns: rel err {rel:.3e}", flush=True)
+    _require(rel <= 1e-4, f"{label}: wide kernels agree with plain on the cut")
+    errs = {"geno_backward_wide": max(_abs_err(beta, beta_p), _abs_err(scaling, scaling_p)),
+            "geno_forward_wide": _abs_err(_per_col(red), _per_col(red_p))}
+    cells = B * C * S
+    exps_ms = cells * T * P * 2 / PEAK_EXP_PER_S * 1e3
+    adds_ms = cells * T * (P * 2 + (1 << P)) / PEAK_F32_ADDS_PER_S * 1e3
+    tiles = genotyping_cuda.wide_tiles(K, T)
+    out = {}
+    for name, ms, plain_ms in (("geno_backward_wide", bwd_ms, bwd_plain_ms),
+                               ("geno_forward_wide", fwd_ms, fwd_plain_ms)):
+        bytes_ms = nbytes[name] / PEAK_BYTES_PER_S * 1e3
+        bound = max(bytes_ms, exps_ms, adds_ms)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, max_abs_err=errs[name],
+                         bound_by="bytes" if bound == bytes_ms else "operations")
+        print(f"{label} {name} (B={B} C={C} K={K} T={T} P={P}): {ms:.3f} ms = {1e3 * ms / C:.2f} us a column "
+              f"(plain {plain_ms:.3f} ms on {plain_cols} columns), bound {bound:.4f} ms by "
+              f"{out[name]['bound_by']} (bytes {bytes_ms:.4f}, exp {exps_ms:.4f}, f32 adds and multiply-adds "
+              f"{adds_ms:.4f} ms); {B * tiles} tiles a pass; {100 * bound / ms:.3f} % of the bound", flush=True)
+    return out
 
 
 def main() -> int:
@@ -2853,6 +3122,11 @@ def main() -> int:
     merge(compare_wide_t_cluster("cuda"))
     torch.cuda.empty_cache()
     merge(compare_geno_kernels("cuda"))
+    # rows 15-16, the genotyping kernels with the state in device memory,
+    # past the cluster kernels and against them inside their envelope
+    torch.cuda.empty_cache()
+    merge(compare_geno_wide("cuda"))
+    compare_geno_wide_cluster("cuda")
     print(f"phases 1-2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def both(hap):  # the two haplotypes of one heterozygous sample
@@ -3010,6 +3284,26 @@ def main() -> int:
         _l, geno_cli_trio_prepared = geno_cli_instance(trio, "genotype-cli-trio", atol=3e-4,
                                                        min_concordance=0.85, ped=trio["ped"])
         del trio
+        # genotype-cli-fam5: a family of three children (T = 64) and
+        # genotype-cli-cov20: one sample at --max-coverage 20 (K up to 20),
+        # both past the cluster kernels (rows 15-16), each with its CLI bar
+        # against the float64 plain route on a 512-variant cut
+        torch.cuda.empty_cache()
+        fam5 = dict(seed=31, synth=dict(trio=True, children=3), atol=3e-4, min_concordance=GENO_FAM5_CONCORDANCE,
+                    shape_ok=lambda K, T, P: (T, P) == (64, 4))
+        geno_fam5_launches, geno_fam5_prepared = geno_cli_wide(tmp, "genotype-cli-fam5", GENO_FAM5_VARIANTS, 5,
+                                                               plain=False, **fam5)
+        geno_cli_wide(tmp, f"genotype-cli-fam5-{GENO_WIDE_CUT_VARIANTS}", GENO_WIDE_CUT_VARIANTS, 5, plain=True,
+                      **fam5)
+        # at --max-coverage 20 some wrong genotypes' likelihoods fall past
+        # float32's range (below 1.4e-45): the cut is also held to the
+        # float32 plain route (geno_cli_instance, f32_range)
+        cov20 = dict(seed=37, synth=dict(mixed=True), atol=2e-4, min_concordance=0.9, max_coverage=20,
+                     shape_ok=lambda K, T, P: T == 1 and K > 17)
+        _l, geno_cov20_prepared = geno_cli_wide(tmp, "genotype-cli-cov20", GENO_COV20_VARIANTS, 22, plain=False,
+                                                **cov20)
+        geno_cli_wide(tmp, f"genotype-cli-cov20-{GENO_WIDE_CUT_VARIANTS}", GENO_WIDE_CUT_VARIANTS, 22, plain=True,
+                      f32_range=True, **cov20)
     print(f"phases 12-13 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 14. kernel times at the main paths' shapes
@@ -3043,6 +3337,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     time_geno_kernels(*geno_cli_trio_prepared, "genotype-cli-trio")
     del geno_cli_trio_prepared
+    torch.cuda.empty_cache()
+    # rows 15-16: the wide genotyping kernels at the instances of
+    # genotype-cli-fam5 (the kernels line) and genotype-cli-cov20
+    times.update(time_geno_wide(*geno_fam5_prepared, "genotype-cli-fam5"))
+    del geno_fam5_prepared
+    torch.cuda.empty_cache()
+    time_geno_wide(*geno_cov20_prepared, "genotype-cli-cov20")
+    del geno_cov20_prepared
     torch.cuda.empty_cache()
     times.update(time_carry_kernels(packed_g, 2048, "segmented"))
     times.update(time_carry_kernels(packed_gt, 512, "segmented-trio"))
@@ -3079,6 +3381,7 @@ def main() -> int:
     launches.update({k: cli_launches[k] for k in ("wmec_forward_t1", "wmec_backtrace_t1")})
     launches.update({k: cli_trio_launches[k] for k in pedigree_kernels})
     launches.update({k: geno_cli_launches[k] for k in ("geno_backward", "geno_forward")})
+    launches.update({k: geno_fam5_launches[k] for k in WIDE_GENO})
     launches["wmec_forward_carry_t1"] = seg_launches["wmec_forward_carry_t1"]
     launches["wmec_forward_t1:carry_in"] = seg_launches["wmec_forward_t1"]
     launches["wmec_forward_carry_t"] = seg_trio_launches["wmec_forward_carry_t"]

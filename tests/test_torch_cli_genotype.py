@@ -204,3 +204,23 @@ def test_genotype_cli_without_cuda_writes_nothing(tmp_path):
     assert proc.returncode != 0
     assert "CUDA device" in proc.stderr
     assert not out.exists() and not priors.exists()
+
+
+def test_genotype_family_of_three_children_meets_the_cli_bar(tmp_path, monkeypatch):
+    """A family of two parents and three children (T = 64 transmission
+    values, past the card's cluster genotyping kernels; one read a sample
+    and variant, K = 10), written under tmp_path by chip_smoke.write_synth:
+    the port's float64 CPU route meets the reference CLI's bar against the
+    reference's default route."""
+    from chip_smoke import write_synth
+
+    monkeypatch.delenv("WHATSHAP_TPU_GENO_BACKEND", raising=False)
+    data = write_synth(tmp_path / "fam5", 96, 1, seed=5, trio=True, children=3)
+    args = dict(phase_input_files=[data["bam"]], variant_file=data["vcf"], reference=data["fasta"],
+                ped=data["ped"], write_command_line_header=False)
+    ref_run_genotype(**args, output=str(tmp_path / "ref.vcf"))
+    run_genotype(**args, output=str(tmp_path / "port.vcf"), device="cpu")
+    calls = vcf_calls((tmp_path / "ref.vcf").read_text())
+    assert len({call[0][2] for call in calls}) == 5 and sum(bool(call[3]) for call in calls) > 400
+    diff = cli_bar(calls, vcf_calls((tmp_path / "port.vcf").read_text()))
+    assert diff["sites"] == 0 and not diff["GT"] and not diff["GQ"] and not diff["GL"], diff

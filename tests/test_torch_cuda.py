@@ -750,11 +750,13 @@ def test_wide_t_route_on_cuda_matches_cpu(cuda_device, pedigree, monkeypatch):
         assert np.array_equal(gpu._result.trans_path, cpu._result.trans_path)
 
 
-def _geno_instance(n_cols, coverage, n_ind, trios, seed, zero_prior=None):
+def _geno_instance(n_cols, coverage, n_ind, trios, seed, zero_prior=None, break_at=None):
     """A genotyping instance whose reads tile the columns in `coverage`
     lanes per individual (so K = coverage * n_ind), random priors; with
-    zero_prior = c the first individual's prior at column c is all 0.
-    Returns (readset, positions, pedigree, numeric sample ids)."""
+    zero_prior = c the first individual's prior at column c is all 0; with
+    break_at = c no read spans columns c - 1 and c (a new range starts at c
+    with all its slots born).  Returns (readset, positions, pedigree,
+    numeric sample ids)."""
     rng = np.random.RandomState(seed)
     positions = ((np.arange(n_cols) + 1) * 10).tolist()
     rs = core.ReadSet()
@@ -762,7 +764,11 @@ def _geno_instance(n_cols, coverage, n_ind, trios, seed, zero_prior=None):
         for lane in range(coverage):
             start = 0
             while start < n_cols - 1:
-                length = int(np.clip(rng.poisson(6), 2, n_cols - start))
+                end = break_at if break_at is not None and start < break_at else n_cols
+                if end - start < 2:
+                    start = end
+                    continue
+                length = int(np.clip(rng.poisson(6), 2, end - start))
                 read = core.Read(f"i{ind}_l{lane}_{start}", 50, 0, ind)
                 for c in range(start, start + length):
                     read.add_variant(positions[c], int(rng.randint(0, 2)), int(rng.randint(5, 40)))
@@ -884,14 +890,179 @@ def test_genotype_route_on_cuda_at_k17(cuda_device):
 
 @pytest.mark.cuda
 def test_genotype_route_on_cuda_refuses_what_it_cannot_solve(cuda_device):
-    """Three trios (T = 64), or one sample above K = 17, raise on CUDA
-    instead of leaving the card."""
-    rs, positions, ped, nsi = _geno_instance(12, 1, 5, ((0, 1, 2), (0, 1, 3), (0, 1, 4)), seed=1)
-    with pytest.raises(NotImplementedError, match="wider envelope"):
+    """One sample above K = 23, past both kernels' envelopes, raises on CUDA
+    instead of leaving the card, naming ROADMAP Queue 1 item 5."""
+    rs, positions, ped, nsi = _geno_instance(12, 24, 1, (), seed=2)
+    with pytest.raises(NotImplementedError, match="wider envelope, ROADMAP Queue 1 item 5"):
         core.GenotypeDPTable(nsi, rs, [10] * 12, ped, positions)
-    rs, positions, ped, nsi = _geno_instance(30, 18, 1, (), seed=2)
-    with pytest.raises(NotImplementedError, match="wider envelope"):
-        core.GenotypeDPTable(nsi, rs, [10] * 30, ped, positions)
+
+
+FAMILY5 = (5, ((0, 1, 2), (0, 1, 3), (0, 1, 4)))  # three children: T = 64, P = 4
+GENO_DOUBLE_TRIO = (5, ((0, 1, 2), (2, 3, 4)))  # three founders: T = 16, P = 6
+
+
+def _wide_geno_inputs(pedigree, coverage, device, n_cols=40):
+    """Prepared inputs of two instances of `pedigree` on `device`: instance
+    0 with a zero-sum prior column, instance 1 with a new range at column 16
+    whose slots are all born (more than a wide tile's bits: further fold
+    passes)."""
+    from whatshap_torch.ops import genotyping
+
+    n_ind, trios = pedigree
+    parts = []
+    for b in range(2):
+        rs, positions, ped, _nsi = _geno_instance(n_cols, coverage, n_ind, trios, 700 + 10 * coverage + b,
+                                                  zero_prior=20 if b == 0 else None,
+                                                  break_at=16 if b == 1 else None)
+        packed = wmec.pack_problem(rs, [7] * n_cols, ped, False, positions,
+                                   check_conflicts=False, emission_tables=False)
+        static, stacked = genotyping.prepare_genotyping_batch([packed], ped)
+        assert static[0] == coverage * n_ind
+        parts.append(stacked)
+    stacked = [np.concatenate(xs) for xs in zip(*parts)]
+    return static, stacked, genotyping.to_device(stacked, device)
+
+
+def _geno_close(got, want, nan_rows=(True, False)):
+    """compare_geno_kernels' bars: scaling and red within rtol 1e-4,
+    beta_store within 1e-4 of its column's largest, identical NaN patterns;
+    the zero-sum prior's NaN in the instances nan_rows names."""
+    (beta, scaling, red), (beta_p, scaling_p, red_p) = got, want
+    for x, y in ((scaling, scaling_p), (red, red_p)):
+        _rel_close(x, y, 1e-4)
+    assert torch.equal(beta.isnan(), beta_p.isnan())
+    col_max = beta_p.flatten(2).amax(dim=2)
+    ok = ~col_max.isnan()
+    err = (beta - beta_p).abs().flatten(2).amax(dim=2)
+    assert bool((err[ok] <= 1e-4 * col_max[ok]).all())
+    assert torch.isnan(red).flatten(1).any(dim=1).tolist() == list(nan_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pedigree,coverage,shape", [
+    (FAMILY5, 2, (10, 64, 4)), (GENO_DOUBLE_TRIO, 2, (10, 16, 6)), ((1, ()), 20, (20, 1, 2)),
+], ids=["t64", "p6", "k20"])
+def test_geno_wide_kernels_match_plain(cuda_device, pedigree, coverage, shape):
+    """Both wide genotyping kernels (the state in device memory) against
+    their float32 plain versions on the same CUDA tensors, past the cluster
+    kernels: three children (T = 64), three founders (P = 6), one sample at
+    K = 20; backward and forward take them by shape, one launch each."""
+    from whatshap_torch.ops import genotyping_cuda
+
+    (K, T, P, _n), _stacked, x = _wide_geno_inputs(pedigree, coverage, cuda_device)
+    assert (K, T, P) == shape and not genotyping_cuda.kernel_supported(K, T, P)
+    diff, base, passign, trans, birth, die_next, dup = x
+    counters = (genotyping_cuda.backward, genotyping_cuda.forward, genotyping_cuda.backward_wide,
+                genotyping_cuda.forward_wide)
+    before = [fn.launches for fn in counters]
+    beta, scaling = genotyping_cuda.backward(K, T, P, diff, base, passign, trans, birth, dup)
+    red = genotyping_cuda.forward(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 1, 1]
+    beta_p, scaling_p = genotyping_cuda.backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
+    red_p = genotyping_cuda.forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling_p, beta_p)
+    torch.cuda.synchronize()
+    _geno_close((beta, scaling, red), (beta_p, scaling_p, red_p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pedigree,coverage", [((1, ()), 3), (TRIO, 1), (GENO_DOUBLE_TRIO, 1), (FAMILY5, 1)],
+                         ids=["t1-k3", "t4-k3", "p6-k5", "t64-k5"])
+def test_geno_wide_kernels_match_plain_below_a_tile(cuda_device, pedigree, coverage):
+    """The wide kernels, called directly, at K below a tile's bits: tiles of
+    the whole instance (8 or 32 states in each plane), fewer than 16 states
+    a thread, one or two threads a plane."""
+    from whatshap_torch.ops import genotyping_cuda
+
+    (K, T, P, _n), _stacked, x = _wide_geno_inputs(pedigree, coverage, cuda_device)
+    assert genotyping_cuda.wide_tiles(K, T) == 1
+    diff, base, passign, trans, birth, die_next, dup = x
+    beta, scaling = genotyping_cuda.backward_wide(K, T, P, diff, base, passign, trans, birth, dup)
+    red = genotyping_cuda.forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
+    beta_p, scaling_p = genotyping_cuda.backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
+    red_p = genotyping_cuda.forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling_p, beta_p)
+    torch.cuda.synchronize()
+    _geno_close((beta, scaling, red), (beta_p, scaling_p, red_p))
+
+
+@pytest.mark.cuda
+def test_geno_wide_kernels_match_cluster_kernels(cuda_device):
+    """Inside the cluster kernels' envelope (a trio at K = 12) the wide
+    kernels, called directly, agree with the cluster kernels."""
+    from whatshap_torch.ops import genotyping_cuda
+
+    (K, T, P, _n), _stacked, x = _wide_geno_inputs(TRIO, 4, cuda_device)
+    assert genotyping_cuda.kernel_supported(K, T, P)
+    diff, base, passign, trans, birth, die_next, dup = x
+    beta, scaling = genotyping_cuda.backward_wide(K, T, P, diff, base, passign, trans, birth, dup)
+    red = genotyping_cuda.forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
+    beta_c, scaling_c = genotyping_cuda.backward(K, T, P, diff, base, passign, trans, birth, dup)
+    red_c = genotyping_cuda.forward(K, T, P, diff, base, passign, trans, die_next, scaling_c, beta_c)
+    torch.cuda.synchronize()
+    _geno_close((beta, scaling, red), (beta_c, scaling_c, red_c))
+
+
+@pytest.mark.cuda
+def test_geno_wide_kernels_match_plain_over_many_instances(cuda_device):
+    """300 instances of one tile each (T = 1, K = 10): the wide kernels'
+    CTAs take more than one instance and every instance spans CTAs, so the
+    sums run over the partial rows of several CTAs; the zero-sum prior's
+    NaN stays in the instances that have it."""
+    from whatshap_torch.ops import genotyping, genotyping_cuda
+
+    parts = []
+    for b in range(4):
+        rs, positions, ped, _nsi = _geno_instance(12, 10, 1, (), 900 + b, zero_prior=5 if b == 0 else None)
+        packed = wmec.pack_problem(rs, [7] * 12, ped, False, positions, check_conflicts=False, emission_tables=False)
+        (K, T, P, _n), stacked = genotyping.prepare_genotyping_batch([packed], ped)
+        parts.append(stacked)
+    order = np.arange(300) % 4
+    stacked = [np.concatenate([parts[i][j] for i in order]) for j in range(len(parts[0]))]
+    assert (K, T, P) == (10, 1, 2) and genotyping_cuda.wide_tiles(K, T) == 1
+    diff, base, passign, trans, birth, die_next, dup = genotyping.to_device(stacked, cuda_device)
+    beta, scaling = genotyping_cuda.backward_wide(K, T, P, diff, base, passign, trans, birth, dup)
+    red = genotyping_cuda.forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
+    beta_p, scaling_p = genotyping_cuda.backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
+    red_p = genotyping_cuda.forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling_p, beta_p)
+    torch.cuda.synchronize()
+    _geno_close((beta, scaling, red), (beta_p, scaling_p, red_p), nan_rows=(order == 0).tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pedigree,coverage,atol", [(FAMILY5, 2, 3e-4), ((1, ()), 18, 2e-4)], ids=["t64", "k18"])
+def test_genotype_route_on_cuda_past_the_cluster_kernels(cuda_device, pedigree, coverage, atol):
+    """GenotypeDPTable on the card past the cluster kernels (three children,
+    T = 64; one sample at K = 18): one launch of each wide kernel, within
+    the reference's f32 bar of the float64 CPU route."""
+    from whatshap_torch.ops import genotyping_cuda
+
+    n_ind, trios = pedigree
+    rs, positions, ped, nsi = _geno_instance(36, coverage, n_ind, trios, seed=8)
+    before = (genotyping_cuda.backward_wide.launches, genotyping_cuda.forward_wide.launches)
+    gpu = core.GenotypeDPTable(nsi, rs, [10] * 36, ped, positions)
+    assert gpu._packed.K == coverage * n_ind
+    assert (genotyping_cuda.backward_wide.launches, genotyping_cuda.forward_wide.launches) == (
+        before[0] + 1, before[1] + 1)
+    cpu = core.GenotypeDPTable(nsi, rs, [10] * 36, ped, positions, device="cpu")
+    np.testing.assert_allclose(gpu._likelihoods, cpu._likelihoods, atol=atol)
+
+
+@pytest.mark.cuda
+def test_genotype_route_past_the_cluster_never_runs_the_plain_versions(cuda_device, monkeypatch):
+    """With every plain version made to raise, a family of three children
+    (T = 64) still genotypes on the card, through the wide kernels."""
+    from whatshap_torch.ops import genotyping, genotyping_cuda
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a plain version ran on the CUDA route")
+
+    for mod, name in [(genotyping, "forward_backward_plain"), (genotyping_cuda, "backward_plain"),
+                      (genotyping_cuda, "forward_plain")]:
+        monkeypatch.setattr(mod, name, refuse)
+    rs, positions, ped, nsi = _geno_instance(30, 2, 5, FAMILY5[1], seed=4)
+    before = genotyping_cuda.forward_wide.launches
+    table = core.GenotypeDPTable(nsi, rs, [10] * 30, ped, positions)
+    assert genotyping_cuda.forward_wide.launches == before + 1
+    assert np.isfinite(table._likelihoods).all() and table._likelihoods.shape == (30, 5, 3)
 
 
 @pytest.mark.cuda

@@ -21,9 +21,10 @@ Three parts:
   yardstick of the route on any device;
 - the route (run_genotyping, launch_genotyping, forward_backward): through
   genotyping_cuda's wrappers, so on a CUDA device every instance goes to
-  the float32 kernels, and what they cannot take raises
-  NotImplementedError instead of leaving the card; on the CPU the wrappers
-  run the plain versions in float64.
+  the float32 kernels (the cluster kernels, or past their envelope the
+  wide kernels with the state in device memory), and what neither can
+  take raises NotImplementedError instead of leaving the card; on the CPU
+  the wrappers run the plain versions in float64.
 """
 
 from typing import Optional
@@ -203,16 +204,17 @@ def likelihoods_from_red(red: np.ndarray, gmask: np.ndarray) -> np.ndarray:
 def _unsupported(K: int, T: int, P: int) -> NotImplementedError:
     return NotImplementedError(
         f"no CUDA genotyping kernel for K={K}, T={T}, P={P} yet: shapes beyond the "
-        f"kernels' envelope ({genotyping_cuda.ENVELOPE}) need kernels with a wider "
-        "envelope, ROADMAP Queue 1 item 5"
+        f"kernels' envelopes ({genotyping_cuda.ENVELOPE}; wide: {genotyping_cuda.WIDE_ENVELOPE}) "
+        "need kernels with a wider envelope, ROADMAP Queue 1 item 5"
     )
 
 
 def _over_budget(K: int, T: int, need: int, budget: int) -> NotImplementedError:
     return NotImplementedError(
-        f"one genotyping instance of K={K}, T={T} needs {need} bytes of beta table on the "
-        f"card, above the table budget of {budget} bytes: an instance beyond the memory "
-        "budget needs the checkpointed genotyping pass, ROADMAP Queue 1 item 4"
+        f"one genotyping instance of K={K}, T={T} needs {need} bytes on the card (its beta "
+        "table, and past the cluster kernels the wide kernels' scratch), above the table "
+        f"budget of {budget} bytes: an instance beyond the memory budget needs the "
+        "checkpointed genotyping pass, ROADMAP Queue 1 item 4"
     )
 
 
@@ -235,20 +237,46 @@ def to_device(stacked, device: torch.device):
     )
 
 
+def instance_bytes(C: int, K: int, T: int, P: int) -> int:
+    """Device bytes one instance of C columns takes in the forward-backward:
+    its beta table (C * T * 2^K float32) and, past the cluster kernels'
+    envelope, what the wide kernels allocate for it beside the table: the
+    forward's state alpha (T * 2^K float32) and its two rows of partial sums
+    of red (2 * T * 2^P float32)."""
+    table = C * T * 4 << K
+    if genotyping_cuda.kernel_supported(K, T, P):
+        return table
+    return table + (T * 4 << K) + (2 * T * 4 << P)
+
+
+def chunk_bytes(device: torch.device, K: int, T: int, P: int) -> int:
+    """Device bytes a chunk of instances takes once, whatever its size:
+    past the cluster kernels' envelope on CUDA, the wide forward's two rows
+    of partial sums of red (2 * T * 2^P float32) for each CTA it may
+    launch."""
+    if device.type != "cuda" or genotyping_cuda.kernel_supported(K, T, P):
+        return 0
+    return genotyping_cuda.wide_max_ctas(device, 1 << 30, K, T) * (2 * T * 4 << P)
+
+
 def forward_backward(K, T, P, diff, base, passign, trans, birth, die_next, dup):
     """The route's forward-backward on the device its tensors lie on (from
     to_device): genotyping_cuda.backward, then forward, which launch the
-    float32 kernels on CUDA and run the plain versions on the CPU.  The
-    instances are split into sequential chunks whose beta tables stay under
-    wmec's table budget.  Returns red (B, C, T, nA)."""
+    float32 kernels on CUDA (the cluster kernels inside their envelope, the
+    wide kernels past it) and run the plain versions on the CPU.  The
+    instances are split into sequential chunks whose bytes (instance_bytes
+    each, chunk_bytes once) stay under wmec's table budget.  Returns red
+    (B, C, T, nA)."""
     B, C = diff.shape[0], diff.shape[1]
-    if diff.is_cuda and not genotyping_cuda.kernel_supported(K, T, P):
+    supported = genotyping_cuda.kernel_supported(K, T, P) or genotyping_cuda.wide_supported(K, T, P)
+    if diff.is_cuda and not supported:
         raise _unsupported(K, T, P)
-    per_instance = C * T * 4 << K
+    per_instance = instance_bytes(C, K, T, P)
+    fixed = chunk_bytes(diff.device, K, T, P)
     budget = wmec._table_budget(diff.device)
-    max_b = B if budget is None else budget // per_instance
+    max_b = B if budget is None else (budget - fixed) // per_instance
     if max_b < 1:
-        raise _over_budget(K, T, per_instance, budget)
+        raise _over_budget(K, T, per_instance + fixed, budget)
     arrays = (diff, base, passign, trans, birth, die_next, dup)
     reds = []
     for lo in range(0, B, max_b):

@@ -12,6 +12,17 @@ Replaces whatshap_tpu/ops/genotyping_pallas.py forward_backward_pallas:
   forward * beta products `red`, from which the host takes the genotype
   marginals (genotyping.likelihoods_from_red).
 
+Both keep an instance's state on the chip (one thread-block cluster each),
+inside ENVELOPE.  Past it, backward_wide and forward_wide launch
+csrc/geno_backward_wide.cu and csrc/geno_forward_wide.cu, the same two
+passes with the state in device memory (one cooperative launch, a
+grid-wide barrier after each pass over tiles of the state in shared
+memory, csrc/geno_wide.cuh), at T = 1 or T up to 256 with P up to 8 and K
+up to 23 (WIDE_ENVELOPE): they replace the XLA forward-backward the
+reference runs past its Pallas envelope (whatshap_tpu/ops/genotyping_jax.py
+_forward_backward, _forward_backward_batched).  backward and forward hand
+them every shape past kernel_supported, by shape alone.
+
 Both take the per-column tables of genotyping.prepare_genotyping_batch in
 float32, flattened per column as the Pallas kernels take them: diff (B, C, K,
 T*P*2), base (B, C, T*P*2), passign (B, C, T*2^P), trans (B, C, T*T) with
@@ -29,7 +40,7 @@ route, in float32 the yardstick the kernels are held against.
 import numpy as np
 import torch
 
-from .wmec_cuda import _check, _check_device, _launch
+from .wmec_cuda import MAX_K_WIDE, WIDE_P, WIDE_T, _check, _check_device, _launch
 
 #: Largest K of the kernels per transmission count T, and the founder
 #: partition counts they are built for.  T = 1 reaches K = 17, the
@@ -43,12 +54,48 @@ ENVELOPE = "; ".join(f"T = {t}, P in {P_OF_T[t]}, K <= {k}" for t, k in MAX_K_T.
 #: (csrc/geno_cluster.cuh kMaxCtaBits, kThreadBits).
 MAX_CTA_BITS = 4
 THREAD_BITS = 9
+#: The wide kernels' envelope, that of the wide wMEC kernels
+#: (wmec_cuda.WIDE_T, WIDE_P, MAX_K_WIDE): one sample (T = 1, P = 2), or a
+#: pedigree of T in WIDE_T transmission values with P in WIDE_P, at any K up
+#: to MAX_K_WIDE, the ceiling of the phase CLI.
+WIDE_ENVELOPE = f"T = 1, P = 2, K <= {MAX_K_WIDE}; T in {WIDE_T}, P in {WIDE_P}, K <= {MAX_K_WIDE}"
+#: A wide kernel's tile: at most WIDE_TILE entries (plane, state), the coset
+#: of min(K, log2(WIDE_TILE / T)) state bits in all T planes; CTAs of 256
+#: threads, at most WIDE_MAX_CTAS_PER_SM of them resident on an SM (2048
+#: threads), which bounds the rows of partial sums a launch needs
+#: (csrc/geno_wide.cuh).
+WIDE_TILE = 4096
+WIDE_MAX_CTAS_PER_SM = 8
 
 
 def kernel_supported(K: int, T: int, P: int) -> bool:
     """Shapes the kernels take: T in MAX_K_T, P in P_OF_T[T], 1 <= K <=
     MAX_K_T[T]."""
     return T in MAX_K_T and P in P_OF_T[T] and 1 <= K <= MAX_K_T[T]
+
+
+def wide_supported(K: int, T: int, P: int) -> bool:
+    """Shapes the wide kernels take: T == 1 with P == 2, or T in WIDE_T with
+    P in WIDE_P, and 1 <= K <= MAX_K_WIDE."""
+    if T == 1:
+        return P == 2 and 1 <= K <= MAX_K_WIDE
+    return T in WIDE_T and P in WIDE_P and 1 <= K <= MAX_K_WIDE
+
+
+def wide_tiles(K: int, T: int) -> int:
+    """Tiles of one instance in the wide kernels: 2^K over the states of a
+    tile, min(2^K, WIDE_TILE / T)."""
+    return (1 << K) // min(1 << K, WIDE_TILE // T)
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def wide_max_ctas(dev: torch.device, B: int, K: int, T: int) -> int:
+    """The most CTAs a wide launch over B instances takes: no more than its
+    tiles, nor than the card keeps resident."""
+    return min(B * wide_tiles(K, T), WIDE_MAX_CTAS_PER_SM * _sm_count(dev))
 
 
 def cluster_layout(K: int):
@@ -169,23 +216,32 @@ def forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling, beta_s
     return red.reshape(B, C, T * nA)
 
 
-def _check_inputs(name, K, T, P, diff, base, passign, trans, flags, per_col):
-    """Shape checks shared by both wrappers: float32, or float64 on the CPU,
-    and on CUDA a shape inside the kernels' envelope; returns the device."""
+def _check_inputs(name, K, T, P, diff, base, passign, trans, flags, per_col, wide_only=False):
+    """Shape checks shared by the wrappers: float32, or float64 on the CPU,
+    and on CUDA a shape one of the kernels takes (with wide_only, the wide
+    kernels); returns the device."""
     B, C = diff.shape[0], diff.shape[1]
-    if diff.is_cuda and not kernel_supported(K, T, P):
-        raise ValueError(f"{name}: unsupported shape K={K}, T={T}, P={P} ({ENVELOPE})")
+    dev = _check_device(diff, base, passign, trans, flags, per_col)
+    ok = wide_supported(K, T, P) or (not wide_only and kernel_supported(K, T, P))
+    if dev.type == "cuda" and not ok:
+        envelope = WIDE_ENVELOPE if wide_only else f"{ENVELOPE}; wide: {WIDE_ENVELOPE}"
+        raise ValueError(f"{name}: unsupported shape K={K}, T={T}, P={P} ({envelope})")
     if B < 1 or C < 1:
         raise ValueError(f"{name}: needs at least one instance and one column")
     nA = 1 << P
-    dtype = torch.float64 if not diff.is_cuda and diff.dtype == torch.float64 else torch.float32
+    dtype = torch.float64 if dev.type == "cpu" and diff.dtype == torch.float64 else torch.float32
     _check(diff, "diff", dtype, (B, C, K, T * P * 2))
     _check(base, "base", dtype, (B, C, T * P * 2))
     _check(passign, "passign", dtype, (B, C, T * nA))
     _check(trans, "trans", dtype, (B, C, T * T))
     _check(flags, "fold flags", torch.bool, (B, C, K))
     _check(per_col, "per-column scale", dtype, (B, C))
-    return _check_device(diff, base, passign, trans, flags, per_col)
+    return dev
+
+
+def _run(dev, name, *args) -> None:
+    with torch.cuda.device(dev):
+        _launch(name, *args)
 
 
 def backward(K, T, P, diff, base, passign, trans, birth, dup):
@@ -194,26 +250,58 @@ def backward(K, T, P, diff, base, passign, trans, birth, dup):
     inactive-bit duplicate factor 2^(K - active).  Returns beta_store (B, C,
     T, 2^K), the incoming beta of every column scaled by its sum, and scaling
     (B, C), in the inputs' dtype, as the Pallas backward kernel does.  On
-    CUDA each instance runs as one cluster of CTAs (cluster_layout)."""
+    CUDA each instance runs as one cluster of CTAs (cluster_layout) where
+    kernel_supported, and the shapes past it go to backward_wide."""
     dev = _check_inputs("backward", K, T, P, diff, base, passign, trans, birth, dup)
     if dev.type == "cpu":
         return backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
+    if not kernel_supported(K, T, P):
+        return backward_wide(K, T, P, diff, base, passign, trans, birth, dup)
 
     B, C, S = diff.shape[0], diff.shape[1], 1 << K
-    beta_store = torch.empty((B, C, T, S), dtype=torch.float32, device=dev)
-    scaling = torch.empty((B, C), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch(
-            "geno_backward",
-            diff.data_ptr(), base.data_ptr(), passign.data_ptr(), trans.data_ptr(),
-            birth.data_ptr(), dup.data_ptr(), beta_store.data_ptr(), scaling.data_ptr(),
-            B, C, K, T, P,
-        )
+    beta_store = torch.empty((B, C, T, S), dtype=torch.float32, device=diff.device)
+    scaling = torch.empty((B, C), dtype=torch.float32, device=diff.device)
+    _run(
+        dev, "geno_backward",
+        diff.data_ptr(), base.data_ptr(), passign.data_ptr(), trans.data_ptr(),
+        birth.data_ptr(), dup.data_ptr(), beta_store.data_ptr(), scaling.data_ptr(),
+        B, C, K, T, P,
+    )
     backward.launches += 1
     return beta_store, scaling
 
 
 backward.launches = 0
+
+
+def backward_wide(K, T, P, diff, base, passign, trans, birth, dup):
+    """backward with the state in device memory (csrc/geno_backward_wide.cu),
+    at any shape of WIDE_ENVELOPE, inside the cluster kernel's envelope too;
+    the same function and outputs.  The kernel keeps its state in
+    beta_store itself and needs only a few scratch words beside it."""
+    dev = _check_inputs("backward_wide", K, T, P, diff, base, passign, trans, birth, dup, wide_only=True)
+    if dev.type == "cpu":
+        return backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
+
+    B, C, S = diff.shape[0], diff.shape[1], 1 << K
+    beta_store = torch.empty((B, C, T, S), dtype=torch.float32, device=diff.device)
+    scaling = torch.empty((B, C), dtype=torch.float32, device=diff.device)
+    max_ctas = wide_max_ctas(dev, B, K, T)
+    masks = torch.empty((B, C), dtype=torch.int32, device=diff.device)
+    npass = torch.empty((C,), dtype=torch.int32, device=diff.device)
+    part = torch.empty((2, max_ctas + B), dtype=torch.float32, device=diff.device)
+    _run(
+        dev, "geno_backward_wide",
+        diff.data_ptr(), base.data_ptr(), passign.data_ptr(), trans.data_ptr(),
+        birth.data_ptr(), dup.data_ptr(), beta_store.data_ptr(), scaling.data_ptr(),
+        masks.data_ptr(), npass.data_ptr(), part.data_ptr(),
+        B, C, K, T, P, max_ctas,
+    )
+    backward_wide.launches += 1
+    return beta_store, scaling
+
+
+backward_wide.launches = 0
 
 
 def forward(K, T, P, diff, base, passign, trans, die_next, scaling, beta_store):
@@ -222,24 +310,59 @@ def forward(K, T, P, diff, base, passign, trans, die_next, scaling, beta_store):
     Returns red (B, C, T * 2^P) in the inputs' dtype: red[b, c, t*nA + a] is the sum over
     the bipartitions of forward * beta of transmission t and allele
     assignment a, as the Pallas forward kernel emits it.  On CUDA each
-    instance runs as one cluster of CTAs, as in backward."""
+    instance runs as one cluster of CTAs where kernel_supported, and the
+    shapes past it go to forward_wide, as in backward."""
     dev = _check_inputs("forward", K, T, P, diff, base, passign, trans, die_next, scaling)
     B, C, S = diff.shape[0], diff.shape[1], 1 << K
     _check(beta_store, "beta_store", diff.dtype, (B, C, T, S))
     _check_device(diff, beta_store)
     if dev.type == "cpu":
         return forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling, beta_store)
+    if not kernel_supported(K, T, P):
+        return forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta_store)
 
-    red = torch.empty((B, C, T << P), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch(
-            "geno_forward",
-            diff.data_ptr(), base.data_ptr(), passign.data_ptr(), trans.data_ptr(),
-            die_next.data_ptr(), scaling.data_ptr(), beta_store.data_ptr(), red.data_ptr(),
-            B, C, K, T, P,
-        )
+    red = torch.empty((B, C, T << P), dtype=torch.float32, device=diff.device)
+    _run(
+        dev, "geno_forward",
+        diff.data_ptr(), base.data_ptr(), passign.data_ptr(), trans.data_ptr(),
+        die_next.data_ptr(), scaling.data_ptr(), beta_store.data_ptr(), red.data_ptr(),
+        B, C, K, T, P,
+    )
     forward.launches += 1
     return red
 
 
 forward.launches = 0
+
+
+def forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta_store):
+    """forward with the state in device memory (csrc/geno_forward_wide.cu),
+    at any shape of WIDE_ENVELOPE, inside the cluster kernel's envelope too;
+    the same function and output.  Its scratch: the state alpha (B, T, 2^K)
+    and two rows of partial sums of red (T * 2^P) for each CTA and
+    instance."""
+    dev = _check_inputs("forward_wide", K, T, P, diff, base, passign, trans, die_next, scaling, wide_only=True)
+    B, C, S = diff.shape[0], diff.shape[1], 1 << K
+    _check(beta_store, "beta_store", diff.dtype, (B, C, T, S))
+    _check_device(diff, beta_store)
+    if dev.type == "cpu":
+        return forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling, beta_store)
+
+    red = torch.empty((B, C, T << P), dtype=torch.float32, device=diff.device)
+    max_ctas = wide_max_ctas(dev, B, K, T)
+    alpha = torch.empty((B, T, S), dtype=torch.float32, device=diff.device)
+    masks = torch.empty((B, C), dtype=torch.int32, device=diff.device)
+    npass = torch.empty((C,), dtype=torch.int32, device=diff.device)
+    part = torch.empty((2, max_ctas + B, T << P), dtype=torch.float32, device=diff.device)
+    _run(
+        dev, "geno_forward_wide",
+        diff.data_ptr(), base.data_ptr(), passign.data_ptr(), trans.data_ptr(),
+        die_next.data_ptr(), scaling.data_ptr(), beta_store.data_ptr(), red.data_ptr(),
+        alpha.data_ptr(), masks.data_ptr(), npass.data_ptr(), part.data_ptr(),
+        B, C, K, T, P, max_ctas,
+    )
+    forward_wide.launches += 1
+    return red
+
+
+forward_wide.launches = 0
