@@ -270,6 +270,10 @@ PEAK_INT32_ADDS_PER_S = 67e12 / 4
 # the 1.98 GHz boost clock (data sheet).
 PEAK_F32_ADDS_PER_S = 67e12 / 2
 PEAK_EXP_PER_S = 16 * 132 * 1.98e9
+# float32 multiply-adds on the tensor cores at float32's accuracy: the
+# data sheet's 495e12 dense TF32 FLOP/s (two a multiply-add), a third of
+# them in the 3xTF32 split (three TF32 products a float32 product)
+PEAK_TF32X3_MACS_PER_S = 495e12 / 2 / 3
 
 WRAPPERS = {
     "wmec_forward_t1": wmec_cuda.forward_t1,
@@ -1925,6 +1929,19 @@ def _lanes(K, n_ind):
     return [K // n_ind + (1 if i < K % n_ind else 0) for i in range(n_ind)]
 
 
+def wide_window_stats(K, T, P, flags, backward):
+    """The wide kernels' windows (genotyping_cuda.wide_windows, the kernels'
+    own rule) over the fold flags (B, C, K) of one pass: (windows, the
+    longest, the windows that end where the next column's slots would pass
+    the tile bits: the breaks)."""
+    lb, cap = genotyping_cuda.wide_lb(K, T), genotyping_cuda.wide_window_cap(T, P, backward)
+    uq = genotyping_cuda.wide_unions(flags, backward)
+    win = genotyping_cuda.wide_windows(uq, lb, cap)
+    starts = [q for q, n in enumerate(win) if n]
+    breaks = sum(1 for q in starts if q + win[q] < len(win) and (q + win[q]) % cap)
+    return len(starts), max(win), breaks
+
+
 def wide_passes(K, T, flags) -> int:
     """The most passes a wide genotyping kernel takes at a column where the
     fold flags (B, C, K) fold: one, and one more for each further group of
@@ -1935,11 +1952,13 @@ def wide_passes(K, T, flags) -> int:
 
 
 # genotyping past the cluster kernels (kernel rows 15-16): (T, K, pedigree)
-# of the wide kernels' checks: one sample to K = 23, a trio, a quartet,
+# of the wide kernels' checks: one sample to K = 23 (at K = 14 windows of
+# both passes that break where the slots born or dying pass the 12 tile
+# bits, the backward's in two phases), a trio, a quartet,
 # three founders (P = 6), four (P = 8), three children (T = 64) and four
 # (T = 256), four trios of four founders (T = 256, P = 8)
 GENO_WIDE_SHAPES = (
-    (1, 18, SINGLE), (1, 20, SINGLE), (1, 23, SINGLE), (4, 17, TRIO), (4, 20, TRIO), (16, 14, QUARTET),
+    (1, 14, SINGLE), (1, 18, SINGLE), (1, 20, SINGLE), (1, 23, SINGLE), (4, 17, TRIO), (4, 20, TRIO), (16, 14, QUARTET),
     (16, 12, DOUBLE_TRIO), (16, 10, FOUR_FOUNDERS), (64, 9, FAMILY5), (64, 15, FAMILY5), (256, 8, FAMILY6),
     (256, 6, FOUR_TRIOS),
 )
@@ -1997,6 +2016,7 @@ def compare_geno_wide(device, shapes=GENO_WIDE_SHAPES, n_blocks=3):
     gated.  Returns {kernel name: max abs error}."""
     err = {"geno_backward_wide": 0.0, "geno_forward_wide": 0.0}
     fwd_passes = 1
+    breaks = [0, 0]
     for T, K, pedigree in shapes:
         n_cols = 128 if K < 18 else 64
         P, stacked = geno_bucket(T, K, n_blocks, n_cols, 5000 + 10 * K + T, pedigree=pedigree,
@@ -2010,6 +2030,9 @@ def compare_geno_wide(device, shapes=GENO_WIDE_SHAPES, n_blocks=3):
               f"(backward), {passes[1]} (forward)", flush=True)
         _require(passes[0] > 1, f"{label}: further fold passes in the backward")
         fwd_passes = max(fwd_passes, passes[1])
+        stats = (wide_window_stats(K, T, P, birth, True), wide_window_stats(K, T, P, die_next, False))
+        print(f"{label}: windows (count, longest, breaks) {stats[0]} (backward), {stats[1]} (forward)", flush=True)
+        breaks = [x + st[2] * (st[1] > 1) for x, st in zip(breaks, stats)]
         before = (genotyping_cuda.backward_wide.launches, genotyping_cuda.forward_wide.launches)
         beta, scaling = genotyping_cuda.backward_wide(K, T, P, diff, base, passign, trans, birth, dup)
         red = genotyping_cuda.forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
@@ -2025,6 +2048,7 @@ def compare_geno_wide(device, shapes=GENO_WIDE_SHAPES, n_blocks=3):
         err["geno_forward_wide"] = max(err["geno_forward_wide"], e_fwd)
         del beta, beta_p, x
     _require(fwd_passes > 1, "further fold passes in the forward")
+    _require(all(breaks), "windows of several columns that break at the tile bits, in both passes")
     return err
 
 
@@ -3025,12 +3049,15 @@ def time_geno_wide(static, stacked, label, plain_cols=64, device="cuda"):
     instance (CUDA events), beside its float32 plain version on the first
     `plain_cols` columns (the kernels on the same cut are held to it: rtol
     1e-4) and its bound: the larger of the bytes (the inputs read once,
-    beta_store written once by the backward and read once by the forward),
-    the exps (2P a state, plane and column: em[t, a] is the product over p
-    of exp(ab[2p + bit_p(a)]), as rows 11-12 count them) and the f32
-    operations (the emission sums' 2P adds, in Gray order, and the 2^P
-    multiply-adds of em against passign, a state, plane and column) over
-    their peak rates."""
+    beta_store written once by the backward and read once by the forward)
+    and the operations a state, plane and column over their units' peak
+    rates: the exps (2P: em[t, a] is the product over p of exp(ab[2p +
+    bit_p(a)]), as rows 11-12 count them), the f32 operations on the CUDA
+    cores (the emission sums' 2P adds, in Gray order, and the 2^P
+    multiply-adds of em against passign) and the T multiply-adds of the
+    transmission product on the fastest unit that keeps float32's
+    accuracy, the tensor cores in the 3xTF32 split (its time on the CUDA
+    cores printed beside it)."""
     K, T, P, _n = static
     x = genotyping.to_device(stacked, torch.device(device))
     diff, base, passign, trans, birth, die_next, dup = x
@@ -3061,18 +3088,26 @@ def time_geno_wide(static, stacked, label, plain_cols=64, device="cuda"):
     cells = B * C * S
     exps_ms = cells * T * P * 2 / PEAK_EXP_PER_S * 1e3
     adds_ms = cells * T * (P * 2 + (1 << P)) / PEAK_F32_ADDS_PER_S * 1e3
+    prod_ms = cells * T * T / PEAK_TF32X3_MACS_PER_S * 1e3
+    prod_cores_ms = cells * T * T / PEAK_F32_ADDS_PER_S * 1e3
     tiles = genotyping_cuda.wide_tiles(K, T)
+    windows = {"geno_backward_wide": wide_window_stats(K, T, P, birth, True),
+               "geno_forward_wide": wide_window_stats(K, T, P, die_next, False)}
     out = {}
     for name, ms, plain_ms in (("geno_backward_wide", bwd_ms, bwd_plain_ms),
                                ("geno_forward_wide", fwd_ms, fwd_plain_ms)):
         bytes_ms = nbytes[name] / PEAK_BYTES_PER_S * 1e3
-        bound = max(bytes_ms, exps_ms, adds_ms)
+        bound = max(bytes_ms, exps_ms, adds_ms, prod_ms)
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, max_abs_err=errs[name],
                          bound_by="bytes" if bound == bytes_ms else "operations")
+        n_win, longest, breaks = windows[name]
         print(f"{label} {name} (B={B} C={C} K={K} T={T} P={P}): {ms:.3f} ms = {1e3 * ms / C:.2f} us a column "
               f"(plain {plain_ms:.3f} ms on {plain_cols} columns), bound {bound:.4f} ms by "
               f"{out[name]['bound_by']} (bytes {bytes_ms:.4f}, exp {exps_ms:.4f}, f32 adds and multiply-adds "
-              f"{adds_ms:.4f} ms); {B * tiles} tiles a pass; {100 * bound / ms:.3f} % of the bound", flush=True)
+              f"{adds_ms:.4f}, the product {prod_ms:.4f} on the tensor cores in 3xTF32 and {prod_cores_ms:.4f} "
+              f"on the CUDA cores, {adds_ms + prod_cores_ms:.4f} with the adds); {B * tiles} tiles a pass, "
+              f"{n_win} windows (longest {longest}, {breaks} breaks at the tile bits); "
+              f"{100 * bound / ms:.3f} % of the bound", flush=True)
     return out
 
 

@@ -750,14 +750,17 @@ def test_wide_t_route_on_cuda_matches_cpu(cuda_device, pedigree, monkeypatch):
         assert np.array_equal(gpu._result.trans_path, cpu._result.trans_path)
 
 
-def _geno_instance(n_cols, coverage, n_ind, trios, seed, zero_prior=None, break_at=None):
+def _geno_instance(n_cols, coverage, n_ind, trios, seed, zero_prior=None, break_at=None, error=None):
     """A genotyping instance whose reads tile the columns in `coverage`
     lanes per individual (so K = coverage * n_ind), random priors; with
     zero_prior = c the first individual's prior at column c is all 0; with
     break_at = c no read spans columns c - 1 and c (a new range starts at c
-    with all its slots born).  Returns (readset, positions, pedigree,
-    numeric sample ids)."""
+    with all its slots born).  The alleles are random, or with `error` each
+    read's haplotype (one of its individual's two random ones) with that
+    rate of allele errors.  Returns (readset, positions, pedigree, numeric
+    sample ids)."""
     rng = np.random.RandomState(seed)
+    haps = rng.randint(0, 2, size=(n_ind, 2, n_cols)) if error is not None else None
     positions = ((np.arange(n_cols) + 1) * 10).tolist()
     rs = core.ReadSet()
     for ind in range(n_ind):
@@ -770,8 +773,10 @@ def _geno_instance(n_cols, coverage, n_ind, trios, seed, zero_prior=None, break_
                     continue
                 length = int(np.clip(rng.poisson(6), 2, end - start))
                 read = core.Read(f"i{ind}_l{lane}_{start}", 50, 0, ind)
+                side = int(rng.randint(0, 2)) if haps is not None else 0
                 for c in range(start, start + length):
-                    read.add_variant(positions[c], int(rng.randint(0, 2)), int(rng.randint(5, 40)))
+                    allele = int(rng.randint(0, 2)) if haps is None else int(haps[ind, side, c] ^ (rng.rand() < error))
+                    read.add_variant(positions[c], allele, int(rng.randint(5, 40)))
                 rs.add(read)
                 start += length
     rs.sort()
@@ -1080,6 +1085,159 @@ def test_genotype_route_on_cuda_never_runs_the_plain_versions(cuda_device, monke
     rs, positions, ped, nsi = _geno_instance(40, 3, 3, TRIO[1], seed=3)
     table = core.GenotypeDPTable(nsi, rs, [10] * 40, ped, positions)
     assert np.isfinite(table._likelihoods).all() and table._likelihoods.shape == (40, 3, 3)
+
+
+FOUR_TRIOS = (8, ((0, 1, 4), (2, 3, 5), (0, 1, 6), (2, 3, 7)))  # four founders, four trios: T = 256, P = 8
+
+
+def _geno_stack(specs, device, cols=None):
+    """Prepared inputs of one instance per spec (n_cols, coverage, pedigree,
+    seed, zero_prior, break_at[, error]), all of one K, on `device`; with
+    `cols` only the first `cols` columns.  Returns ((K, T, P), the
+    tensors)."""
+    from whatshap_torch.ops import genotyping
+
+    parts = []
+    for n_cols, coverage, (n_ind, trios), seed, zero_prior, break_at, *error in specs:
+        rs, positions, ped, _nsi = _geno_instance(n_cols, coverage, n_ind, trios, seed, zero_prior=zero_prior,
+                                                  break_at=break_at, error=error[0] if error else None)
+        packed = wmec.pack_problem(rs, [7] * n_cols, ped, False, positions,
+                                   check_conflicts=False, emission_tables=False)
+        (K, T, P, _n), stacked = genotyping.prepare_genotyping_batch([packed], ped)
+        assert K == coverage * n_ind
+        parts.append(stacked)
+    stacked = [np.concatenate(xs) for xs in zip(*parts)]
+    x = genotyping.to_device(stacked, device)
+    if cols is not None:
+        x = tuple(a[:, :cols].contiguous() for a in x)
+    return (K, T, P), x
+
+
+def _windows(K, T, P, flags, backward):
+    """The wide kernels' windows of one pass (their rule's mirror)."""
+    from whatshap_torch.ops import genotyping_cuda
+
+    uq = genotyping_cuda.wide_unions(flags, backward)
+    return genotyping_cuda.wide_windows(uq, genotyping_cuda.wide_lb(K, T), genotyping_cuda.wide_window_cap(T, P, backward))
+
+
+def _pass_col(q, C, backward):
+    return C - 1 - q if backward else q
+
+
+#: (instances, cols, the instances with a zero-sum prior) of the window cases
+GENO_WINDOW_CASES = {
+    "break": ([(60, 14, (1, ()), 31, None, None)], None, (False,)),
+    "range-start": ([(60, 14, (1, ()), 32, None, 30)], None, (False,)),
+    "three-instances": ([(48, 14, (1, ()), 33, 20, None), (48, 14, (1, ()), 34, None, 24),
+                         (48, 14, (1, ()), 35, None, None)], None, (True, False, False)),
+    "nan-in-window": ([(60, 14, (1, ()), 36, 29, None)], None, (True,)),
+    "c1": ([(20, 2, FAMILY5, 37, None, None)], 1, (False,)),
+    "c2": ([(20, 2, FAMILY5, 38, None, None), (20, 2, FAMILY5, 39, None, None)], 2, (False, False)),
+    "c1-k18": ([(12, 18, (1, ()), 40, None, None)], 1, (False,)),
+    "t256-p8": ([(16, 1, FOUR_TRIOS, 41, 8, None), (16, 1, FOUR_TRIOS, 42, None, 6)], None, (True, False)),
+    "t1-k23": ([(10, 23, (1, ()), 43, None, None, 0.05)], None, (False,)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GENO_WINDOW_CASES))
+def test_geno_wide_windows_match_plain(cuda_device, case):
+    """The wide kernels' windows of columns against the float32 plain
+    versions (compare_geno_kernels' bars, one launch of each wide kernel):
+    windows that end where their folds would leave the tile bits (one
+    sample at K = 14: 12 tile bits), a range start (every slot born: further
+    fold passes) between runs of windows, three instances with different
+    fold masks, a zero-sum prior's NaN column inside a window of both
+    passes, C = 1 and 2 (a family of three children, and one sample at K =
+    18), four trios of four founders (T = 256, P = 8) at K = 8, one sample
+    at K = 23 (reads of its haplotypes with 5 % allele errors: with random
+    alleles at coverage 23 a column's likelihood falls to ~1e-18 and the
+    float32 plain version itself strays from float64, see
+    test_geno_wide_windows_scalings_against_float64)."""
+    from whatshap_torch.ops import genotyping_cuda
+
+    specs, cols, nan_rows = GENO_WINDOW_CASES[case]
+    (K, T, P), x = _geno_stack(specs, cuda_device, cols)
+    diff, base, passign, trans, birth, die_next, dup = x
+    C = diff.shape[1]
+    assert genotyping_cuda.wide_supported(K, T, P)
+    win = (_windows(K, T, P, birth, True), _windows(K, T, P, die_next, False))
+    lb = genotyping_cuda.wide_lb(K, T)
+    if case == "break":
+        for w, backward in zip(win, (True, False)):
+            cap = genotyping_cuda.wide_window_cap(T, P, backward)
+            assert any(n > 1 and q + n < C and (q + n) % cap for q, n in enumerate(w))
+    if case == "range-start":
+        assert int(birth[0, 30].sum()) > lb and int(die_next[0, 29].sum()) > lb
+        for w, backward in zip(win, (True, False)):
+            q = C - 1 - 30 if backward else 29
+            assert w[q] == 1 and max(w[:q]) > 1 and max(w[q + 1:]) > 1
+    if case == "nan-in-window":
+        for w, backward in zip(win, (True, False)):
+            start = max(q for q in range(C) if w[q] and q <= (C - 1 - 29 if backward else 29))
+            assert w[start] > 1 and start + w[start] > (C - 1 - 29 if backward else 29)
+    if case == "t256-p8":
+        assert (T, P) == (256, 8) and K == 8
+    counters = (genotyping_cuda.backward_wide, genotyping_cuda.forward_wide)
+    before = [fn.launches for fn in counters]
+    beta, scaling = genotyping_cuda.backward_wide(K, T, P, diff, base, passign, trans, birth, dup)
+    red = genotyping_cuda.forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 1]
+    beta_p, scaling_p = genotyping_cuda.backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
+    red_p = genotyping_cuda.forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling_p, beta_p)
+    torch.cuda.synchronize()
+    _geno_close((beta, scaling, red), (beta_p, scaling_p, red_p), nan_rows=nan_rows)
+
+
+@pytest.mark.cuda
+def test_geno_wide_windows_scalings_against_float64(cuda_device):
+    """One sample at K = 23 with random alleles (a column's likelihood near
+    1e-18, most of the state far below float32's normal range): the float32
+    plain version's scalings stray from the float64 plain version's (by up
+    to 0.93 of them on this instance), and the backward's two-phase windows
+    (their first phase sums in float64 from states kept near 1) come no
+    farther from float64 than the float32 plain version does, within rtol
+    1e-4."""
+    from whatshap_torch.ops import genotyping_cuda
+
+    (K, T, P), x = _geno_stack([(10, 23, (1, ()), 44, None, None)], cuda_device)
+    diff, base, passign, trans, birth, die_next, dup = x
+    assert max(_windows(K, T, P, birth, True)) > 1
+    _beta, scaling = genotyping_cuda.backward_wide(K, T, P, diff, base, passign, trans, birth, dup)
+    _beta_p, scaling_p = genotyping_cuda.backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
+    _b64, s64 = genotyping_cuda.backward_plain(K, T, P, diff.double(), base.double(), passign.double(),
+                                               trans.double(), birth, dup.double())
+    torch.cuda.synchronize()
+    del _beta, _beta_p, _b64
+    err, err_p = (scaling.double() - s64).abs(), (scaling_p.double() - s64).abs()
+    assert float((err_p / s64.abs()).max()) > 0.1
+    assert bool((err <= err_p + 1e-4 * s64.abs()).all())
+
+
+@pytest.mark.cuda
+def test_geno_wide_window_rule_matches_its_mirror(cuda_device):
+    """genotyping_cuda.wide_windows is the kernels' own window rule (the C
+    entry geno_wide_windows runs the code the kernels run), over random
+    unions of fold slots at every tile width and window cap."""
+    import ctypes
+
+    from whatshap_torch.ops import _build, genotyping_cuda
+
+    fn = _build.load("geno_backward_wide").geno_wide_windows
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rng = np.random.RandomState(17)
+    for lb in (2, 4, 6, 8, 10, 12):
+        for cap in (1, 4, 13, 16):
+            for density in (0.05, 0.2, 0.6):
+                C = int(rng.randint(1, 200))
+                uq = np.zeros(C, dtype=np.uint32)
+                for k in range(23):
+                    uq |= (rng.rand(C) < density).astype(np.uint32) << np.uint32(k)
+                win = np.zeros(C, dtype=np.int32)
+                assert fn(uq.ctypes.data, C, lb, cap, win.ctypes.data) == 0
+                assert win.tolist() == genotyping_cuda.wide_windows(uq, lb, cap)
 
 
 def _force_segments(monkeypatch, packed):

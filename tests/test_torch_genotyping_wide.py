@@ -229,7 +229,7 @@ def _stub_card(monkeypatch, launched):
     recorded by name instead of run."""
     monkeypatch.setattr(genotyping_cuda, "_check_device", lambda *ts: torch.device("cuda"))
     monkeypatch.setattr(genotyping_cuda, "_sm_count", lambda dev: 132)
-    monkeypatch.setattr(genotyping_cuda, "_run", lambda dev, name, *args: launched.append((name, args[-6:])))
+    monkeypatch.setattr(genotyping_cuda, "_run", lambda dev, name, *args: launched.append((name, args[-7:])))
 
 
 def _meta_inputs(K, T, P, B=2, C=3):
@@ -274,7 +274,8 @@ def test_wrappers_dispatch_by_shape(monkeypatch, K, T, P, kernel):
     suffix = "" if kernel == "cluster" else "_wide"
     assert names == [f"geno_backward{suffix}", f"geno_forward{suffix}", "geno_backward_wide", "geno_forward_wide"]
     max_ctas = min(2 * genotyping_cuda.wide_tiles(K, T), 8 * 132)
-    assert launched[-1][1] == (2, 3, K, T, P, max_ctas)
+    assert launched[-1][1] == (2, 3, K, T, P, genotyping_cuda.wide_window_cap(T, P, backward=False), max_ctas)
+    assert launched[-2][1] == (2, 3, K, T, P, genotyping_cuda.wide_window_cap(T, P, backward=True), max_ctas)
     wide = kernel == "wide"
     assert [fn.launches - b for fn, b in zip(counters, before)] == [1 - wide, 1 - wide, 1 + wide, 1 + wide]
 
@@ -282,17 +283,92 @@ def test_wrappers_dispatch_by_shape(monkeypatch, K, T, P, kernel):
 def test_route_refuses_only_beyond_both_envelopes(monkeypatch):
     """The route's message names both envelopes and Queue 1 item 5, and the
     bytes an instance takes count, past the cluster envelope only, the wide
-    forward's alpha plane and its rows of partial sums of red, with the
-    rows of each CTA counted once a chunk."""
+    forward's alpha plane, its rows of partial sums of red (two a column of
+    a window: 16 columns at T * 2^P = 1024 floats, one at 65,536), the
+    backward's rows of partial sums and four words a column, with the rows
+    of each CTA counted once a chunk."""
     err = genotyping._unsupported(24, 1, 2)
     assert "item 5" in str(err) and genotyping_cuda.WIDE_ENVELOPE in str(err) and "wider envelope" in str(err)
     assert genotyping.instance_bytes(10, 15, 1, 2) == 10 * 4 << 15
-    assert genotyping.instance_bytes(10, 15, 64, 4) == (11 * 64 * 4 << 15) + (2 * 64 * 4 << 4)
-    assert genotyping.instance_bytes(10, 6, 256, 8) == (11 * 256 * 4 << 6) + (2 * 256 * 4 << 8)
+    rows_t64 = 2 * 16 * (64 * 4 << 4) + 8 * (1 + 1)
+    rows_t256 = 2 * 1 * (256 * 4 << 8) + 8 * (1 + 1)
+    rows_t1 = 2 * 16 * (1 * 4 << 2) + 8 * (1 + 16)
+    assert genotyping.instance_bytes(10, 15, 64, 4) == (11 * 64 * 4 << 15) + rows_t64 + 16 * 10
+    assert genotyping.instance_bytes(10, 6, 256, 8) == (11 * 256 * 4 << 6) + rows_t256 + 16 * 10
+    assert genotyping.instance_bytes(10, 20, 1, 2) == (11 * 4 << 20) + rows_t1 + 16 * 10
     monkeypatch.setattr(genotyping_cuda, "_sm_count", lambda dev: 132)
     cuda = torch.device("cuda")
     assert genotyping.chunk_bytes(cuda, 15, 1, 2) == 0 and genotyping.chunk_bytes(torch.device("cpu"), 15, 64, 4) == 0
-    assert genotyping.chunk_bytes(cuda, 15, 64, 4) == 8 * 132 * (2 * 64 * 4 << 4)
-    assert genotyping.chunk_bytes(cuda, 3, 256, 8) == 8 * 132 * (2 * 256 * 4 << 8)
+    assert genotyping.chunk_bytes(cuda, 15, 64, 4) == 8 * 132 * rows_t64
+    assert genotyping.chunk_bytes(cuda, 3, 256, 8) == 8 * 132 * rows_t256
+    assert genotyping.chunk_bytes(cuda, 20, 1, 2) == 8 * 132 * rows_t1
     assert genotyping_cuda.wide_tiles(15, 64) == 512 and genotyping_cuda.wide_tiles(20, 1) == 256
     assert genotyping_cuda.wide_tiles(6, 256) == 4 and genotyping_cuda.wide_tiles(3, 256) == 1
+
+
+def _fold_flags(rng, B, C, K, kind):
+    """Fold flags (B, C, K) of a kind: "sparse" (a slot folds with
+    probability 1/10), "dense" (1/2), "starts" (sparse, with every slot
+    folding at a few columns: range starts) or "mixed" (the instances
+    differ: one sparse, one with range starts, one dense)."""
+    if kind == "mixed":
+        parts = [_fold_flags(rng, 1, C, K, k) for k in ("sparse", "starts", "dense")]
+        return np.concatenate([parts[b % 3] for b in range(B)])
+    f = rng.rand(B, C, K) < (0.5 if kind == "dense" else 0.1)
+    if kind == "starts":
+        f[:, rng.randint(0, C, size=3)] = True
+    return f
+
+
+@pytest.mark.parametrize("K,T,P,backward,kind", [
+    (20, 1, 2, True, "sparse"), (20, 1, 2, False, "starts"), (23, 1, 2, True, "mixed"),
+    (15, 64, 4, False, "sparse"), (15, 64, 4, True, "starts"), (10, 16, 6, False, "dense"),
+    (6, 256, 8, False, "mixed"), (3, 4, 2, True, "dense"), (12, 4, 4, False, "mixed"),
+])
+def test_wide_windows_cover_every_column_once(K, T, P, backward, kind):
+    """The wide kernels' window rule (its mirror, wide_windows): the windows
+    cover every column once and in the pass's order, never cross a
+    multiple of the window cap, and each holds every instance's fold slots
+    of its columns within the tile bits, or is a single column whose slots
+    pass them (further fold passes); a window ends only at the cap, at C or
+    where the next column's slots would pass the tile bits."""
+    rng = np.random.RandomState(K * 1000 + T * 10 + P)
+    B, C = 3, 150
+    flags = _fold_flags(rng, B, C, K, kind)
+    lb = genotyping_cuda.wide_lb(K, T)
+    assert 1 << lb == min(1 << K, genotyping_cuda.WIDE_TILE // T)
+    wcap = genotyping_cuda.wide_window_cap(T, P, backward)
+    uq = genotyping_cuda.wide_unions(torch.from_numpy(flags), backward)
+    win = genotyping_cuda.wide_windows(uq, lb, wcap)
+    masks = (flags.astype(np.int64) << np.arange(K)).sum(axis=2)  # (B, C)
+    if backward:
+        masks[:, 0] = 0
+        masks = masks[:, ::-1]  # by pass order
+    assert len(win) == C
+    q, n_windows = 0, 0
+    while q < C:
+        n = win[q]
+        assert 1 <= n <= wcap and q // wcap == (q + n - 1) // wcap
+        assert all(w == 0 for w in win[q + 1 : q + n])
+        per_instance = np.bitwise_or.reduce(masks[:, q : q + n], axis=1)
+        if n > 1:
+            assert all(bin(int(m)).count("1") <= lb for m in per_instance)
+        union = int(np.bitwise_or.reduce(per_instance))
+        assert union == int(np.bitwise_or.reduce(uq[q : q + n]))
+        end = q + n
+        if end < C and end % wcap:
+            assert bin(union | int(uq[end])).count("1") > lb or bin(union).count("1") > lb
+        q, n_windows = end, n_windows + 1
+    assert q == C and n_windows >= -(-C // wcap)
+
+
+def test_wide_window_caps():
+    """Window caps: the forward 16 columns where red's partial rows of a
+    window stay within 16,384 floats a CTA and instance, fewer past that;
+    the backward 16 at T = 1 and one column past it."""
+    cap = genotyping_cuda.wide_window_cap
+    assert [cap(1, 2, False), cap(64, 4, False), cap(64, 6, False), cap(256, 4, False), cap(256, 8, False)] == [
+        16, 16, 4, 4, 1]
+    assert [cap(1, 2, True), cap(4, 2, True), cap(64, 4, True), cap(256, 8, True)] == [16, 1, 1, 1]
+    assert genotyping_cuda.wide_windows([0b1, 0b10, 0b100, 0b1, 0b111], 2, 16) == [2, 0, 2, 0, 1]
+    assert genotyping_cuda.wide_windows([0b1] * 5, 1, 2) == [2, 0, 2, 0, 1]

@@ -241,22 +241,32 @@ def instance_bytes(C: int, K: int, T: int, P: int) -> int:
     """Device bytes one instance of C columns takes in the forward-backward:
     its beta table (C * T * 2^K float32) and, past the cluster kernels'
     envelope, what the wide kernels allocate for it beside the table: the
-    forward's state alpha (T * 2^K float32) and its two rows of partial sums
-    of red (2 * T * 2^P float32)."""
+    forward's state alpha (T * 2^K float32), its two rows of partial sums
+    of red (T * 2^P float32) for each column of a window
+    (genotyping_cuda.wide_window_cap), the backward's rows of partial sums
+    (two float32 and a float64 a window column) and four words a column
+    (the fold masks and the windows)."""
     table = C * T * 4 << K
     if genotyping_cuda.kernel_supported(K, T, P):
         return table
-    return table + (T * 4 << K) + (2 * T * 4 << P)
+    return table + (T * 4 << K) + _wide_rows_bytes(T, P) + 16 * C
+
+
+def _wide_rows_bytes(T: int, P: int) -> int:
+    """Bytes of the wide kernels' rows of partial sums for one CTA or one
+    instance: the forward's 2 * window cap rows of T * 2^P float32, the
+    backward's two float32 and a float64 a window column."""
+    fwd = 2 * genotyping_cuda.wide_window_cap(T, P, backward=False) * (T * 4 << P)
+    return fwd + 8 * (1 + genotyping_cuda.wide_window_cap(T, P, backward=True))
 
 
 def chunk_bytes(device: torch.device, K: int, T: int, P: int) -> int:
     """Device bytes a chunk of instances takes once, whatever its size:
-    past the cluster kernels' envelope on CUDA, the wide forward's two rows
-    of partial sums of red (2 * T * 2^P float32) for each CTA it may
-    launch."""
+    past the cluster kernels' envelope on CUDA, the wide kernels' rows of
+    partial sums (_wide_rows_bytes) for each CTA they may launch."""
     if device.type != "cuda" or genotyping_cuda.kernel_supported(K, T, P):
         return 0
-    return genotyping_cuda.wide_max_ctas(device, 1 << 30, K, T) * (2 * T * 4 << P)
+    return genotyping_cuda.wide_max_ctas(device, 1 << 30, K, T) * _wide_rows_bytes(T, P)
 
 
 def forward_backward(K, T, P, diff, base, passign, trans, birth, die_next, dup):

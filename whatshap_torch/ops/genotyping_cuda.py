@@ -15,13 +15,14 @@ Replaces whatshap_tpu/ops/genotyping_pallas.py forward_backward_pallas:
 Both keep an instance's state on the chip (one thread-block cluster each),
 inside ENVELOPE.  Past it, backward_wide and forward_wide launch
 csrc/geno_backward_wide.cu and csrc/geno_forward_wide.cu, the same two
-passes with the state in device memory (one cooperative launch, a
-grid-wide barrier after each pass over tiles of the state in shared
-memory, csrc/geno_wide.cuh), at T = 1 or T up to 256 with P up to 8 and K
-up to 23 (WIDE_ENVELOPE): they replace the XLA forward-backward the
-reference runs past its Pallas envelope (whatshap_tpu/ops/genotyping_jax.py
-_forward_backward, _forward_backward_batched).  backward and forward hand
-them every shape past kernel_supported, by shape alone.
+passes with the state in device memory (one cooperative launch over tiles
+of the state in shared memory, the columns in windows with one grid-wide
+barrier each, csrc/geno_wide.cuh; wide_windows mirrors the window rule),
+at T = 1 or T up to 256 with P up to 8 and K up to 23 (WIDE_ENVELOPE): they
+replace the XLA forward-backward the reference runs past its Pallas
+envelope (whatshap_tpu/ops/genotyping_jax.py _forward_backward,
+_forward_backward_batched).  backward and forward hand them every shape
+past kernel_supported, by shape alone.
 
 Both take the per-column tables of genotyping.prepare_genotyping_batch in
 float32, flattened per column as the Pallas kernels take them: diff (B, C, K,
@@ -66,6 +67,11 @@ WIDE_ENVELOPE = f"T = 1, P = 2, K <= {MAX_K_WIDE}; T in {WIDE_T}, P in {WIDE_P},
 #: (csrc/geno_wide.cuh).
 WIDE_TILE = 4096
 WIDE_MAX_CTAS_PER_SM = 8
+#: The most columns a wide kernel's window takes (csrc/geno_wide.cuh
+#: kWin), and the most floats of red's partial rows a forward window keeps
+#: a CTA and instance (its columns times T * 2^P).
+WIDE_WINDOW = 16
+WIDE_RED_WORDS = 16384
 
 
 def kernel_supported(K: int, T: int, P: int) -> bool:
@@ -86,6 +92,64 @@ def wide_tiles(K: int, T: int) -> int:
     """Tiles of one instance in the wide kernels: 2^K over the states of a
     tile, min(2^K, WIDE_TILE / T)."""
     return (1 << K) // min(1 << K, WIDE_TILE // T)
+
+
+def wide_lb(K: int, T: int) -> int:
+    """Tile bits of the wide kernels: log2 of min(2^K, WIDE_TILE / T)."""
+    return min(K, (WIDE_TILE // T).bit_length() - 1)
+
+
+def wide_window_cap(T: int, P: int, backward: bool) -> int:
+    """The most columns a window of the wide kernels takes.  The forward:
+    WIDE_WINDOW, fewer where red's partial rows of a window (its columns
+    times T * 2^P floats a CTA and instance) would pass WIDE_RED_WORDS.
+    The backward settles each column's scaling after a barrier, so a window
+    of W > 1 columns runs its first W - 1 columns twice (the sums, then
+    the store): it takes windows at T = 1, where a column's tile work is
+    short against a barrier, and one column a window past it, where the
+    operations bound the pass."""
+    if backward:
+        return WIDE_WINDOW if T == 1 else 1
+    return max(1, min(WIDE_WINDOW, WIDE_RED_WORDS // (T << P)))
+
+
+def wide_unions(flags, backward: bool) -> np.ndarray:
+    """The union over the instances of each column's fold slots, by the
+    pass's order (the backward from the last column down, its column 0
+    folding nothing), as the wide kernels' prologue gathers it from the
+    fold flags (B, C, K): uint32 (C,)."""
+    f = np.asarray(flags.cpu() if isinstance(flags, torch.Tensor) else flags, dtype=bool)
+    masks = (f.astype(np.uint64) << np.arange(f.shape[2], dtype=np.uint64)).sum(axis=2)
+    u = np.bitwise_or.reduce(masks, axis=0).astype(np.uint32)
+    if backward:
+        u[0] = 0
+        u = u[::-1].copy()
+    return u
+
+
+def wide_windows(uq, lb: int, wcap: int) -> list:
+    """The wide kernels' window rule (csrc/geno_wide.cuh window_rule) over
+    the pass-order unions uq (wide_unions) at lb tile bits and window cap
+    wcap: windows never cross a multiple of wcap; each starts after the
+    previous one and takes the next column while the union of its columns'
+    slots stays within lb bits (a column past lb alone: further fold
+    passes).  Returns win (C,): the length of the window that starts at q,
+    0 inside a window."""
+    uq = [int(u) for u in uq]
+    C = len(uq)
+    win = [0] * C
+    for lo in range(0, C, wcap):
+        hi = min(C, lo + wcap)
+        q = lo
+        while q < hi:
+            u, n = uq[q], 1
+            if bin(u).count("1") <= lb:
+                while q + n < hi and bin(u | uq[q + n]).count("1") <= lb:
+                    u |= uq[q + n]
+                    n += 1
+            win[q] = n
+            q += n
+    return win
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -278,7 +342,9 @@ def backward_wide(K, T, P, diff, base, passign, trans, birth, dup):
     """backward with the state in device memory (csrc/geno_backward_wide.cu),
     at any shape of WIDE_ENVELOPE, inside the cluster kernel's envelope too;
     the same function and outputs.  The kernel keeps its state in
-    beta_store itself and needs only a few scratch words beside it."""
+    beta_store itself; beside it a few words a column (the fold masks and
+    the windows) and rows of partial sums a CTA and instance (two, and a
+    float64 one a column of a window: wide_window_cap)."""
     dev = _check_inputs("backward_wide", K, T, P, diff, base, passign, trans, birth, dup, wide_only=True)
     if dev.type == "cpu":
         return backward_plain(K, T, P, diff, base, passign, trans, birth, dup)
@@ -287,15 +353,16 @@ def backward_wide(K, T, P, diff, base, passign, trans, birth, dup):
     beta_store = torch.empty((B, C, T, S), dtype=torch.float32, device=diff.device)
     scaling = torch.empty((B, C), dtype=torch.float32, device=diff.device)
     max_ctas = wide_max_ctas(dev, B, K, T)
+    wcap = wide_window_cap(T, P, backward=True)
     masks = torch.empty((B, C), dtype=torch.int32, device=diff.device)
-    npass = torch.empty((C,), dtype=torch.int32, device=diff.device)
-    part = torch.empty((2, max_ctas + B), dtype=torch.float32, device=diff.device)
+    cols = torch.empty((3, C), dtype=torch.int32, device=diff.device)
+    part = torch.empty(((2 + 2 * wcap) * (max_ctas + B) + 1,), dtype=torch.float32, device=diff.device)
     _run(
         dev, "geno_backward_wide",
         diff.data_ptr(), base.data_ptr(), passign.data_ptr(), trans.data_ptr(),
         birth.data_ptr(), dup.data_ptr(), beta_store.data_ptr(), scaling.data_ptr(),
-        masks.data_ptr(), npass.data_ptr(), part.data_ptr(),
-        B, C, K, T, P, max_ctas,
+        masks.data_ptr(), cols[0].data_ptr(), cols[1].data_ptr(), cols[2].data_ptr(), part.data_ptr(),
+        B, C, K, T, P, wcap, max_ctas,
     )
     backward_wide.launches += 1
     return beta_store, scaling
@@ -339,8 +406,8 @@ def forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta_st
     """forward with the state in device memory (csrc/geno_forward_wide.cu),
     at any shape of WIDE_ENVELOPE, inside the cluster kernel's envelope too;
     the same function and output.  Its scratch: the state alpha (B, T, 2^K)
-    and two rows of partial sums of red (T * 2^P) for each CTA and
-    instance."""
+    and two rows of partial sums of red (T * 2^P) for each CTA, instance
+    and column of a window (wide_window_cap)."""
     dev = _check_inputs("forward_wide", K, T, P, diff, base, passign, trans, die_next, scaling, wide_only=True)
     B, C, S = diff.shape[0], diff.shape[1], 1 << K
     _check(beta_store, "beta_store", diff.dtype, (B, C, T, S))
@@ -350,16 +417,17 @@ def forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta_st
 
     red = torch.empty((B, C, T << P), dtype=torch.float32, device=diff.device)
     max_ctas = wide_max_ctas(dev, B, K, T)
+    wcap = wide_window_cap(T, P, backward=False)
     alpha = torch.empty((B, T, S), dtype=torch.float32, device=diff.device)
     masks = torch.empty((B, C), dtype=torch.int32, device=diff.device)
-    npass = torch.empty((C,), dtype=torch.int32, device=diff.device)
-    part = torch.empty((2, max_ctas + B, T << P), dtype=torch.float32, device=diff.device)
+    cols = torch.empty((3, C), dtype=torch.int32, device=diff.device)
+    part = torch.empty((2, wcap, max_ctas + B, T << P), dtype=torch.float32, device=diff.device)
     _run(
         dev, "geno_forward_wide",
         diff.data_ptr(), base.data_ptr(), passign.data_ptr(), trans.data_ptr(),
         die_next.data_ptr(), scaling.data_ptr(), beta_store.data_ptr(), red.data_ptr(),
-        alpha.data_ptr(), masks.data_ptr(), npass.data_ptr(), part.data_ptr(),
-        B, C, K, T, P, max_ctas,
+        alpha.data_ptr(), masks.data_ptr(), cols[0].data_ptr(), cols[1].data_ptr(), cols[2].data_ptr(),
+        part.data_ptr(), B, C, K, T, P, wcap, max_ctas,
     )
     forward_wide.launches += 1
     return red

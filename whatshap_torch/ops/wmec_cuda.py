@@ -303,8 +303,8 @@ _SIGNATURES = {
     "wmec_forward_m_t_wide": [_P] * 9 + [_I] * 6 + [_P],
     "geno_backward": [_P] * 8 + [_I] * 5 + [_P],
     "geno_forward": [_P] * 8 + [_I] * 5 + [_P],
-    "geno_backward_wide": [_P] * 11 + [_I] * 6 + [_P],
-    "geno_forward_wide": [_P] * 12 + [_I] * 6 + [_P],
+    "geno_backward_wide": [_P] * 13 + [_I] * 7 + [_P],
+    "geno_forward_wide": [_P] * 14 + [_I] * 7 + [_P],
 }
 
 
