@@ -224,3 +224,42 @@ def test_genotype_family_of_three_children_meets_the_cli_bar(tmp_path, monkeypat
     assert len({call[0][2] for call in calls}) == 5 and sum(bool(call[3]) for call in calls) > 400
     diff = cli_bar(calls, vcf_calls((tmp_path / "port.vcf").read_text()))
     assert diff["sites"] == 0 and not diff["GT"] and not diff["GQ"] and not diff["GL"], diff
+
+
+def test_genotype_family_of_five_children_meets_the_cli_bar(tmp_path, monkeypatch):
+    """A family of two parents and five children (T = 1024, P = 4; one read
+    a sample at --max-coverage 7, K = 7), written under tmp_path by
+    chip_smoke.write_synth: the port's float64 CPU route meets the reference
+    CLI's bar against the reference's default route."""
+    from chip_smoke import write_synth
+
+    monkeypatch.delenv("WHATSHAP_TPU_GENO_BACKEND", raising=False)
+    data = write_synth(tmp_path / "fam7", 8, 1, seed=5, trio=True, children=5, vars_per_read=8)
+    args = dict(phase_input_files=[data["bam"]], variant_file=data["vcf"], reference=data["fasta"],
+                ped=data["ped"], max_coverage=7, write_command_line_header=False)
+    ref_run_genotype(**args, output=str(tmp_path / "ref.vcf"))
+    run_genotype(**args, output=str(tmp_path / "port.vcf"), device="cpu")
+    calls = vcf_calls((tmp_path / "ref.vcf").read_text())
+    assert len({call[0][2] for call in calls}) == 7 and sum(bool(call[3]) for call in calls) >= 7 * 8
+    diff = cli_bar(calls, vcf_calls((tmp_path / "port.vcf").read_text()))
+    assert diff["sites"] == 0 and not diff["GT"] and not diff["GQ"] and not diff["GL"], diff
+
+
+def test_genotype_family_past_the_envelope_refused_before_output(tmp_path, monkeypatch):
+    """On a CUDA device `genotype` refuses a family of six children (T =
+    4096) before it opens its output or its priors file, naming ROADMAP
+    Queue 1 item 5 (the device taken as CUDA: the refusal comes before
+    anything runs on it)."""
+    import torch
+
+    import whatshap_torch.cli.genotype as cli
+    from chip_smoke import write_synth
+
+    data = write_synth(tmp_path / "fam8", 8, 1, seed=5, trio=True, children=6, vars_per_read=8)
+    monkeypatch.setattr(cli, "resolve_device", lambda device: torch.device("cuda"))
+    out, priors = tmp_path / "out.vcf", tmp_path / "priors.vcf"
+    for use_ped_samples in (False, True):
+        with pytest.raises(NotImplementedError, match="T = 4096.*ROADMAP Queue 1 item 5"):
+            run_genotype(phase_input_files=[data["bam"]], variant_file=data["vcf"], reference=data["fasta"],
+                         ped=data["ped"], output=str(out), prioroutput=str(priors), use_ped_samples=use_ped_samples)
+        assert not out.exists() and not priors.exists()

@@ -280,3 +280,60 @@ def test_bam_record_encoding_matches_reference(seed):
             seg.tags = {"RG": "x"}
             records.append(mod.encode_bam_record(seg))
         assert records[1] == records[0], seq
+
+
+def _synth_family(tmp_path, children, seed=3):
+    """A family of two parents and `children` children (T = 4^children),
+    written under tmp_path by chip_smoke.write_synth: 8 variants, every read
+    over all of them (one read-connected range), one read a sample and
+    window."""
+    from chip_smoke import write_synth
+
+    return write_synth(tmp_path / f"fam{children + 2}", 8, 1, seed=seed, trio=True, children=children,
+                       vars_per_read=8)
+
+
+def test_phase_family_of_five_children_byte_identical(tmp_path, monkeypatch):
+    """A family of two parents and five children (T = 1024, P = 4; one read
+    a sample at --max-coverage 7, K = 7): the port's VCF on the CPU is the
+    reference's on its default route, byte for byte."""
+    monkeypatch.delenv("WHATSHAP_TPU_BACKEND", raising=False)
+    data = _synth_family(tmp_path, 5)
+    args = dict(phase_input_files=[data["bam"]], variant_file=data["vcf"], reference=data["fasta"],
+                ped=data["ped"], max_coverage=7, write_command_line_header=False)
+    ref_run_whatshap(**args, output=str(tmp_path / "ref.vcf"))
+    run_whatshap(**args, output=str(tmp_path / "port.vcf"), device="cpu")
+    ref = (tmp_path / "ref.vcf").read_bytes()
+    assert (tmp_path / "port.vcf").read_bytes() == ref
+    assert ref.count(b"|") >= 7 * 4  # the family is phased
+
+
+def test_families_past_the_envelope_refused_before_output(tmp_path, monkeypatch):
+    """On a CUDA device `phase` refuses a family past the kernels' pedigree
+    envelope before it opens its output, naming ROADMAP Queue 1 item 5: six
+    children (T = 4096) through the CLI (the device taken as CUDA: the
+    refusal comes before anything runs on it), six founders (P = 12) through
+    the check itself.  Five children and five founders pass it, and on the
+    CPU nothing is refused."""
+    import whatshap_torch.cli.phase as cli
+
+    data = _synth_family(tmp_path, 6)
+    monkeypatch.setattr(cli, "resolve_device", lambda device: torch.device("cuda"))
+    out = tmp_path / "out.vcf"
+    with pytest.raises(NotImplementedError, match="T = 4096.*ROADMAP Queue 1 item 5"):
+        run_whatshap(phase_input_files=[data["bam"]], variant_file=data["vcf"], reference=data["fasta"],
+                     ped=data["ped"], output=str(out))
+    assert not out.exists()
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    kids = [f"child{i + 1}" for i in range(6)]
+    cli.refuse_families_past_envelope(["father", "mother", *kids], data["ped"], cpu)
+    cli.refuse_families_past_envelope(["father", "mother", *kids[:5]], data["ped"], cuda)  # T = 1024
+    # six founders a-f and five trios (T = 1024, P = 12); without f's trio,
+    # five founders (T = 256, P = 10)
+    ped = tmp_path / "six-founders.ped"
+    ped.write_text("".join(f"F {c} {p} {m} 0 0\n" for c, p, m in (
+        ("x", "a", "b"), ("y", "c", "d"), ("z", "x", "y"), ("w", "e", "z"), ("v", "f", "w"))))
+    with pytest.raises(NotImplementedError, match="P = 12.*ROADMAP Queue 1 item 5"):
+        cli.refuse_families_past_envelope(list("abcdefxyzwv"), str(ped), cuda)
+    cli.refuse_families_past_envelope(list("abcdexyzw"), str(ped), cuda)
+    cli.refuse_families_past_envelope(list("abcdefxyzwv"), str(ped), cpu)

@@ -173,14 +173,16 @@ def test_route_on_cuda_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_route_on_cuda_refuses_what_it_cannot_solve(cuda_device):
-    """A pedigree beyond the kernels' envelope (five trios, T = 1024), or K
-    above it (24, past the wide T=1 kernel's 23), raises on CUDA instead of
-    leaving the card.  (Three trios, T = 64, now run in the wide general-T
-    kernel.)"""
+    """A pedigree beyond the kernels' envelope (six trios, T = 4096; six
+    founders, P = 12), or K above it (24, past the wide T=1 kernel's 23),
+    raises on CUDA instead of leaving the card, naming ROADMAP Queue 1 item
+    5.  (Three trios, T = 64, and five, T = 1024, now run in the wide
+    general-T kernel.)"""
     rs, positions = _chromosome(1, 12, 3, seed=1)
-    ped = _pedigree(len(positions), n_ind=7, trios=tuple((0, 1, c) for c in range(2, 7)))
-    with pytest.raises(NotImplementedError, match="wider envelope"):
-        core.PedigreeDPTable(rs, [1] * len(positions), ped, False, positions)
+    for n_ind, trios in ((8, tuple((0, 1, c) for c in range(2, 8))), (8, ((0, 1, 6), (2, 3, 7)))):
+        ped = _pedigree(len(positions), n_ind=n_ind, trios=trios)
+        with pytest.raises(NotImplementedError, match="wider envelope, ROADMAP Queue 1 item 5"):
+            core.PedigreeDPTable(rs, [1] * len(positions), ped, False, positions)
     k = wmec_cuda.MAX_K_WIDE + 1
     rs, positions = _chromosome(1, 40, k, seed=2)
     with pytest.raises(NotImplementedError, match="wider envelope"):
@@ -592,6 +594,10 @@ WIDE_T = (wmec_cuda.forward_t_wide, wmec_cuda.forward_m_t_wide, wmec_cuda.forwar
 CLUSTER_T = (wmec_cuda.forward_t, wmec_cuda.forward_m_t, wmec_cuda.forward_carry_t)
 DOUBLE_TRIO = (5, ((0, 1, 2), (2, 3, 4)))  # three founders: P = 6, T = 16
 FAMILY5 = (5, ((0, 1, 2), (0, 1, 3), (0, 1, 4)))  # three children: T = 64
+FAMILY7 = (7, tuple((0, 1, c) for c in range(2, 7)))  # five children: T = 1024, P = 4
+# two grandparent couples, their two children, an in-law and two
+# grandchildren: four trios of five founders, T = 256, P = 10
+FIVE_FOUNDERS = (9, ((0, 1, 4), (2, 3, 5), (4, 5, 7), (4, 6, 8)))
 
 
 def _t_pairs(first, second, K, T, P, ta, dp0, head_cols):
@@ -619,6 +625,7 @@ PLAIN_T = (wmec_cuda.forward_t_plain, wmec_cuda.forward_m_t_plain, wmec_cuda.for
 @pytest.mark.parametrize("T,K,P", [
     (4, 1, 2), (4, 17, 4), (4, 20, 4), (16, 9, 6), (16, 14, 4), (16, 12, 8),
     (64, 5, 4), (64, 12, 4), (64, 15, 4), (256, 3, 8), (256, 9, 4),
+    (1024, 1, 4), (1024, 6, 4), (1024, 5, 10), (256, 7, 10), (16, 9, 10), (4, 10, 10),
 ])
 def test_wide_t_kernel_breaks_ties_as_plain(cuda_device, T, K, P):
     """Row 14, the general-T kernel with its T planes in device memory
@@ -626,7 +633,9 @@ def test_wide_t_kernel_breaks_ties_as_plain(cuda_device, T, K, P):
     slots dying a column) from seeds with INF entries: tables from zero and
     seeded, m-only, carry and tables from a carry, bit-equal to the plain
     versions; the head walk and T + 1 random walks over its tables (T up to
-    256) equal the plain walk; only the wide kernel's counters count."""
+    1024: 1,025 walks a block) equal the plain walk; only the wide kernel's
+    counters count.  Five trios (T = 1024) and five founders (P = 10) at
+    each T included."""
     ta = _tie_bucket(K, T, P, cuda_device, n_blocks=2, n_cols=20, seed=60 * T + K + P)
     rng = np.random.RandomState(K + T)
     dp0_np = rng.randint(0, 3, (2, T)).astype(np.int32)
@@ -650,10 +659,11 @@ def test_wide_t_kernel_breaks_ties_as_plain(cuda_device, T, K, P):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,K,P", [(4, 18, 2), (16, 14, 6), (64, 12, 4), (64, 9, 8), (256, 12, 2), (256, 6, 8)])
+@pytest.mark.parametrize("T,K,P", [(4, 18, 2), (16, 14, 6), (64, 12, 4), (64, 9, 8), (256, 12, 2), (256, 6, 8),
+                                   (1024, 6, 4), (1024, 5, 10)])
 def test_wide_t_kernel_pre_passes_match_plain(cuda_device, T, K, P):
     """Row 14 where more slots die in a column than its tile holds (4096 / T
-    states: 10 tile bits at T = 4, 8 at 16, 6 at 64, 4 at 256): two thirds
+    states: 10 tile bits at T = 4, 8 at 16, 6 at 64, 4 at 256, 2 at 1024): two thirds
     of the slots die before each column, so the kernel folds the lowest in
     pre-passes (two at T = 256, K = 12) before the column's tile pass;
     every mode on a tie-heavy bucket equals the plain versions."""
@@ -675,7 +685,8 @@ def test_wide_t_kernel_pre_passes_match_plain(cuda_device, T, K, P):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R", [1, 2, 16])
-@pytest.mark.parametrize("T,K,P", [(4, 17, 4), (16, 9, 6), (64, 8, 4), (64, 6, 8), (256, 5, 2)])
+@pytest.mark.parametrize("T,K,P", [(4, 17, 4), (16, 9, 6), (64, 8, 4), (64, 6, 8), (256, 5, 2), (1024, 5, 4),
+                                   (64, 4, 10)])
 def test_wide_t_grouped_m_matches_plain(cuda_device, T, K, P, R):
     """Row 14's m-only mode with R seeds a block (B, R, T), one launch over
     the blocks' inputs, against the plain version (each seed a copy of its
@@ -748,6 +759,93 @@ def test_wide_t_route_on_cuda_matches_cpu(cuda_device, pedigree, monkeypatch):
         assert gpu.get_optimal_partitioning() == cpu.get_optimal_partitioning()
         assert np.array_equal(gpu._result.index_path, cpu._result.index_path)
         assert np.array_equal(gpu._result.trans_path, cpu._result.trans_path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pedigree", [FAMILY7, FIVE_FOUNDERS], ids=["family7", "five-founders"])
+def test_five_trios_or_founders_route_on_cuda(cuda_device, pedigree, monkeypatch):
+    """A family of five children (T = 1024) and a pedigree of five founders
+    (P = 10) through PedigreeDPTable on the card, with every plain version
+    made to raise: several ranges (the seam route: pass 1 over the coset
+    seeds, 256 and 8 a block, pass 2's T + 1 walks a block) equal the same
+    route with the plain versions handed in, run on the card; one range
+    equals the CPU."""
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a plain version ran on the CUDA route")
+
+    for n_blocks in (2, 1):
+        rs, positions, ped = _pedigree_chromosome(n_blocks, 14, 1, pedigree, seed=30 + n_blocks)
+        rc = [5] * len(positions)
+        before = [f.launches for f in WIDE_T + (wmec_cuda.backtrace_t,)]
+        with monkeypatch.context() as m:
+            for mod, name in [
+                (wmec, "forward_scan"), (wmec, "solve_batched"), (wmec, "forward_m_batched"),
+                (wmec, "solve_seeded_batched"), (wmec, "_backtrace_from"),
+                (wmec_cuda, "forward_t_plain"), (wmec_cuda, "forward_m_t_plain"),
+                (wmec_cuda, "backtrace_t_plain"),
+            ]:
+                m.setattr(mod, name, refuse)
+            gpu = core.PedigreeDPTable(rs, rc, ped, False, positions)
+        launched = [f.launches - b for f, b in zip(WIDE_T + (wmec_cuda.backtrace_t,), before)]
+        packed = gpu._packed
+        assert (packed.T, packed.P) == {7: (1024, 4), 9: (256, 10)}[pedigree[0]]
+        assert launched[0] > 0 and launched[3] > 0 and (launched[1] > 0) == (n_blocks > 1)
+        if n_blocks > 1:
+            assert len(wmec.connected_column_ranges(packed)) > 1
+            want = wmec.run_dp(packed, cuda_device, wmec.solve_batched, wmec.forward_m_batched,
+                               wmec.solve_seeded_batched, wmec.solve_segmented)
+        else:
+            want = wmec.run_dp(packed, "cpu")
+        assert gpu._result.optimal_cost == want.optimal_cost
+        assert np.array_equal(gpu._result.index_path, want.index_path)
+        assert np.array_equal(gpu._result.trans_path, want.trans_path)
+
+
+@pytest.mark.cuda
+def test_pass_1_seed_split_on_cuda_matches_one_launch(cuda_device, monkeypatch):
+    """Pass 1 (forward_m_auto) at five children (T = 1024) with the table
+    budget pinned below one block's seed planes: the seeds go in launches of
+    three (the wide m-only kernel counted once a launch), and m equals the
+    unsplit launch's at the card's budget."""
+    K, T, P, B, R = 5, 1024, 4, 2, 8
+    ta = _tie_bucket(K, T, P, cuda_device, n_blocks=B, n_cols=12, seed=77)
+    rng = np.random.RandomState(78)
+    seeds = np.full((B, R, T), wmec.INF, dtype=np.int32)
+    seeds[:, np.arange(R), rng.choice(T, R, replace=False)] = 0
+    dp0 = torch.from_numpy(seeds).to(cuda_device)
+    whole = wmec.forward_m_auto(K, T, P, *ta, dp0)
+    per_seed = wmec_cuda.state_bytes(K, T, P, seeds=1)
+    monkeypatch.setattr(wmec, "_table_budget", lambda device: 3 * B * per_seed)
+    before = wmec_cuda.forward_m_t_wide.launches
+    split = wmec.forward_m_auto(K, T, P, *ta, dp0)
+    torch.cuda.synchronize()
+    assert wmec_cuda.forward_m_t_wide.launches - before == 3
+    assert torch.equal(split, whole) and split.shape == (B, R, T)
+
+
+@pytest.mark.cuda
+def test_geno_wide_kernels_match_plain_at_five_trios_and_founders(cuda_device):
+    """Both wide genotyping kernels at five trios of five founders (T =
+    1024, P = 10: a tile of 4 states in each of 1,024 planes, 1,024
+    assignments a state and plane), K = 6, against their float32 plain
+    versions (chip_smoke.geno_bucket: a zero-sum prior column in instance
+    0, a new range with all its slots born in instance 1); the forward's
+    partial rows of red (4 MiB a CTA) hold the launch to
+    genotyping_cuda.wide_red_rows."""
+    import chip_smoke
+    from whatshap_torch.ops import genotyping, genotyping_cuda
+
+    P, stacked = chip_smoke.geno_bucket(1024, 6, 2, 20, 910, pedigree=chip_smoke.FIVE_BY_FIVE,
+                                        coverage=chip_smoke._lanes(6, 10), break_block=1)
+    assert P == 10 and genotyping_cuda.wide_max_ctas(cuda_device, 2, 6, 1024, P) < genotyping_cuda.wide_red_rows(1024, P)
+    diff, base, passign, trans, birth, die_next, dup = genotyping.to_device(stacked, cuda_device)
+    beta, scaling = genotyping_cuda.backward(6, 1024, P, diff, base, passign, trans, birth, dup)
+    red = genotyping_cuda.forward(6, 1024, P, diff, base, passign, trans, die_next, scaling, beta)
+    beta_p, scaling_p = genotyping_cuda.backward_plain(6, 1024, P, diff, base, passign, trans, birth, dup)
+    red_p = genotyping_cuda.forward_plain(6, 1024, P, diff, base, passign, trans, die_next, scaling_p, beta_p)
+    torch.cuda.synchronize()
+    _geno_close((beta, scaling, red), (beta_p, scaling_p, red_p))
 
 
 def _geno_instance(n_cols, coverage, n_ind, trios, seed, zero_prior=None, break_at=None, error=None):
@@ -946,12 +1044,14 @@ def _geno_close(got, want, nan_rows=(True, False)):
 @pytest.mark.cuda
 @pytest.mark.parametrize("pedigree,coverage,shape", [
     (FAMILY5, 2, (10, 64, 4)), (GENO_DOUBLE_TRIO, 2, (10, 16, 6)), ((1, ()), 20, (20, 1, 2)),
-], ids=["t64", "p6", "k20"])
+    (FAMILY7, 1, (7, 1024, 4)), (FIVE_FOUNDERS, 1, (9, 256, 10)),
+], ids=["t64", "p6", "k20", "t1024", "p10"])
 def test_geno_wide_kernels_match_plain(cuda_device, pedigree, coverage, shape):
     """Both wide genotyping kernels (the state in device memory) against
     their float32 plain versions on the same CUDA tensors, past the cluster
     kernels: three children (T = 64), three founders (P = 6), one sample at
-    K = 20; backward and forward take them by shape, one launch each."""
+    K = 20, five children (T = 1024), five founders (P = 10); backward and
+    forward take them by shape, one launch each."""
     from whatshap_torch.ops import genotyping_cuda
 
     (K, T, P, _n), _stacked, x = _wide_geno_inputs(pedigree, coverage, cuda_device)
@@ -1033,21 +1133,25 @@ def test_geno_wide_kernels_match_plain_over_many_instances(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pedigree,coverage,atol", [(FAMILY5, 2, 3e-4), ((1, ()), 18, 2e-4)], ids=["t64", "k18"])
+@pytest.mark.parametrize("pedigree,coverage,atol", [
+    (FAMILY5, 2, 3e-4), ((1, ()), 18, 2e-4), (FAMILY7, 1, 3e-4), (FIVE_FOUNDERS, 1, 3e-4),
+], ids=["t64", "k18", "t1024", "p10"])
 def test_genotype_route_on_cuda_past_the_cluster_kernels(cuda_device, pedigree, coverage, atol):
     """GenotypeDPTable on the card past the cluster kernels (three children,
-    T = 64; one sample at K = 18): one launch of each wide kernel, within
-    the reference's f32 bar of the float64 CPU route."""
+    T = 64; one sample at K = 18; five children, T = 1024; five founders, P
+    = 10): one launch of each wide kernel, within the reference's f32 bar of
+    the float64 CPU route."""
     from whatshap_torch.ops import genotyping_cuda
 
     n_ind, trios = pedigree
-    rs, positions, ped, nsi = _geno_instance(36, coverage, n_ind, trios, seed=8)
+    n_cols = 8 if n_ind == 9 else 36  # the float64 CPU route takes 2^P = 1,024 assignments a state at P = 10
+    rs, positions, ped, nsi = _geno_instance(n_cols, coverage, n_ind, trios, seed=8)
     before = (genotyping_cuda.backward_wide.launches, genotyping_cuda.forward_wide.launches)
-    gpu = core.GenotypeDPTable(nsi, rs, [10] * 36, ped, positions)
+    gpu = core.GenotypeDPTable(nsi, rs, [10] * n_cols, ped, positions)
     assert gpu._packed.K == coverage * n_ind
     assert (genotyping_cuda.backward_wide.launches, genotyping_cuda.forward_wide.launches) == (
         before[0] + 1, before[1] + 1)
-    cpu = core.GenotypeDPTable(nsi, rs, [10] * 36, ped, positions, device="cpu")
+    cpu = core.GenotypeDPTable(nsi, rs, [10] * n_cols, ped, positions, device="cpu")
     np.testing.assert_allclose(gpu._likelihoods, cpu._likelihoods, atol=atol)
 
 

@@ -333,7 +333,9 @@ def test_state_bytes_split_shared_and_global():
 
 def test_route_chunks_under_the_table_budget(monkeypatch):
     """Instances beyond the table budget are split into sequential chunks
-    with the same result; an instance that alone exceeds it raises."""
+    with the same result; an instance that alone exceeds it raises.  An
+    instance's bytes are genotyping.instance_bytes: its beta table and its
+    inputs' copy on the card."""
     packs = []
     for s in range(3):
         spec = _spec(seed=700, n_ind=1, trios=(), n_pos=8, n_reads=6)
@@ -343,7 +345,8 @@ def test_route_chunks_under_the_table_budget(monkeypatch):
     K, T, P, _n = static
     whole = genotyping.launch_genotyping(static, stacked, CPU)
     C = stacked[3].shape[1]
-    per = C * T * 4 << K
+    per = genotyping.instance_bytes(C, K, T, P)
+    assert per == (C * T * 4 << K) + genotyping.input_bytes(C, K, T, P)
     calls = []
     plain = genotyping_cuda.backward_plain
     monkeypatch.setattr(genotyping_cuda, "backward_plain", lambda *a: calls.append(1) or plain(*a))

@@ -38,6 +38,10 @@ FAMILY5 = ((0, 1, 2), (0, 1, 3), (0, 1, 4))  # three children: T = 64, P = 4
 FAMILY6 = FAMILY5 + ((0, 1, 5),)  # four children: T = 256, P = 4
 DOUBLE_TRIO = ((0, 1, 2), (2, 3, 4))  # three founders: T = 16, P = 6
 FOUR_FOUNDERS = ((0, 1, 4), (2, 3, 5))  # T = 16, P = 8
+FAMILY7 = tuple((0, 1, c) for c in range(2, 7))  # five children: T = 1024, P = 4
+# two grandparent couples, their two children, an in-law and two
+# grandchildren: four trios of five founders, T = 256, P = 10
+FIVE_FOUNDERS = ((0, 1, 4), (2, 3, 5), (4, 5, 7), (4, 6, 8))
 
 
 @pytest.fixture(autouse=True)
@@ -124,6 +128,12 @@ CASES = [
     ("family6-k6", FAMILY6, (1, 1, 1, 1, 1, 1), 5, None, (6, 256, 4)),
     ("trio-k17", TRIO, (6, 6, 5), 3, None, (17, 4, 4)),
     ("single-k18", (), (18,), 2, None, (18, 1, 2)),
+    # five children (T = 1024), five founders (P = 10) at four trios, at one
+    # trio and at two (three and two individuals outside any trio)
+    ("family7-k7", FAMILY7, (1,) * 7, 4, None, (7, 1024, 4)),
+    ("five-founders-p10", FIVE_FOUNDERS, (1, 1, 1, 1, 1, 1, 0, 0, 0), 4, None, (6, 256, 10)),
+    ("trio-p10", TRIO, (2, 1, 1, 1, 1, 1), 4, None, (7, 4, 10)),
+    ("four-founders-p10-nan", FOUR_FOUNDERS, (1,) * 7, 5, 1, (7, 16, 10)),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -193,7 +203,7 @@ def test_plain_f32_matches_reference_f32_scan(results, name):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", [CASES[0], CASES[2]], ids=[IDS[0], IDS[2]])
+@pytest.mark.parametrize("case", [CASES[i] for i in (0, 2, 7, 8)], ids=[IDS[i] for i in (0, 2, 7, 8)])
 def test_genotype_dptable_cpu_matches_reference_jax_route(case, monkeypatch):
     spec, _ref, _port = _case_spec(case, 1700)
     monkeypatch.setenv("WHATSHAP_TPU_GENO_BACKEND", "jax")
@@ -217,7 +227,8 @@ def test_genotype_dptable_cpu_matches_reference_jax_route(case, monkeypatch):
 @pytest.mark.parametrize("K,T,P,supported", [
     (1, 1, 2, True), (18, 1, 2, True), (23, 1, 2, True), (24, 1, 2, False), (20, 1, 4, False),
     (17, 4, 4, True), (23, 4, 2, True), (15, 64, 4, True), (6, 256, 8, True), (12, 16, 6, True),
-    (10, 16, 8, True), (24, 64, 4, False), (5, 1024, 4, False), (8, 64, 10, False), (8, 64, 3, False),
+    (10, 16, 8, True), (24, 64, 4, False), (5, 1024, 4, True), (8, 64, 10, True), (23, 1024, 10, True),
+    (5, 4096, 4, False), (8, 64, 12, False), (8, 64, 3, False),
     (0, 16, 4, False), (7, 8, 4, False),
 ])
 def test_wide_envelope(K, T, P, supported):
@@ -245,7 +256,7 @@ def _meta_inputs(K, T, P, B=2, C=3):
 @pytest.mark.parametrize("K,T,P,kernel", [
     (17, 1, 2, "cluster"), (18, 1, 2, "wide"), (23, 1, 2, "wide"), (16, 4, 4, "cluster"), (17, 4, 4, "wide"),
     (13, 16, 4, "cluster"), (14, 16, 4, "wide"), (7, 16, 6, "wide"), (15, 64, 4, "wide"), (6, 256, 8, "wide"),
-    (24, 1, 2, None), (9, 1024, 4, None), (8, 64, 10, None),
+    (9, 1024, 4, "wide"), (8, 64, 10, "wide"), (24, 1, 2, None), (9, 4096, 4, None), (8, 64, 12, None),
 ])
 def test_wrappers_dispatch_by_shape(monkeypatch, K, T, P, kernel):
     """On the card backward and forward launch the cluster kernel where
@@ -282,20 +293,28 @@ def test_wrappers_dispatch_by_shape(monkeypatch, K, T, P, kernel):
 
 def test_route_refuses_only_beyond_both_envelopes(monkeypatch):
     """The route's message names both envelopes and Queue 1 item 5, and the
-    bytes an instance takes count, past the cluster envelope only, the wide
+    bytes an instance takes count its inputs' copy on the card and red (a
+    column's diff, base, passign, trans and red in float32, the two flags,
+    dup and scaling) and, past the cluster envelope only, the wide
     forward's alpha plane, its rows of partial sums of red (two a column of
     a window: 16 columns at T * 2^P = 1024 floats, one at 65,536), the
     backward's rows of partial sums and four words a column, with the rows
     of each CTA counted once a chunk."""
     err = genotyping._unsupported(24, 1, 2)
     assert "item 5" in str(err) and genotyping_cuda.WIDE_ENVELOPE in str(err) and "wider envelope" in str(err)
-    assert genotyping.instance_bytes(10, 15, 1, 2) == 10 * 4 << 15
+
+    def inputs(C, K, T, P):
+        return C * (4 * (K * T * 2 * P + T * 2 * P + 2 * (T << P) + T * T) + 2 * K + 8)
+
+    assert genotyping.instance_bytes(10, 15, 1, 2) == (10 * 4 << 15) + inputs(10, 15, 1, 2)
     rows_t64 = 2 * 16 * (64 * 4 << 4) + 8 * (1 + 1)
     rows_t256 = 2 * 1 * (256 * 4 << 8) + 8 * (1 + 1)
     rows_t1 = 2 * 16 * (1 * 4 << 2) + 8 * (1 + 16)
-    assert genotyping.instance_bytes(10, 15, 64, 4) == (11 * 64 * 4 << 15) + rows_t64 + 16 * 10
-    assert genotyping.instance_bytes(10, 6, 256, 8) == (11 * 256 * 4 << 6) + rows_t256 + 16 * 10
-    assert genotyping.instance_bytes(10, 20, 1, 2) == (11 * 4 << 20) + rows_t1 + 16 * 10
+    assert genotyping.instance_bytes(10, 15, 64, 4) == (11 * 64 * 4 << 15) + rows_t64 + 16 * 10 + inputs(10, 15, 64, 4)
+    assert genotyping.instance_bytes(10, 6, 256, 8) == (11 * 256 * 4 << 6) + rows_t256 + 16 * 10 + inputs(10, 6, 256, 8)
+    assert genotyping.instance_bytes(10, 20, 1, 2) == (11 * 4 << 20) + rows_t1 + 16 * 10 + inputs(10, 20, 1, 2)
+    # trans is 4 MiB a column at T = 1024
+    assert inputs(1, 14, 1024, 4) > 4 << 20
     monkeypatch.setattr(genotyping_cuda, "_sm_count", lambda dev: 132)
     cuda = torch.device("cuda")
     assert genotyping.chunk_bytes(cuda, 15, 1, 2) == 0 and genotyping.chunk_bytes(torch.device("cpu"), 15, 64, 4) == 0

@@ -404,14 +404,15 @@ def test_pedigree_wrappers_count_kernel_launches_only():
 
 
 def test_route_refuses_beyond_the_envelope_only_on_cuda():
-    """Five trios (T = 1024), five founders (P = 10) or K = 24 at a trio run
+    """Six trios (T = 4096), six founders (P = 12) or K = 24 at a trio run
     the mirror on the CPU; the auto solvers would raise NotImplementedError
-    for such a shape on a CUDA device.  Three trios (T = 64), the shape this
-    test refused before the wide general-T kernel, now take the kernels."""
+    for such a shape on a CUDA device.  Three trios (T = 64), five trios (T
+    = 1024) and five founders (P = 10), shapes this test refused before the
+    wide general-T kernel took them, now take the kernels."""
     dev = torch.device("cuda")
-    for shape in ((5, 1024, 4), (5, 16, 10), (24, 4, 4)):
+    for shape in ((5, 4096, 4), (5, 16, 12), (24, 4, 4)):
         with pytest.raises(NotImplementedError, match="wider envelope"):
             wmec._pick(*shape, dev, wmec_cuda.solve_batched_cuda, wmec.solve_batched)
         assert wmec._pick(*shape, torch.device("cpu"), None, wmec.solve_batched) is wmec.solve_batched
-    for shape in ((5, 64, 4), (14, 16, 4)):
+    for shape in ((5, 64, 4), (14, 16, 4), (5, 1024, 4), (5, 16, 10), (23, 1024, 10)):
         assert wmec._pick(*shape, dev, wmec_cuda.solve_batched_cuda, wmec.solve_batched) is wmec_cuda.solve_batched_cuda

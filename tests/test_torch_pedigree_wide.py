@@ -45,6 +45,10 @@ def _one_torch_thread():
 INF = wmec.INF
 DOUBLE_TRIO = (5, ((0, 1, 2), (2, 3, 4)))  # three founders: P = 6, T = 16
 FAMILY5 = (5, ((0, 1, 2), (0, 1, 3), (0, 1, 4)))  # two parents, three children: P = 4, T = 64
+FAMILY7 = (7, tuple((0, 1, c) for c in range(2, 7)))  # two parents, five children: P = 4, T = 1024
+# two grandparent couples, their two children, an in-law and two
+# grandchildren: four trios of five founders, P = 10, T = 256
+FIVE_FOUNDERS = (9, ((0, 1, 4), (2, 3, 5), (4, 5, 7), (4, 6, 8)))
 
 
 def _bucket(K, T, P, B, C, seed, ties=False):
@@ -119,6 +123,10 @@ SOLVE_SHAPES = [
     (4, 16, 6, 2, 3, False),
     (2, 16, 8, 2, 3, True),
     (17, 4, 2, 1, 2, True),
+    # five founders at one and two trios, five trios
+    (4, 4, 10, 2, 3, False),
+    (3, 16, 10, 2, 2, True),
+    (3, 1024, 4, 1, 2, False),
 ]
 
 
@@ -141,6 +149,8 @@ def test_wide_solve_batched_matches_reference(K, T, P, B, C, ties):
 SEEDED_SHAPES = [
     (4, 64, 4, 2, 3, True),
     (2, 256, 8, 2, 2, False),
+    (2, 1024, 2, 1, 2, True),
+    (3, 16, 10, 2, 2, False),
 ]
 
 
@@ -346,8 +356,9 @@ def test_wide_doubletrio_pure_genetic_matches_reference():
 def test_wide_t_wrappers_check_inputs_and_count_no_launch():
     """The general-T wide wrappers run their plain versions on CPU tensors (no
     launch counted), as forward_t, forward_m_t and forward_carry_t do for
-    shapes past the cluster kernel; they refuse shapes past the envelope,
-    and backtrace_t takes tables up to T = 256."""
+    shapes past the cluster kernel; they refuse shapes past the envelope
+    (six trios, T = 4096; six founders, P = 12), and backtrace_t takes
+    tables of T in WIDE_T, up to T = 1024."""
     K, T, P = 3, 64, 6
     arrays = _t(_bucket(K, T, P, 2, 3, seed=9, ties=True))
     counters = (wmec_cuda.forward_t, wmec_cuda.forward_m_t, wmec_cuda.forward_carry_t, wmec_cuda.forward_t_wide,
@@ -372,7 +383,7 @@ def test_wide_t_wrappers_check_inputs_and_count_no_launch():
         wmec_cuda.forward_carry_t_wide(K, T, P, *tail, None)
     with pytest.raises(ValueError, match="seeded"):
         wmec_cuda.forward_m_t_wide(K, T, P, *arrays, None)
-    for bad in ((K, 1024, 4), (K, 64, 10), (wmec_cuda.MAX_K_WIDE + 1, 4, 4)):
+    for bad in ((K, 4096, 4), (K, 64, 12), (wmec_cuda.MAX_K_WIDE + 1, 4, 4)):
         big = _t(_bucket(*bad, 1, 1, seed=2))
         with pytest.raises(ValueError, match="unsupported"):
             wmec_cuda.forward_t_wide(*bad, *big)
@@ -382,10 +393,10 @@ def test_wide_t_wrappers_check_inputs_and_count_no_launch():
 
 
 def test_wide_t_envelope_and_state():
-    """The envelope: up to four trios (T = 256) and four founders (P = 8) at
-    any K up to the CLI's 23; past the cluster kernel's shapes the wide
+    """The envelope: up to five trios (T = 1024) and five founders (P = 10)
+    at any K up to the CLI's 23; past the cluster kernel's shapes the wide
     kernel keeps 2T + 1 planes of 4 * 2^K bytes a block (cost, jmin, key)."""
-    assert wmec_cuda.WIDE_T == (4, 16, 64, 256) and wmec_cuda.WIDE_P == (2, 4, 6, 8)
+    assert wmec_cuda.WIDE_T == (4, 16, 64, 256, 1024) and wmec_cuda.WIDE_P == (2, 4, 6, 8, 10)
     for T in wmec_cuda.WIDE_T:
         for P in wmec_cuda.WIDE_P:
             assert wmec_cuda.kernel_supported(1, T, P) and wmec_cuda.kernel_supported(23, T, P)
@@ -394,7 +405,7 @@ def test_wide_t_envelope_and_state():
                 cluster = wmec_cuda.cluster_supported(K, T, P)
                 assert cluster == (P <= 4 and ((T == 4 and K <= 16) or (T == 16 and K <= 13)))
                 assert wmec_cuda.state_bytes(K, T, P) == (0 if cluster else (2 * T + 1) * 4 << K)
-    for T, P in ((1024, 4), (64, 10), (8, 4), (64, 5)):
+    for T, P in ((4096, 4), (64, 12), (8, 4), (64, 5)):
         assert not wmec_cuda.kernel_supported(5, T, P)
     assert wmec_cuda.state_bytes(15, 64, 4) == 129 * 4 << 15
 
@@ -440,3 +451,114 @@ def test_wide_t_segment_rule_follows_the_xla_route(monkeypatch):
     assert wmec._single_range_segment(2048, 15, 64, dev, 4) is None
     monkeypatch.setattr(wmec, "_table_budget", lambda device: need - 1)
     assert wmec._single_range_segment(2048, 15, 64, dev, 4) == 64
+
+
+# ---------------------------------------------------------------------------
+# five trios (T = 1024) and five founders (P = 10)
+# ---------------------------------------------------------------------------
+
+
+def _t1024_case(mode):
+    """A five-trio bucket (T = 1024, P = 4, K = 3) and the reference's
+    output for `mode`: "tables" solve_batched's costs and paths and the
+    tables of _forward_tables_scan from zero; "carry" _forward_carry_scan of
+    the last two columns from the nonzero state after the first; "m"
+    forward_m_batched with 3 explicit seeds a block, on the blocks repeated
+    once per seed."""
+    K, T, P = 3, 1024, 4
+    if mode == "tables":
+        arrays = _bucket(K, T, P, 1, 2, seed=61, ties=True)
+        ref = [np.asarray(x) for x in ref_wmec.solve_batched(K, T, P, *_j(arrays))]
+        zero = (jnp.zeros((1 << K, T), jnp.int32), jnp.zeros((1 << K, T), jnp.int32), jnp.zeros((1 << K,), jnp.int32))
+        tables = ref_wmec._forward_tables_scan(K, T, P, *_j([a[0] for a in arrays]), zero)
+        ref += [np.asarray(tables[3]).transpose(0, 2, 1)[None], np.asarray(tables[4]).transpose(0, 2, 1)[None]]
+        return (K, T, P), arrays, None, ref
+    if mode == "carry":
+        arrays = _bucket(K, T, P, 1, 3, seed=62, ties=False)
+        zero = (jnp.zeros((1 << K, T), jnp.int32), jnp.zeros((1 << K, T), jnp.int32), jnp.zeros((1 << K,), jnp.int32))
+        carry0 = ref_wmec._forward_carry_scan(K, T, P, *_j([a[0, :1] for a in arrays]), zero)
+        out = ref_wmec._forward_carry_scan(K, T, P, *_j([a[0, 1:] for a in arrays]), carry0)
+        carry0 = [np.asarray(x)[None] for x in carry0]
+        assert (carry0[0] != 0).any() and (carry0[2] != 0).any()
+        return (K, T, P), [a[:, 1:] for a in arrays], carry0, [np.asarray(x)[None] for x in out]
+    R = 3
+    arrays = _bucket(K, T, P, 2, 2, seed=63, ties=True)
+    seeds = _seeds(2 * R, T, seed=64).reshape(2, R, T)
+    rep = [np.repeat(a, R, axis=0) for a in arrays]
+    ref = np.asarray(ref_wmec.forward_m_batched(K, T, P, *_j(rep), jnp.asarray(seeds.reshape(-1, T))))
+    return (K, T, P), arrays, seeds, [ref.reshape(2, R, T)]
+
+
+@pytest.mark.parametrize("chunk", [wmec.MINPLUS_CHUNK, 1 << 21], ids=["chunk-default", "chunk-states"])
+@pytest.mark.parametrize("mode", ["tables", "carry", "m"])
+def test_t1024_mirror_modes_match_reference(mode, chunk, monkeypatch):
+    """Five trios (T = 1024: a state's T x T min-plus term is 4 MiB): the
+    wide wrappers' plain versions in the tables, carry and m-only modes
+    against the reference's XLA scan, bit for bit: solve_batched and its
+    tables, _forward_carry_scan from a nonzero carry, forward_m_batched with
+    three explicit seeds a block (the grouped mode).  The mirror takes the
+    min-plus of the tables and carry modes in chunks of MINPLUS_CHUNK
+    entries: at its default whole scans a chunk, pinned at 2M entries two
+    states a chunk; the results do not move.  (The m-only mode takes it as
+    a distance transform over the bits of t, whatever the chunk.)"""
+    monkeypatch.setattr(wmec, "MINPLUS_CHUNK", chunk)
+    (K, T, P), arrays, extra, ref = _t1024_case(mode)
+    assert _past_cluster(K, T, P)
+    ta = _t(arrays)
+    if mode == "tables":
+        out = list(wmec_cuda.solve_batched_cuda(K, T, P, *ta)) + list(wmec_cuda.forward_t_wide(K, T, P, *ta)[:2])
+    elif mode == "carry":
+        carry = tuple(torch.from_numpy(np.array(np.swapaxes(x, 1, 2) if x.ndim == 3 else x, order="C")) for x in extra)
+        out = [x.transpose(1, 2) if x.dim() == 3 else x for x in wmec_cuda.forward_carry_t_wide(K, T, P, *ta, carry)]
+    else:
+        out = [wmec_cuda.forward_m_t_wide(K, T, P, *ta, torch.from_numpy(extra))]
+    assert len(out) == len(ref)
+    for i, (x, r) in enumerate(zip(out, ref)):
+        assert _eq(x, r), (mode, i)
+
+
+@pytest.mark.parametrize("pedigree", [FAMILY7, FIVE_FOUNDERS], ids=["family7", "five-founders"])
+def test_five_trios_or_founders_dptable_matches_reference(pedigree):
+    """Both PedigreeDPTables end to end on one read-connected range (one
+    block, the single-range solve) of a family of two parents and five
+    children (T = 1024, P = 4) and of a pedigree of five founders and four
+    trios (T = 256, P = 10): cost, partitioning, superreads and the
+    transmission vector, bit for bit."""
+    tables = []
+    for pkg in (core, ref_core):
+        rs, recomb, positions, ped = _family_instance(pkg, pedigree, 6, 1, seed=5)
+        kw = {"device": "cpu"} if pkg is core else {}
+        tables.append(pkg.PedigreeDPTable(rs, recomb, ped, False, positions, **kw))
+    port, ref = tables
+    K, T, P = port._packed.K, port._packed.T, port._packed.P
+    assert (T, P) == {7: (1024, 4), 9: (256, 10)}[pedigree[0]] and _past_cluster(K, T, P)
+    assert len(wmec.connected_column_ranges(port._packed)) == 1
+    _assert_tables_equal(port, ref)
+
+
+def test_pass_1_splits_a_blocks_seeds_over_the_budget(monkeypatch):
+    """Pass 1 (forward_m_auto) splits a block's coset seeds over launches
+    where their cost planes (T * 4 * 2^K bytes a seed) pass the table
+    budget, each launch chunked along the blocks in turn, and m equals the
+    unsplit launch's; a budget below one seed's planes raises, naming the
+    over-budget item."""
+    K, T, P, B, R = 3, 64, 4, 3, 5
+    arrays = _t(_bucket(K, T, P, B, 2, seed=71, ties=True))
+    seeds = torch.from_numpy(_seeds(B * R, T, seed=72).reshape(B, R, T))
+    whole = wmec.forward_m_auto(K, T, P, *arrays, seeds)
+    per_seed = wmec_cuda.state_bytes(K, T, P, seeds=1)
+    assert per_seed == T * 4 << K
+    seen = []
+    real = wmec._launch_batched
+    monkeypatch.setattr(wmec, "_launch_batched", lambda *a: seen.append((a[-2][-1].shape, a[-1])) or real(*a))
+    monkeypatch.setattr(wmec, "_table_budget", lambda device: 2 * per_seed + 1)
+    split = wmec.forward_m_auto(K, T, P, *arrays, seeds)
+    assert torch.equal(split, whole)
+    assert seen == [((B, 2, T), 2 * per_seed), ((B, 2, T), 2 * per_seed), ((B, 1, T), per_seed)]
+    monkeypatch.setattr(wmec, "_table_budget", lambda device: R * per_seed)
+    seen.clear()
+    assert torch.equal(wmec.forward_m_auto(K, T, P, *arrays, seeds), whole)
+    assert seen == [((B, R, T), R * per_seed)]
+    monkeypatch.setattr(wmec, "_table_budget", lambda device: per_seed - 1)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        wmec.forward_m_auto(K, T, P, *arrays, seeds)

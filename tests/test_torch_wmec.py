@@ -404,13 +404,13 @@ def test_kernel_envelope():
     assert not wmec_cuda.kernel_supported(20, 1, 4)
     # pedigrees: the cluster kernel at T = 4 up to K = 16 and T = 16 up to K
     # = 13, with P = 2 or 4; past it the wide kernel (state in device
-    # memory), T up to 256 (four trios) and P up to 8, to K = 23
+    # memory), T up to 1024 (five trios) and P up to 10, to K = 23
     for k_max, T in ((16, 4), (13, 16)):
         assert all(wmec_cuda.cluster_supported(k, T, p) for k in range(1, k_max + 1) for p in (2, 4))
-        assert all(wmec_cuda.kernel_supported(k, T, p) for k in range(1, 24) for p in (2, 4, 6, 8))
-    for shape in ((17, 4, 4), (14, 16, 4), (10, 64, 4), (10, 16, 6), (23, 256, 8)):
+        assert all(wmec_cuda.kernel_supported(k, T, p) for k in range(1, 24) for p in (2, 4, 6, 8, 10))
+    for shape in ((17, 4, 4), (14, 16, 4), (10, 64, 4), (10, 16, 6), (23, 256, 8), (23, 1024, 10), (5, 4, 10)):
         assert wmec_cuda.kernel_supported(*shape) and not wmec_cuda.cluster_supported(*shape)
-    for shape in ((10, 1024, 4), (10, 16, 10), (24, 4, 4), (10, 8, 4)):
+    for shape in ((10, 4096, 4), (10, 16, 12), (24, 4, 4), (10, 8, 4)):
         assert not wmec_cuda.kernel_supported(*shape)
     # the cluster kernels keep the state in the shared memory of the block's
     # cluster (T = 1 up to K = 17 and general T): no device state; the wide

@@ -32,7 +32,7 @@ from ..timer import StageTimer
 from ..utils import ChromosomeFilter
 from ..vcf import GenotypeVcfWriter, VcfReader
 from . import CommandLineError, PhasedInputReader, log_memory_usage, populate_arg_parser
-from .phase import select_reads, setup_families
+from .phase import refuse_families_past_envelope, select_reads, setup_families, vcf_samples
 
 logger = logging.getLogger(__name__)
 
@@ -95,8 +95,21 @@ def run_genotype(
     whatshap/cli/genotype.py run_genotype).  The forward-backward runs on
     `device`: a CUDA device unless the caller passes "cpu" (see
     ops.wmec.resolve_device, which raises before any output is opened when
-    no CUDA device is available)."""
+    no CUDA device is available; so does a PED family past the card's
+    kernels, phase.refuse_families_past_envelope)."""
     device = resolve_device(device)
+    if ped:
+        # the samples as the run below takes them
+        if use_ped_samples:
+            family_samples = {
+                member
+                for trio in PedReader(ped)
+                if trio.child and trio.mother and trio.father
+                for member in (trio.mother, trio.father, trio.child)
+            }
+        else:
+            family_samples = samples or vcf_samples(variant_file)
+        refuse_families_past_envelope(family_samples, ped, device)
 
     global LAST_TIMERS
     timers = LAST_TIMERS = StageTimer()

@@ -9,7 +9,7 @@ import logging
 import platform
 import sys
 from argparse import SUPPRESS
-from collections import defaultdict
+from collections import Counter, defaultdict
 from contextlib import ExitStack
 from dataclasses import dataclass
 from pathlib import Path
@@ -36,6 +36,7 @@ from ..core import (
     ReadSet,
 )
 from ..graph import ComponentFinder
+from ..ops import wmec_cuda
 from ..ops.wmec import resolve_device
 from ..merge import DoNothingReadMerger, ReadMerger
 from ..pedigree import (
@@ -320,6 +321,43 @@ def setup_families(
             "WhatsHap may take a long time to finish and require a huge amount of memory."
         )
     return families, family_trios
+
+
+def vcf_samples(variant_file: str) -> List[str]:
+    """The samples of a VCF's header, or none where it cannot be read (the
+    run then reports that when it opens the file)."""
+    try:
+        with VcfReader(variant_file) as reader:
+            return list(reader.samples)
+    except (OSError, ValueError, VcfError):
+        return []
+
+
+def refuse_families_past_envelope(samples: Sequence[str], ped_path: str, device: torch.device) -> None:
+    """On a CUDA device, raise NotImplementedError for a family of the PED
+    file whose pedigree the card's kernels cannot take, before the caller
+    opens any output: its T = 4^trios and P = 2 * (members - trios), as
+    pack_problem counts them for the families of setup_families, past
+    wmec_cuda.WIDE_T and WIDE_P (six or more trios, or six or more
+    founders: ROADMAP Queue 1 item 5).  The solvers would raise the same
+    once the family's turn came, after the output had been opened."""
+    if device.type != "cuda":
+        return
+    trios, _members = setup_pedigree(ped_path, samples)
+    finder = ComponentFinder(samples)
+    for trio in trios:
+        finder.merge(trio.father, trio.child)
+        finder.merge(trio.mother, trio.child)
+    members = Counter(finder.find(sample) for sample in samples)
+    for representative, n_trios in Counter(finder.find(trio.child) for trio in trios).items():
+        T, P = 4**n_trios, 2 * (members[representative] - n_trios)
+        if not wmec_cuda.kernel_supported(1, T, P):
+            raise NotImplementedError(
+                f"the family of {representative} has {n_trios} trios and "
+                f"{members[representative] - n_trios} founders (T = {T}, P = {P}): pedigrees past "
+                f"the CUDA kernels' envelope (T in {wmec_cuda.WIDE_T}, P in {wmec_cuda.WIDE_P}) "
+                "need kernels with a wider envelope, ROADMAP Queue 1 item 5"
+            )
 
 
 def make_recombination_cost_computer(
@@ -865,13 +903,20 @@ def run_whatshap(
     reference's run_whatshap (whatshap/cli/phase.py:289).  The exact solver
     runs on `device`: a CUDA device unless the caller passes "cpu" (see
     ops.wmec.resolve_device, which raises before any output is opened when
-    no CUDA device is available)."""
+    no CUDA device is available; so does a PED family past the card's
+    kernels, refuse_families_past_envelope)."""
     if algorithm in ("hapchat", "heuristic"):
         raise CommandLineError(
             f"--algorithm {algorithm} is not ported to whatshap_torch yet: its host "
             "solver comes with the host-only subcommands (ROADMAP Queue 1 item 11)"
         )
     device = resolve_device(device)
+    if ped is not None:
+        refuse_families_past_envelope(
+            PedReader(ped).samples() if use_ped_samples else samples or vcf_samples(variant_file),
+            ped,
+            device,
+        )
 
     global LAST_TIMERS
     timers = LAST_TIMERS = StageTimer()

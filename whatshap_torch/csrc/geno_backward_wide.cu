@@ -5,8 +5,8 @@
 // Replaces the reference's XLA backward scan past its Pallas envelope:
 // whatshap_tpu/ops/genotyping_jax.py `_forward_backward` (`bwd_step` and its
 // lax.scan, with `_sum_fold`), as `_forward_backward_batched` runs it for
-// stacked instances, at T = 1 (P = 2) or T = 4, 16, 64, 256 with P = 2, 4,
-// 6, 8, and any 1 <= K <= 23.  What it computes is geno_backward.cu's
+// stacked instances, at T = 1 (P = 2) or T = 4, 16, 64, 256, 1024 with P =
+// 2, 4, 6, 8, 10, and any 1 <= K <= 23.  What it computes is geno_backward.cu's
 // function: per instance, from column C-1 down to 0, with the scaled beta
 // (T planes of 2^K floats, all ones before column C-1):
 //
@@ -108,13 +108,12 @@ __device__ void window_scalings(const Args& a, const Smem& s, const Geo& g, int 
 // weighted = X * sum_a em * passign, in the owner mapping (the emission
 // sums of geno_wide.cuh EmRows for the tile of coset base cbase), into Wt;
 // at T = 1 times trans (the product of one plane: the same rounding), into
-// X.
+// X.  Thread (t, r) of plane t.
 template <int T, int P>
-__device__ void weigh(const Smem& s, const Geo& g, float* X, float* Wt, const float* __restrict__ diff_c,
-                      const float* __restrict__ base_c, const float* __restrict__ pa_c, uint32_t cbase) {
+__device__ __forceinline__ void weigh_plane(const Smem& s, const Geo& g, float* X, float* Wt, const float* __restrict__ diff_c,
+                            const float* __restrict__ base_c, const float* __restrict__ pa_c, uint32_t cbase,
+                            int t, int r) {
   constexpr int NA = 1 << P, NL = NA < 16 ? NA : 16, NH = NA / NL;
-  const int t = threadIdx.x / g.tp, r = threadIdx.x % g.tp;
-  if (t >= T) return;
   EmRows<T, P> rows;
   rows.load(s, g, diff_c, base_c, cbase, t, r);
   const float* pa = pa_c + t * NA;
@@ -147,6 +146,24 @@ __device__ void weigh(const Smem& s, const Geo& g, float* X, float* Wt, const fl
     } else {
       Wt[t * g.ps + l] = X[t * g.ps + l] * ws;
     }
+  }
+}
+
+// weigh_plane for every plane of the tile: thread (t, r) takes plane t =
+// threadIdx.x / tp and, at T = 1024 (tp = 1: the owner mapping's 1,024
+// threads), the planes kThreads apart from it (a loop only there: up to T
+// = 256 a thread has one plane and no loop keeps its registers live).
+template <int T, int P>
+__device__ void weigh(const Smem& s, const Geo& g, float* X, float* Wt, const float* __restrict__ diff_c,
+                      const float* __restrict__ base_c, const float* __restrict__ pa_c, uint32_t cbase) {
+  const int r = threadIdx.x % g.tp;
+  if constexpr (T <= kThreads) {
+    const int t = threadIdx.x / g.tp;
+    if (t < T) weigh_plane<T, P>(s, g, X, Wt, diff_c, base_c, pa_c, cbase, t, r);
+  } else {
+#pragma unroll 1
+    for (int t = threadIdx.x / g.tp; t < T; t += kThreads / g.tp)
+      weigh_plane<T, P>(s, g, X, Wt, diff_c, base_c, pa_c, cbase, t, r);
   }
 }
 
@@ -391,6 +408,7 @@ int launch_t(const Args& a, int P, int max_ctas, cudaStream_t stream) {
     case 4: return launch<T, 4>(a, max_ctas, stream);
     case 6: return launch<T, 6>(a, max_ctas, stream);
     case 8: return launch<T, 8>(a, max_ctas, stream);
+    case 10: return launch<T, 10>(a, max_ctas, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -412,6 +430,7 @@ extern "C" int geno_backward_wide(const float* diff, const float* base, const fl
     case 16: return launch_t<16>(a, P, max_ctas, stream);
     case 64: return launch_t<64>(a, P, max_ctas, stream);
     case 256: return launch_t<256>(a, P, max_ctas, stream);
+    case 1024: return launch_t<1024>(a, P, max_ctas, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

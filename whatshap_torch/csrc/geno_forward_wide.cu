@@ -34,7 +34,11 @@
 // in place.  After a window's barrier every warp of the grid takes outputs
 // of its red and sums the partial rows of the CTAs that cover its instance
 // in rank order (rows by window parity, a row of T * 2^P a CTA, instance
-// and window column: genotyping_cuda.wide_window_cap bounds the columns).
+// and window column: genotyping_cuda.wide_window_cap bounds the columns,
+// and where a row is large, 1 MiB at T = 256, P = 10 and 4 MiB at T = 1024,
+// P = 10, genotyping_cuda.wide_max_ctas the CTAs, so that the rows stay
+// within WIDE_RED_BYTES).  The shapes: T = 1 (P = 2) or T = 4, 16, 64, 256,
+// 1024 with P = 2, 4, 6, 8, 10, and any 1 <= K <= 23.
 
 #include "geno_wide.cuh"
 
@@ -72,13 +76,15 @@ __device__ void reduce_red(const Args& a, const Geo& g, int c0, int W, int par, 
 // The emission step of column c for the tile (coset base cbase): red's sums
 // into the CTA's partial row `prow` (stored where `first`) and sum_a fwd
 // into A, fwd = (sp * em) * (passign / scaling) as the reference
-// associates it (its range: sp * beta can fall below float32's).
+// associates it (its range: sp * beta can fall below float32's).  Thread
+// (t, r) takes its states of plane t (none where t >= T).
 template <int T, int P>
-__device__ void emit(const Smem& s, const Geo& g, float* A, const float* SP, const float* Bt, bool first_col,
-                     bool has_beta, float inv, const float* __restrict__ diff_c, const float* __restrict__ base_c,
-                     const float* __restrict__ pa_c, uint32_t cbase, float* prow, bool first) {
+__device__ __forceinline__ void emit_planes(const Smem& s, const Geo& g, float* A, const float* SP, const float* Bt, bool first_col,
+                            bool has_beta, float inv, const float* __restrict__ diff_c,
+                            const float* __restrict__ base_c, const float* __restrict__ pa_c, uint32_t cbase,
+                            float* prow, bool first, int t) {
   constexpr int NA = 1 << P, NC = NA < kChunk ? NA : kChunk;
-  const int t = threadIdx.x / g.tp, r = threadIdx.x % g.tp;
+  const int r = threadIdx.x % g.tp;
   const bool active = t < T;
   const float* pa = pa_c + (active ? t : 0) * NA;
   EmRows<T, P> rows;
@@ -145,6 +151,24 @@ __device__ void emit(const Smem& s, const Geo& g, float* A, const float* SP, con
       }
       __syncthreads();
     }
+  }
+}
+
+// emit_planes over the tile's planes: thread (t, r) takes plane t =
+// threadIdx.x / tp and, at T = 1024 (tp = 1: the owner mapping's 1,024
+// threads), the planes kThreads apart from it, one pass each (a loop only
+// there, where tp = 1 and a pass has no barrier; up to T = 256 one pass).
+template <int T, int P>
+__device__ void emit(const Smem& s, const Geo& g, float* A, const float* SP, const float* Bt, bool first_col,
+                     bool has_beta, float inv, const float* __restrict__ diff_c, const float* __restrict__ base_c,
+                     const float* __restrict__ pa_c, uint32_t cbase, float* prow, bool first) {
+  if constexpr (T <= kThreads) {
+    emit_planes<T, P>(s, g, A, SP, Bt, first_col, has_beta, inv, diff_c, base_c, pa_c, cbase, prow, first,
+                      (int)threadIdx.x / g.tp);
+  } else {
+#pragma unroll 1
+    for (int t = (int)threadIdx.x / g.tp; t < T; t += kThreads / g.tp)
+      emit_planes<T, P>(s, g, A, SP, Bt, first_col, has_beta, inv, diff_c, base_c, pa_c, cbase, prow, first, t);
   }
 }
 
@@ -302,6 +326,7 @@ int launch_t(const Args& a, int P, int max_ctas, cudaStream_t stream) {
     case 4: return launch<T, 4>(a, max_ctas, stream);
     case 6: return launch<T, 6>(a, max_ctas, stream);
     case 8: return launch<T, 8>(a, max_ctas, stream);
+    case 10: return launch<T, 10>(a, max_ctas, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -324,6 +349,7 @@ extern "C" int geno_forward_wide(const float* diff, const float* base, const flo
     case 16: return launch_t<16>(a, P, max_ctas, stream);
     case 64: return launch_t<64>(a, P, max_ctas, stream);
     case 256: return launch_t<256>(a, P, max_ctas, stream);
+    case 1024: return launch_t<1024>(a, P, max_ctas, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

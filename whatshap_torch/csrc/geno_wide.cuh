@@ -8,7 +8,8 @@
 // less: the tiles are shared out evenly), and a grid-wide barrier ends each
 // pass over the state.  The unit of work is a tile: the coset of lb "tile
 // bits" of the state index (2^lb = min(2^K, 4096 / T) states) in all T
-// planes, at most 4096 entries, staged in shared memory.
+// planes, at most 4096 entries, staged in shared memory (4 states of each
+// of the 1,024 planes at T = 1024).
 //
 // Windows.  The columns go in windows, in the pass's order: as many columns
 // (at most the launch's window cap, and never across a multiple of it) as
@@ -34,9 +35,12 @@
 // assignment; at P = 2 the exp of each lem sum, as many exps.
 //
 // The transmission product is a (T x T) by (T x ns) matrix product per
-// tile, trans staged in shared memory (in slices of rows at T = 256), each
-// thread holding a 4 x 4 block of outputs in registers fed by two 16-byte
-// loads a step, each sum in ascending order of the inner index.
+// tile, trans staged in shared memory (in slices of 16 rows at T = 256 and
+// 1024), each thread holding a 4 x 4 block of outputs in registers fed by
+// two 16-byte loads a step, each sum in ascending order of the inner index.
+// At T = 1024 a thread owns four planes in the emission step (the owner
+// mapping takes 1,024 threads there), and a tile of 4 states reads all of
+// trans, 4 MiB a column: the product is dense T^2 multiply-adds a state.
 //
 // A reduction over the grid (the backward's scaling sum, the forward's red)
 // is taken in a fixed order: each CTA sums its tiles of an instance in tile
@@ -47,7 +51,7 @@
 // rows of all pairs that exist are distinct and fewer than G + B.
 //
 // Every index into the state and the tables is 64-bit (T * 2^K reaches 2^31
-// at T = 256, K = 23).
+// at T = 256, K = 23, and 2^33 at T = 1024).
 
 #pragma once
 
@@ -66,7 +70,7 @@ constexpr int kTile = 4096;     // entries (plane, state) of a tile
 constexpr int kPer = 16;        // states of a plane a thread owns in the emission step
 constexpr int kChunk = 16;      // allele assignments a forward thread sums at once
 constexpr int kWin = 16;        // columns a window takes at most
-constexpr int kMatWords = 4096; // floats of trans staged at once
+constexpr int kMatWords = 4096; // floats of trans staged at once (at least 16 rows past T = 64)
 constexpr int kSliceWords = 8192;  // floats of a column's base and diff rows staged at most
 constexpr int kMeta = 64;       // ints: tile bit slots [0, 24), tile bits [24], fold bits per window column [32, 48)
 
@@ -190,7 +194,11 @@ struct Smem {
 
 __host__ __device__ inline size_t up4(size_t n) { return (n + 3) & ~(size_t)3; }
 
-__host__ __device__ inline int mat_rows(int T) { return T * T <= kMatWords ? T : kMatWords / T; }
+// Rows of trans staged at once: all of it up to T = 64, else kMatWords
+// floats but never fewer than 16 rows (64 KB at T = 1024).
+__host__ __device__ constexpr int mat_rows(int T) {
+  return T * T <= kMatWords ? T : (kMatWords / T < 16 ? 16 : kMatWords / T);
+}
 
 // The floats of a column's base and diff rows, staged in shared memory
 // where they fit kSliceWords (else 0: read from the cache).
@@ -291,7 +299,22 @@ __device__ __forceinline__ void stage_slice(const Smem& s, int K, const float* _
 // tj in the backward (transpose), r = tj and o = ti in the forward.
 template <int T>
 __device__ __forceinline__ void stage_mat(float* mat, const float* __restrict__ tr, int r0, bool transpose) {
-  constexpr int R = T * T <= kMatWords ? T : kMatWords / T;
+  constexpr int R = mat_rows(T);
+  if (T >= 1024 && transpose) {
+    // read along trans's rows (r contiguous at tr[o * T + r]): four
+    // consecutive r of one o a thread, a 16-byte load, stored as one word
+    // in each of mat's rows r (synchronous: the caller's barrier follows)
+    for (int i = threadIdx.x; i < R * T / 4; i += kThreads) {
+      const int o = i / (R / 4), rq = i % (R / 4);
+      const float4 v = __ldg(reinterpret_cast<const float4*>(tr + (size_t)o * T + r0 + 4 * rq));
+      float* m = mat + (size_t)(4 * rq) * T + o;
+      m[0] = v.x;
+      m[T] = v.y;
+      m[2 * T] = v.z;
+      m[3 * T] = v.w;
+    }
+    return;
+  }
   for (int i = threadIdx.x; i < R * T; i += kThreads) {
     const int r = r0 + i / T, o = i % T;
     cp_async4(mat + i, tr + (transpose ? o * T + r : r * T + o));
@@ -319,7 +342,7 @@ __device__ void mat_product(float* out, const float* in, const Smem& s, const Ge
     }
     return;
   }
-  constexpr int R = T * T <= kMatWords ? T : kMatWords / T;
+  constexpr int R = mat_rows(T);
   const int nlb = g.ns >> 2;
   const int ob = threadIdx.x / nlb, lq = threadIdx.x % nlb;
   const bool active = ob < T / 4;
@@ -662,7 +685,7 @@ int launch_grid(Kernel kernel, const Args& a, size_t tiles, int max_ctas, size_t
 inline bool shape_ok(int B, int C, int K, int T, int P, int wcap) {
   if (B < 1 || C < 1 || K < 1 || K > kMaxK || wcap < 1 || wcap > kWin) return false;
   if (T == 1) return P == 2;
-  return (T == 4 || T == 16 || T == 64 || T == 256) && (P == 2 || P == 4 || P == 6 || P == 8);
+  return (T == 4 || T == 16 || T == 64 || T == 256 || T == 1024) && (P == 2 || P == 4 || P == 6 || P == 8 || P == 10);
 }
 
 }  // namespace geno_wide

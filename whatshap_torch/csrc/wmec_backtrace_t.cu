@@ -13,8 +13,10 @@
 // middle element is the transmission before the block's first column, which
 // the host stitch of the pedigree route chains on).  die[b, c] holds the
 // slots that die before column c (bit k: slot k).  T is any power of two up
-// to 256 (four trios): the walk takes the transmission's log2 T bits into its
-// 64-bit table offsets (wmec_walk.cuh).
+// to 1024 (five trios): the walk takes the transmission's log2 T bits into
+// its 64-bit table offsets (wmec_walk.cuh), which hold C * T * 2^K entries
+// at T = 1024 and K = 23 with room to spare.  The pedigree route's pass 2
+// launches T + 1 walks a block: 1,025 warps a block at T = 1024.
 //
 // Bound: the walk needs two table entries and two path entries a column,
 // B*M*C*16 bytes, but each gather depends on the one before (two a column),
@@ -63,7 +65,7 @@ __global__ void __launch_bounds__(32)
 extern "C" int wmec_backtrace_t(const int* init, const int* pidx, const int* pjmin, const int* die,
                                 int* path, int* tpath, int* final_state, int B, int M, int C, int T,
                                 int K, cudaStream_t stream) {
-  if (B < 1 || M < 1 || C < 1 || T < 2 || T > 256 || (T & (T - 1)) || K < 1 || K > 30)
+  if (B < 1 || M < 1 || C < 1 || T < 2 || T > 1024 || (T & (T - 1)) || K < 1 || K > 30)
     return (int)cudaErrorInvalidValue;
   const int W = B * M, lt = __builtin_ctz(T);
   if (W <= kNarrowWalks)

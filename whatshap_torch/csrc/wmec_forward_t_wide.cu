@@ -10,8 +10,8 @@
 // m-only and seeded; `solve_seeded_batched`, seeded with tables) and as the
 // segmented `solve_scan_segmented` runs it (`_forward_carry_scan`, no tables;
 // `_forward_tables_scan`, tables from a carry).  The modes of
-// wmec_forward_t.cu, at T = 4, 16, 64 or 256, P = 2, 4, 6 or 8 and any
-// 1 <= K <= 23:
+// wmec_forward_t.cu, at T = 4, 16, 64, 256 or 1024 (five trios), P = 2, 4,
+// 6, 8 or 10 (five founders) and any 1 <= K <= 23:
 //
 //   tables   pidx and pjmin of every column and the final dp, jmin and key,
 //            from zero, a seed (B, T) or a carry (cost0, jmin0, key0):
@@ -49,8 +49,8 @@
 // costs tie.  One cooperative launch holds as many CTAs as the card keeps
 // resident and a grid-wide barrier ends each pass.  The unit of work is a
 // tile: the coset of lb "tile bits" of the state index (2^lb = 4096 / T
-// states, or all 2^K) in all T planes, 4096 entries in shared memory.  A
-// column is one pass over every block's tiles:
+// states, or all 2^K) in all T planes, 4096 entries in shared memory (4
+// states at T = 1024).  A column is one pass over every block's tiles:
 //
 //   the tile bits are the column's dying slots (the highest lb of them) and
 //   the lowest other bits; a tile loads its entries (cost, and with tables
@@ -66,11 +66,14 @@
 //   cost of the tile goes to shared memory first: sums from a table of the
 //   tile's common bits (one row a plane) and one of its tile bits (one row
 //   a tile bit and plane), 16 states of a plane a thread in Gray order, the
-//   2^P assignments in Gray order.
+//   2^P assignments in Gray order (at P = 10 in 64 runs of 16, the step
+//   between runs on a bit chosen at run time).
 //
 //   In the m-only mode the tile's column cost serves the block's R seeds in
 //   turn, each seed's entries loaded while the previous seed's are
-//   computed.
+//   computed.  Its cost planes are scratch: at T = 1024 they are kept
+//   state-major (tile_entry), where a tile's 4 states of each plane would
+//   be 16-byte pieces 4 * 2^K bytes apart.
 //
 //   A column where more than lb slots die in some block first folds the
 //   others, lb at a time from the lowest, in pre-passes over tiles of the
@@ -78,7 +81,10 @@
 //   index into the pidx row and the carried jmin into the jmin plane); a
 //   block's pre-passes end with the column's last one.
 //
-// Every index into the state and the tables is 64-bit.
+// Every index into the state and the tables is 64-bit.  The min-plus sources
+// and the carried jmin are transmission values, a byte each up to T = 256
+// and two bytes at T = 1024 (the `Src` type).  At T = 1024 and P = 10 a
+// tile's shared memory (the tables of its rows) is ~203 KB: one CTA an SM.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -128,14 +134,14 @@ __host__ __device__ inline int log2_of(int x) {
 }
 
 // The tile's states and the dynamic shared memory's layout (the same on the
-// host and the device).
+// host and the device); sb is the bytes of a transmission value (Src).
 struct Layout {
   int ns, lb, n;         // states a tile, their bits, and entries (T * ns)
-  int xc, cc, xi, lw, hs, off, rank, rw, red, meta, xs, xj;  // word offsets; xs and xj byte arrays
+  int xc, cc, xi, lw, hs, off, rank, rw, red, meta, xs, xj;  // word offsets; xs and xj Src arrays
   size_t bytes;
 };
 
-__host__ __device__ inline Layout layout(int K, int T, int lt, int P, int mode) {
+__host__ __device__ inline Layout layout(int K, int T, int lt, int P, int mode, int sb) {
   Layout l;
   const int ns = kTile >> lt;
   l.ns = K < 30 && (1 << K) < ns ? 1 << K : ns;
@@ -153,9 +159,9 @@ __host__ __device__ inline Layout layout(int K, int T, int lt, int P, int mode) 
   l.rw = l.rank + (tab ? 3 * kRows : 0);      // [32] rank weights of the column (keys)
   l.red = l.rw + 32;                          // [T] m-only reduction
   l.meta = l.red + T;                         // [kMeta] tile bits and fold bits
-  l.xs = l.meta + kMeta;                      // bytes: [T][ns] min-plus sources (tables, carry)
-  l.xj = l.xs + (mo ? 0 : l.n / 4);           // bytes: [T][ns] carried jmin (tables)
-  l.bytes = (size_t)l.xj * sizeof(int) + (tab ? l.n : 0);
+  l.xs = l.meta + kMeta;                      // Src: [T][ns] min-plus sources (tables, carry)
+  l.xj = l.xs + (mo ? 0 : l.n * sb / 4);      // Src: [T][ns] carried jmin (tables)
+  l.bytes = (size_t)l.xj * sizeof(int) + (tab ? l.n * sb : 0);
   return l;
 }
 
@@ -260,8 +266,10 @@ __device__ void build_tile(const Args& a, const Layout& l, int* sm, int b, int c
 // one state to the next in Gray order of the low 4 local bits one row added
 // or taken away; the assignments x in Gray order (bit p of x puts allele 1
 // on partition p), so each partial sum pa takes one add, and at P <= 4 the
-// plane's 2^P assignment costs in registers.  Not inlined: its registers do
-// not add to those live around it.
+// plane's 2^P assignment costs in registers.  At P = 10 the assignments go
+// in runs of 16 (their low 4 bits unrolled, the step between runs on bit 4
+// + ctz(run) picked from d by selects), so the loop is not unrolled 1,023
+// times.  Not inlined: its registers do not add to those live around it.
 template <int P>
 __device__ __noinline__ void tile_cost(const Layout& l, int* sm, const int* ac0, int T) {
   constexpr int kA = (1 << P) <= 16 ? 1 << P : 1;
@@ -300,11 +308,31 @@ __device__ __noinline__ void tile_cost(const Layout& l, int* sm, const int* ac0,
         for (int p = 0; p < P; ++p) d[p] += sg * w[1 + p];
       }
       int pa = 0, best = (1 << P) <= 16 ? acr[0] : __ldg(ac);
+      if constexpr (P <= 8) {
 #pragma unroll
-      for (int x = 1; x < (1 << P); ++x) {
-        const int p = __ffs(x) - 1, xa = x ^ (x >> 1);
-        pa += ((xa >> p) & 1) ? d[p] : -d[p];
-        best = min(best, pa + ((1 << P) <= 16 ? acr[xa & (kA - 1)] : __ldg(ac + xa)));
+        for (int x = 1; x < (1 << P); ++x) {
+          const int p = __ffs(x) - 1, xa = x ^ (x >> 1);
+          pa += ((xa >> p) & 1) ? d[p] : -d[p];
+          best = min(best, pa + ((1 << P) <= 16 ? acr[xa & (kA - 1)] : __ldg(ac + xa)));
+        }
+      } else {
+#pragma unroll 1
+        for (int h = 0; h < (1 << (P - 4)); ++h) {
+          // the step into this run flips bit 4 + ctz(h)
+          const int ph = 4 + __ffs(h) - 1;
+          int dh = d[4];
+#pragma unroll
+          for (int q = 5; q < P; ++q) dh = ph == q ? d[q] : dh;
+#pragma unroll
+          for (int lo = 0; lo < 16; ++lo) {
+            if (lo == 0 && h == 0) continue;
+            const int x = (h << 4) | lo, xa = x ^ (x >> 1);
+            const int p = lo != 0 ? __ffs(lo) - 1 : ph;
+            const int dv = lo != 0 ? d[__ffs(lo | 16) - 1] : dh;
+            pa += ((xa >> p) & 1) ? dv : -dv;
+            best = min(best, pa + __ldg(ac + xa));
+          }
+        }
       }
       cc[e0 + gs] = min(s0v + best, kInf);
     }
@@ -317,8 +345,8 @@ __device__ __noinline__ void tile_cost(const Layout& l, int* sm, const int* ac0,
 // order: lexicographic (cost, source) minima where the sources are kept (the
 // two sources of a pair come from disjoint sets, so never tie), plain minima
 // in the m-only mode.
-template <int G, bool kSrc>
-__device__ __forceinline__ void minplus_bits(int* xc, uint8_t* xs, int n, int lb, int j0, int rc) {
+template <int G, bool kSrc, typename Src>
+__device__ __forceinline__ void minplus_bits(int* xc, Src* xs, int n, int lb, int j0, int rc) {
   constexpr int M = 1 << G;
   const int sh = j0 + lb;
   for (int q = threadIdx.x; q < (n >> G); q += kThreads) {
@@ -356,7 +384,7 @@ __device__ __forceinline__ void minplus_bits(int* xc, uint8_t* xs, int n, int lb
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       xc[e0 | (m << sh)] = v[m];
-      if (kSrc) xs[e0 | (m << sh)] = (uint8_t)sv[m];
+      if (kSrc) xs[e0 | (m << sh)] = (Src)sv[m];
     }
   }
 }
@@ -366,17 +394,38 @@ __device__ __forceinline__ uint32_t entry_state(const int* off, uint32_t base, i
   return base | (uint32_t)off[e & (ns - 1)];
 }
 
-// The costs of scan r of block b at a tile's entries, entry threadIdx.x + i
-// * kThreads into pre[i]: from the cost planes, or (from_src) from the
+// The tile entry e (plane-major in shared memory, e = t * ns + sl) that a
+// thread moves as its i-th (i * kThreads + threadIdx.x < n), and in o its
+// offset in a scan's state: plane-major (t * 2^K + state), the layout of the
+// outputs and the tables; or with kSM, the m-only mode's cost scratch at T =
+// 1024, state-major (state * T + t), so that a warp moves 32 planes of one
+// state, 128 contiguous bytes, not 16 bytes of each of 8 planes 4 * 2^K bytes
+// apart (a tile holds 4 states there).
+template <bool kSM>
+__device__ __forceinline__ int tile_entry(int i, const int* off, uint32_t base, int ns, int lb, int lt, int K,
+                                          size_t& o) {
+  const int q = threadIdx.x + i * kThreads;
+  if (kSM) {
+    const int t = q & ((1 << lt) - 1), sl = q >> lt;
+    o = ((size_t)entry_state(off, base, ns, sl) << lt) + t;
+    return (t << lb) | sl;
+  }
+  o = ((size_t)(q >> lb) << K) + entry_state(off, base, ns, q);
+  return q;
+}
+
+// The costs of scan r of block b at a tile's entries, the thread's i-th
+// (tile_entry) into pre[i]: from the cost planes, or (from_src) from the
 // carry, the seed or zero.
+template <bool kSM>
 __device__ __forceinline__ void load_costs(int (&pre)[kPer], const Args& a, const int* off, uint32_t base, int ns,
                                            int lb, int n, int b, int R, int r, bool from_src) {
   const size_t planes = ((size_t)b * R + r) * a.T << a.K;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    if (e >= n) continue;
-    const size_t o = ((size_t)(e >> lb) << a.K) + entry_state(off, base, ns, e);
+    if ((int)threadIdx.x + i * kThreads >= n) continue;
+    size_t o;
+    const int e = tile_entry<kSM>(i, off, base, ns, lb, a.lt, a.K, o);
     if (from_src) {
       pre[i] = a.cost0 != nullptr ? __ldg(a.cost0 + planes + o)
                : a.seed != nullptr ? __ldg(a.seed + ((size_t)b * R + r) * a.T + (e >> lb)) : 0;
@@ -404,11 +453,12 @@ __device__ __forceinline__ int tie_key(const Args& a, const int* rank, int b, in
 // tables, run the min-plus and write the new state.  `first`: the block's
 // first pass of the column (the state is the previous column's, or at column
 // 0 the seed, the carry or zero, and the source index the identity).
-template <int P, int kMode>
+template <int P, int kMode, typename Src>
 __device__ void run_tile(const Args& a, const Layout& l, int* sm, int b, int c, size_t u, bool first,
                          bool final_pass, int rc, bool last_col) {
   constexpr bool kTab = kMode == kTables;
   constexpr bool kMin = kMode == kMinOnly;
+  constexpr bool kSM = kMin && sizeof(Src) == 2;  // the m-only scratch state-major at T = 1024
   const int T = a.T, K = a.K, lb = l.lb, ns = l.ns, n = l.n;
   const int R = kMin ? a.R : 1;
   const size_t S = (size_t)1 << K;
@@ -420,8 +470,8 @@ __device__ void run_tile(const Args& a, const Layout& l, int* sm, int b, int c, 
   int* xi = sm + l.xi;
   int* hs = sm + l.hs;
   int* red = sm + l.red;
-  uint8_t* xs = reinterpret_cast<uint8_t*>(sm + l.xs);
-  uint8_t* xj = reinterpret_cast<uint8_t*>(sm + l.xj);
+  Src* xs = reinterpret_cast<Src*>(sm + l.xs);
+  Src* xj = reinterpret_cast<Src*>(sm + l.xj);
   const int nf = meta[64];
   const bool from_src = c == 0 && first;
 
@@ -464,27 +514,27 @@ __device__ void run_tile(const Args& a, const Layout& l, int* sm, int b, int c, 
 
   const int* rank = sm + l.rank;
   int pre[kPer];  // the costs of the next scan, loaded while this one is computed
-  load_costs(pre, a, off, base, ns, lb, n, b, R, 0, from_src);
+  load_costs<kSM>(pre, a, off, base, ns, lb, n, b, R, 0, from_src);
   for (int r = 0; r < R; ++r) {
     const size_t planes = ((size_t)b * R + r) * T * S;
     __syncthreads();  // the previous scan's (or tile's) entries are no longer read
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      if (e >= n) continue;
-      const size_t o = ((size_t)(e >> lb) << K) + entry_state(off, base, ns, e);
+      if ((int)threadIdx.x + i * kThreads >= n) continue;
+      size_t o;
+      const int e = tile_entry<kSM>(i, off, base, ns, lb, a.lt, K, o);
       xc[e] = pre[i];
-      if (!kMin) xs[e] = (uint8_t)(e >> lb);
+      if (!kMin) xs[e] = (Src)(e >> lb);
       if (kTab) {
         xi[e] = first ? (int)entry_state(off, base, ns, e) : __ldcg(a.pidx + col * T * S + o);
-        xj[e] = (uint8_t)(from_src ? (a.jmin0 != nullptr ? __ldg(a.jmin0 + planes + o) : 0)
-                                   : __ldcg(a.jmin + planes + o));
+        xj[e] = (Src)(from_src ? (a.jmin0 != nullptr ? __ldg(a.jmin0 + planes + o) : 0)
+                               : __ldcg(a.jmin + planes + o));
       }
     }
     if (kMin && last_col) {
       for (int t = threadIdx.x; t < T; t += kThreads) red[t] = kInf;
     }
-    if (kMin && r + 1 < R) load_costs(pre, a, off, base, ns, lb, n, b, R, r + 1, from_src);
+    if (kMin && r + 1 < R) load_costs<kSM>(pre, a, off, base, ns, lb, n, b, R, r + 1, from_src);
 
     if (kTab) {
       // the fold, slot by slot in ascending order: (e0, e1) is the pair (s,
@@ -534,9 +584,9 @@ __device__ void run_tile(const Args& a, const Layout& l, int* sm, int b, int c, 
       // a pre-pass: the folded state back to the planes
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
-        const int e = threadIdx.x + i * kThreads;
-        if (e >= n) continue;
-        const size_t o = ((size_t)(e >> lb) << K) + entry_state(off, base, ns, e);
+        if ((int)threadIdx.x + i * kThreads >= n) continue;
+        size_t o;
+        const int e = tile_entry<kSM>(i, off, base, ns, lb, a.lt, K, o);
         a.cost[planes + o] = xc[e];
         if (kTab) {
           a.pidx[col * T * S + o] = xi[e];
@@ -560,11 +610,11 @@ __device__ void run_tile(const Args& a, const Layout& l, int* sm, int b, int c, 
     for (int j = 0; j < a.lt; j += 3) {
       if (j > 0) __syncthreads();
       if (a.lt - j >= 3) {
-        minplus_bits<3, !kMin>(xc, xs, n, lb, j, rc);
+        minplus_bits<3, !kMin, Src>(xc, xs, n, lb, j, rc);
       } else if (a.lt - j == 2) {
-        minplus_bits<2, !kMin>(xc, xs, n, lb, j, rc);
+        minplus_bits<2, !kMin, Src>(xc, xs, n, lb, j, rc);
       } else {
-        minplus_bits<1, !kMin>(xc, xs, n, lb, j, rc);
+        minplus_bits<1, !kMin, Src>(xc, xs, n, lb, j, rc);
       }
     }
     __syncthreads();
@@ -573,15 +623,15 @@ __device__ void run_tile(const Args& a, const Layout& l, int* sm, int b, int c, 
     // next scan's costs are in flight in registers)
 #pragma unroll 4
     for (int i = 0; i < kPer; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      if (e >= n) continue;
+      if ((int)threadIdx.x + i * kThreads >= n) continue;
+      size_t o;
+      const int e = tile_entry<kSM>(i, off, base, ns, lb, a.lt, K, o);
       const int x = xc[e];
       const int nc = min(cc[e] + min(x, kInf), kInf);
       if (kMin && last_col) {
         atomicMin(red + (e >> lb), nc);
         continue;
       }
-      const size_t o = ((size_t)(e >> lb) << K) + entry_state(off, base, ns, e);
       a.cost[planes + o] = nc;
       if (kTab || (!kMin && last_col)) a.jmin[planes + o] = x >= kInf ? 0 : (int)xs[e];
     }
@@ -600,15 +650,16 @@ __device__ void run_tile(const Args& a, const Layout& l, int* sm, int b, int c, 
   }
 }
 
-// Two CTAs an SM: at most 128 registers a thread.
-template <int P, int kMode>
+// Two CTAs an SM: at most 128 registers a thread (one where a tile's
+// tables take more than half the SM's shared memory).
+template <int P, int kMode, typename Src>
 __global__ void __launch_bounds__(kThreads, 2) forward_t_wide_kernel(Args a) {
   extern __shared__ int4 smem4[];
   int* sm = reinterpret_cast<int*>(smem4);
   cg::grid_group grid = cg::this_grid();
   const int B = a.B, C = a.C, K = a.K;
   const size_t S = (size_t)1 << K;
-  const Layout l = layout(K, a.T, a.lt, P, kMode);
+  const Layout l = layout(K, a.T, a.lt, P, kMode, (int)sizeof(Src));
   const int lb = l.lb;
 
   // prologue: a warp a column gathers every block's dying slots there and
@@ -653,7 +704,7 @@ __global__ void __launch_bounds__(kThreads, 2) forward_t_wide_kernel(Args a) {
           build_tile<P, kMode>(a, l, sm, b, c, slot_range(mask, gi * lb, min((gi + 1) * lb, nd - lb)), false);
           built = b;
         }
-        run_tile<P, kMode>(a, l, sm, b, c, f % per_block, gi == 0, false, 0, false);
+        run_tile<P, kMode, Src>(a, l, sm, b, c, f % per_block, gi == 0, false, 0, false);
       }
       grid.sync();
     }
@@ -667,16 +718,16 @@ __global__ void __launch_bounds__(kThreads, 2) forward_t_wide_kernel(Args a) {
         built = b;
       }
       const int rc = min(__ldg(a.rc + (size_t)b * C + c), rc_cap);
-      run_tile<P, kMode>(a, l, sm, b, c, f % per_block, nd <= lb, true, rc, c == C - 1);
+      run_tile<P, kMode, Src>(a, l, sm, b, c, f % per_block, nd <= lb, true, rc, c == C - 1);
     }
     grid.sync();
   }
 }
 
-template <int P, int kMode>
+template <int P, int kMode, typename Src>
 int launch(const Args& a, cudaStream_t stream) {
-  auto kernel = forward_t_wide_kernel<P, kMode>;
-  const Layout l = layout(a.K, a.T, a.lt, P, kMode);
+  auto kernel = forward_t_wide_kernel<P, kMode, Src>;
+  const Layout l = layout(a.K, a.T, a.lt, P, kMode, (int)sizeof(Src));
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -695,19 +746,26 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int kMode, typename Src>
+int dispatch_p(const Args& a, int P, cudaStream_t stream) {
+  switch (P) {
+    case 2: return launch<2, kMode, Src>(a, stream);
+    case 4: return launch<4, kMode, Src>(a, stream);
+    case 6: return launch<6, kMode, Src>(a, stream);
+    case 8: return launch<8, kMode, Src>(a, stream);
+    case 10: return launch<10, kMode, Src>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <int kMode>
 int dispatch(Args a, int P, cudaStream_t stream) {
   const int T = a.T;
   if (a.B < 1 || a.C < 1 || a.R < 1 || a.K < 1 || a.K > kMaxK) return (int)cudaErrorInvalidValue;
-  if (T != 4 && T != 16 && T != 64 && T != 256) return (int)cudaErrorInvalidValue;
+  if (T != 4 && T != 16 && T != 64 && T != 256 && T != 1024) return (int)cudaErrorInvalidValue;
   a.lt = log2_of(T);
-  switch (P) {
-    case 2: return launch<2, kMode>(a, stream);
-    case 4: return launch<4, kMode>(a, stream);
-    case 6: return launch<6, kMode>(a, stream);
-    case 8: return launch<8, kMode>(a, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // a transmission value takes a byte up to T = 256, two at T = 1024
+  return T <= 256 ? dispatch_p<kMode, uint8_t>(a, P, stream) : dispatch_p<kMode, uint16_t>(a, P, stream);
 }
 
 }  // namespace

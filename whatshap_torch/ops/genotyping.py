@@ -204,8 +204,9 @@ def likelihoods_from_red(red: np.ndarray, gmask: np.ndarray) -> np.ndarray:
 def _unsupported(K: int, T: int, P: int) -> NotImplementedError:
     return NotImplementedError(
         f"no CUDA genotyping kernel for K={K}, T={T}, P={P} yet: shapes beyond the "
-        f"kernels' envelopes ({genotyping_cuda.ENVELOPE}; wide: {genotyping_cuda.WIDE_ENVELOPE}) "
-        "need kernels with a wider envelope, ROADMAP Queue 1 item 5"
+        f"kernels' envelopes ({genotyping_cuda.ENVELOPE}; wide: {genotyping_cuda.WIDE_ENVELOPE}; "
+        "six or more trios, T >= 4096, or six or more founders, P >= 12) need kernels with "
+        "a wider envelope, ROADMAP Queue 1 item 5"
     )
 
 
@@ -239,34 +240,46 @@ def to_device(stacked, device: torch.device):
 
 def instance_bytes(C: int, K: int, T: int, P: int) -> int:
     """Device bytes one instance of C columns takes in the forward-backward:
-    its beta table (C * T * 2^K float32) and, past the cluster kernels'
-    envelope, what the wide kernels allocate for it beside the table: the
-    forward's state alpha (T * 2^K float32), its two rows of partial sums
-    of red (T * 2^P float32) for each column of a window
-    (genotyping_cuda.wide_window_cap), the backward's rows of partial sums
-    (two float32 and a float64 a window column) and four words a column
-    (the fold masks and the windows)."""
-    table = C * T * 4 << K
+    its beta table (C * T * 2^K float32), its inputs' copy on the card and
+    red (input_bytes) and, past the cluster kernels' envelope, what the wide
+    kernels allocate for it beside the table: the forward's state alpha (T *
+    2^K float32), its two rows of partial sums of red (T * 2^P float32) for
+    each column of a window (genotyping_cuda.wide_window_cap), the
+    backward's rows of partial sums (two float32 and a float64 a window
+    column) and four words a column (the fold masks and the windows)."""
+    table = (C * T * 4 << K) + input_bytes(C, K, T, P)
     if genotyping_cuda.kernel_supported(K, T, P):
         return table
     return table + (T * 4 << K) + _wide_rows_bytes(T, P) + 16 * C
 
 
-def _wide_rows_bytes(T: int, P: int) -> int:
+def input_bytes(C: int, K: int, T: int, P: int) -> int:
+    """Device bytes of one instance's inputs (to_device) and of its output
+    red: a column's diff (K * T * 2P), base (T * 2P), passign and red (T *
+    2^P each) and trans (T * T: 4 MiB a column at T = 1024) in float32, its
+    birth and die_next flags (K bytes each), dup and scaling."""
+    return C * (4 * (K * T * 2 * P + T * 2 * P + 2 * (T << P) + T * T) + 2 * K + 8)
+
+
+def _wide_rows_bytes(T: int, P: int, forward: bool = True) -> int:
     """Bytes of the wide kernels' rows of partial sums for one CTA or one
-    instance: the forward's 2 * window cap rows of T * 2^P float32, the
-    backward's two float32 and a float64 a window column."""
-    fwd = 2 * genotyping_cuda.wide_window_cap(T, P, backward=False) * (T * 4 << P)
+    instance: the forward's 2 * window cap rows of T * 2^P float32 (left
+    out with forward=False), the backward's two float32 and a float64 a
+    window column."""
+    fwd = 2 * genotyping_cuda.wide_window_cap(T, P, backward=False) * (T * 4 << P) if forward else 0
     return fwd + 8 * (1 + genotyping_cuda.wide_window_cap(T, P, backward=True))
 
 
 def chunk_bytes(device: torch.device, K: int, T: int, P: int) -> int:
     """Device bytes a chunk of instances takes once, whatever its size:
     past the cluster kernels' envelope on CUDA, the wide kernels' rows of
-    partial sums (_wide_rows_bytes) for each CTA they may launch."""
+    partial sums (_wide_rows_bytes) for each CTA they may launch, the
+    forward's for at most genotyping_cuda.wide_red_rows CTAs."""
     if device.type != "cuda" or genotyping_cuda.kernel_supported(K, T, P):
         return 0
-    return genotyping_cuda.wide_max_ctas(device, 1 << 30, K, T) * _wide_rows_bytes(T, P)
+    ctas = genotyping_cuda.wide_max_ctas(device, 1 << 30, K, T)
+    fwd = _wide_rows_bytes(T, P) - _wide_rows_bytes(T, P, forward=False)
+    return ctas * _wide_rows_bytes(T, P) - max(0, ctas - genotyping_cuda.wide_red_rows(T, P)) * fwd
 
 
 def forward_backward(K, T, P, diff, base, passign, trans, birth, die_next, dup):

@@ -18,7 +18,8 @@ csrc/geno_backward_wide.cu and csrc/geno_forward_wide.cu, the same two
 passes with the state in device memory (one cooperative launch over tiles
 of the state in shared memory, the columns in windows with one grid-wide
 barrier each, csrc/geno_wide.cuh; wide_windows mirrors the window rule),
-at T = 1 or T up to 256 with P up to 8 and K up to 23 (WIDE_ENVELOPE): they
+at T = 1 or T up to 1024 (five trios) with P up to 10 (five founders) and K
+up to 23 (WIDE_ENVELOPE): they
 replace the XLA forward-backward the reference runs past its Pallas
 envelope (whatshap_tpu/ops/genotyping_jax.py _forward_backward,
 _forward_backward_batched).  backward and forward hand them every shape
@@ -72,6 +73,11 @@ WIDE_MAX_CTAS_PER_SM = 8
 #: a CTA and instance (its columns times T * 2^P).
 WIDE_WINDOW = 16
 WIDE_RED_WORDS = 16384
+#: The most bytes of red's partial rows a wide forward launch holds (two
+#: rows of T * 2^P floats a window column for each CTA and instance): where
+#: a row is large (1 MiB at T = 256, P = 10; 4 MiB at T = 1024, P = 10) the
+#: launch takes fewer CTAs (wide_max_ctas), so that the rows stay within it.
+WIDE_RED_BYTES = 1 << 30
 
 
 def kernel_supported(K: int, T: int, P: int) -> bool:
@@ -156,10 +162,19 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def wide_max_ctas(dev: torch.device, B: int, K: int, T: int) -> int:
+def wide_red_rows(T: int, P: int) -> int:
+    """Rows of red's partial sums (one a CTA or an instance, each two rows of
+    T * 2^P floats a window column) that fit WIDE_RED_BYTES."""
+    return WIDE_RED_BYTES // (2 * wide_window_cap(T, P, backward=False) * (T * 4 << P))
+
+
+def wide_max_ctas(dev: torch.device, B: int, K: int, T: int, P: int = None) -> int:
     """The most CTAs a wide launch over B instances takes: no more than its
-    tiles, nor than the card keeps resident."""
-    return min(B * wide_tiles(K, T), WIDE_MAX_CTAS_PER_SM * _sm_count(dev))
+    tiles, nor than the card keeps resident; with P, the forward's, whose
+    partial rows of red (one a CTA and one an instance) stay within
+    wide_red_rows (at least one CTA)."""
+    n = min(B * wide_tiles(K, T), WIDE_MAX_CTAS_PER_SM * _sm_count(dev))
+    return n if P is None else max(1, min(n, wide_red_rows(T, P) - B))
 
 
 def cluster_layout(K: int):
@@ -206,25 +221,26 @@ def _sum_fold(x, K: int, bits, any_bits):
     return x
 
 
-def _emission(bits, abits, diff_c, base_c, T: int, P: int):
+def _emission(bits, diff_c, base_c, T: int, P: int):
     """exp(sum_p (acc_j + base_j)) with acc = bits @ diff over the slot axis
-    and j = (t*P + p)*2 + bit p of a; bits (S, K), abits (nA, P) long,
-    diff_c (B, K, T*P*2), base_c (B, T*P*2).  Returns (B, S, T, nA)."""
+    and j = (t*P + p)*2 + bit p of a; bits (S, K), diff_c (B, K, T*P*2),
+    base_c (B, T*P*2).  Returns (B, S, T, nA).  The sums over p are taken in
+    ascending order, as the reference sums them, built up a bit at a time
+    (the assignments with bit p clear, then those with it set): 2^P adds a
+    state and plane, not P * 2^P gathers and adds (the route at P = 10 on
+    the CPU)."""
     B, S = diff_c.shape[0], bits.shape[0]
     logcp = (torch.matmul(bits, diff_c) + base_c[:, None, :]).reshape(B, S, T, P, 2)
-    lem = logcp[:, :, :, 0, abits[:, 0]]
+    lem = logcp[:, :, :, 0, :]
     for p in range(1, P):
-        lem = lem + logcp[:, :, :, p, abits[:, p]]
+        lem = torch.cat([lem + logcp[:, :, :, p, :1], lem + logcp[:, :, :, p, 1:]], dim=-1)
     return torch.exp(lem)
 
 
-def _tables(K: int, P: int, dtype, device):
-    S = 1 << K
-    idx = torch.arange(S, device=device)
-    bits = ((idx[:, None] >> torch.arange(K, device=device)[None, :]) & 1).to(dtype)
-    a = np.arange(1 << P)
-    abits = torch.from_numpy((a[:, None] >> np.arange(P)[None, :]) & 1).to(device)
-    return bits, abits
+def _bits(K: int, dtype, device):
+    """The slot bits of every state, (2^K, K) in `dtype`."""
+    idx = torch.arange(1 << K, device=device)
+    return ((idx[:, None] >> torch.arange(K, device=device)[None, :]) & 1).to(dtype)
 
 
 def backward_plain(K, T, P, diff, base, passign, trans, birth, dup):
@@ -236,13 +252,13 @@ def backward_plain(K, T, P, diff, base, passign, trans, birth, dup):
     base = base.reshape(B, C, T * P * 2)
     passign = passign.reshape(B, C, T, nA)
     trans = trans.reshape(B, C, T, T)
-    bits, abits = _tables(K, P, diff.dtype, diff.device)
+    bits = _bits(K, diff.dtype, diff.device)
     any_birth = birth.any(dim=0).cpu().tolist()
     beta = torch.ones((B, S, T), dtype=diff.dtype, device=diff.device)
     beta_store = torch.empty((B, C, T, S), dtype=diff.dtype, device=diff.device)
     scaling = torch.empty((B, C), dtype=diff.dtype, device=diff.device)
     for c in range(C - 1, -1, -1):
-        em = _emission(bits, abits, diff[:, c], base[:, c], T, P)
+        em = _emission(bits, diff[:, c], base[:, c], T, P)
         scaling[:, c] = (beta.sum(dim=(1, 2)) / dup[:, c]) * nA
         inv = (1.0 / scaling[:, c])[:, None, None]
         weighted = beta * (em * passign[:, c, None]).sum(dim=3)  # (B, S, T_i)
@@ -260,12 +276,12 @@ def forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling, beta_s
     base = base.reshape(B, C, T * P * 2)
     passign = passign.reshape(B, C, T, nA)
     trans = trans.reshape(B, C, T, T)
-    bits, abits = _tables(K, P, diff.dtype, diff.device)
+    bits = _bits(K, diff.dtype, diff.device)
     any_die = die_next.any(dim=0).cpu().tolist()
     red = torch.empty((B, C, T, nA), dtype=diff.dtype, device=diff.device)
     alpha = None
     for c in range(C):
-        em = _emission(bits, abits, diff[:, c], base[:, c], T, P)
+        em = _emission(bits, diff[:, c], base[:, c], T, P)
         inv = 1.0 / scaling[:, c]
         if c == 0:
             sum_prev = torch.ones((B, S, T), dtype=diff.dtype, device=diff.device)
@@ -407,7 +423,8 @@ def forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta_st
     at any shape of WIDE_ENVELOPE, inside the cluster kernel's envelope too;
     the same function and output.  Its scratch: the state alpha (B, T, 2^K)
     and two rows of partial sums of red (T * 2^P) for each CTA, instance
-    and column of a window (wide_window_cap)."""
+    and column of a window (wide_window_cap), at most WIDE_RED_BYTES of them
+    (wide_max_ctas)."""
     dev = _check_inputs("forward_wide", K, T, P, diff, base, passign, trans, die_next, scaling, wide_only=True)
     B, C, S = diff.shape[0], diff.shape[1], 1 << K
     _check(beta_store, "beta_store", diff.dtype, (B, C, T, S))
@@ -416,7 +433,7 @@ def forward_wide(K, T, P, diff, base, passign, trans, die_next, scaling, beta_st
         return forward_plain(K, T, P, diff, base, passign, trans, die_next, scaling, beta_store)
 
     red = torch.empty((B, C, T << P), dtype=torch.float32, device=diff.device)
-    max_ctas = wide_max_ctas(dev, B, K, T)
+    max_ctas = wide_max_ctas(dev, B, K, T, P)
     wcap = wide_window_cap(T, P, backward=False)
     alpha = torch.empty((B, T, S), dtype=torch.float32, device=diff.device)
     masks = torch.empty((B, C), dtype=torch.int32, device=diff.device)

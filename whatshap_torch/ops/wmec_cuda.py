@@ -37,8 +37,9 @@ Replaces whatshap_tpu/ops/wmec_pallas.py:
 - forward_t_wide, forward_m_t_wide and forward_carry_t_wide launch
   csrc/wmec_forward_t_wide.cu, the general-T modes with the block's T planes
   in device memory (one cooperative launch, a grid-wide barrier after each
-  column's pass over tiles of the state in shared memory), at T up to 256, P
-  up to 8 and K up to MAX_K_WIDE: the XLA scan the reference runs for
+  column's pass over tiles of the state in shared memory), at T up to 1024
+  (five trios), P up to 10 (five founders) and K up to MAX_K_WIDE: the XLA
+  scan the reference runs for
   pedigrees past its Pallas envelope (whatshap_tpu/ops/wmec.py
   _forward_scan_impl, through solve_batched, forward_m_batched,
   solve_seeded_batched and the segmented solve_scan_segmented); the m-only
@@ -87,12 +88,14 @@ MAX_K_WIDE = 23
 MAX_K_T = {4: 16, 16: 13}
 #: Founder partition counts the general-T cluster kernel is built for.
 PEDIGREE_P = (2, 4)
-#: Transmission counts (4^trios, up to four trios) and founder partition
-#: counts (2 * founders, up to four founders) of the general-T kernel with
+#: Transmission counts (4^trios, up to five trios) and founder partition
+#: counts (2 * founders, up to five founders) of the general-T kernel with
 #: its state in device memory (csrc/wmec_forward_t_wide.cu), at any K up to
-#: MAX_K_WIDE; the route gives it the shapes past the cluster kernel's.
-WIDE_T = (4, 16, 64, 256)
-WIDE_P = (2, 4, 6, 8)
+#: MAX_K_WIDE; the route gives it the shapes past the cluster kernel's.  Six
+#: trios (T = 4096) or six founders (P = 12) stay past it: the reference's
+#: XLA scan holds an (S, T, T) term, 64 MiB a state at T = 4096.
+WIDE_T = (4, 16, 64, 256, 1024)
+WIDE_P = (2, 4, 6, 8, 10)
 ENVELOPE = (
     f"T = 1, P = 2, K <= {MAX_K_WIDE}; T in {WIDE_T}, P in {WIDE_P}, K <= {MAX_K_WIDE} "
     "(the cluster kernels: T = 1 to K = " + f"{MAX_K}; "
