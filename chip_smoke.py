@@ -7,7 +7,11 @@ Drive the PyTorch/CUDA port (whatshap_torch) on one CUDA card and check it.
 Phases, every one of which must pass:
 
 1. build    nvcc builds every kernel from whatshap_torch/csrc, one process per
-            source, all started together.
+            source, all started together; then g++ builds the host helpers of
+            the read path from whatshap_torch/csrc/host (the BAM pool, the
+            CIGAR and realignment engine, the edit distances, read selection
+            and its heap: whatshap_torch.hostlib), one process per source,
+            and the build time is printed.
 2. kernels  on the card, each kernel is held bit-equal against its plain
             torch version on the same CUDA tensors: the T=1 kernels at K = 7
             to 17 (B = 4 blocks of C = 256 columns: the forward kernel's
@@ -132,7 +136,16 @@ Phases, every one of which must pass:
             past the cluster kernel) with the budget pinned: 16 segments of
             64 (the XLA-route rule) in row 14's two modes, also equal to the
             plain route on the card.
-10. phase-cli  the phase CLI on files, as a user runs it: a synthetic
+10. host     the host helpers on phase-cli's files (below), each held to
+            the Python path it replaces (the hostlib attributes set to None,
+            python_host_paths): every record of the BAM pool decode against
+            the Python record loop, the reads of ReadSetReader.read through
+            the realignment pool against the Python realignment, and
+            readselection in one call against the Python selection, each
+            with both times; then the phase CLI on an 8,192-variant file of
+            the generator through the helpers and through the Python paths:
+            byte-identical VCFs, both runs' stages printed.
+    phase-cli  the phase CLI on files, as a user runs it: a synthetic
             chromosome of 100,000 heterozygous SNVs (spacing 150, coverage
             14, ~30 variants a read, 2 % allele errors, a break every 64
             variants; reference FASTA, BAM and VCF written by this script
@@ -143,7 +156,10 @@ Phases, every one of which must pass:
             the kernel launches per call, and the switch-error rate against
             the simulated haplotypes (below 5 %); the VCF must be
             byte-identical to a second run with the plain torch route handed
-            in through run_dp's seams (no kernel launched in it).
+            in through run_dp's seams (no kernel launched in it).  Every
+            CLI cell's stage line carries the card's name and power limit and
+            the host's CPU count; the BAM pool cache is cleared before each
+            timed CLI run, so that read_bam is charged its whole decode.
 11. phase-cli-trio  the same for a trio of 8,192 variants at coverage 5 a
             sample (one BAM with three read groups, a PED file; the child
             inherits with a crossover at a window boundary with probability
@@ -243,8 +259,10 @@ or when a phase fails, it exits non-zero and prints no result.
 """
 
 import contextlib
+import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -254,6 +272,8 @@ import numpy as np
 import torch
 
 import whatshap_torch.core as core
+from whatshap_torch import hostlib
+from whatshap_torch.io.sam import clear_bam_pool_cache
 from whatshap_torch.ops import _build, genotyping, genotyping_cuda, wmec, wmec_cuda
 from whatshap_torch.parallel import blocks
 
@@ -357,12 +377,13 @@ WIDE_T_TIE_SHAPES = ((4, 17, 4), (4, 21, 4), (16, 14, 4), (16, 9, 6), (16, 15, 6
 # (T, K, P) at K 6 to 10
 FIVE_TIE_SHAPES = ((1024, 6, 4), (1024, 7, 10), (256, 9, 10), (16, 8, 10))
 # the phase CLI cells: the first half of the chr1-style chromosome of
-# BASELINE.json (100,000 SNVs at coverage 14; cut to 50,000, and the genotype
-# CLI's to 32,768, to leave the script's time limit room for the five-trio
-# and five-founder phases) and a trio of 8,192 SNVs at coverage 5 a sample
-CLI_VARIANTS = 50_000
-GENO_CLI_VARIANTS = 32_768
+# BASELINE.json (100,000 SNVs at coverage 14; the genotype CLI's the same
+# with mixed genotypes) and a trio of 8,192 SNVs at coverage 5 a sample
+CLI_VARIANTS = 100_000
+GENO_CLI_VARIANTS = 100_000
 CLI_TRIO_VARIANTS = 8192
+# the host phase's CLI comparison through the helpers and the Python paths
+HOST_CUT_VARIANTS = 8192
 SINGLE = (1, ())
 TRIO = (3, ((0, 1, 2),))
 QUARTET = (4, ((0, 1, 2), (0, 1, 3)))
@@ -2470,6 +2491,130 @@ def solve_events(pairs: list):
         wmec.run_dp = real
 
 
+@functools.lru_cache(maxsize=None)
+def card_name_and_power() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def host_context() -> str:
+    """What a CLI cell's stage times depend on: the card and the host's CPUs."""
+    return f"{card_name_and_power()}; {os.cpu_count()} host CPUs"
+
+
+@contextlib.contextmanager
+def python_host_paths():
+    """The read path on the Python versions of the host helpers: every
+    attribute of hostlib None (the Python record loop, realignment and edit
+    distances, selection and heap), restored after the block."""
+    saved = {name: getattr(hostlib, name) for name in hostlib.__all__}
+    for name in saved:
+        setattr(hostlib, name, None)
+    try:
+        yield
+    finally:
+        for name, lib in saved.items():
+            setattr(hostlib, name, lib)
+
+
+SEGMENT_FIELDS = ("query_name", "flag", "reference_id", "reference_start", "mapping_quality", "cigartuples",
+                  "next_reference_id", "next_reference_start", "template_length", "query_sequence",
+                  "query_qualities", "tags")
+
+
+def _read_rows(data):
+    """The rows of every Read of `data`'s sample(s), read as the phase CLI
+    reads them (PhasedInputReader, realignment against the FASTA), and the
+    ReadSets."""
+    from whatshap_torch.cli import PhasedInputReader
+    from whatshap_torch.core import NumericSampleIds
+    from whatshap_torch.vcf import VcfReader
+
+    vcf = VcfReader(data["vcf"], phases=False, only_snvs=False)
+    table = next(iter(vcf))
+    rows, sets = [], []
+    with PhasedInputReader([data["bam"]], data["fasta"], NumericSampleIds(), ignore_read_groups=False,
+                           only_snvs=False, mapq_threshold=20) as reader:
+        for sample in vcf.samples:
+            readset, _ = reader.read(table.chromosome, table.variants, sample, read_vcf=False)
+            sets.append(readset)
+            rows += [(r.name, r.source_id, r.sample_id, r.reference_start, r.reference_end, r.BX_tag, r.HP_tag,
+                      r.PS_tag, r.is_reverse, tuple(r._mapqs), tuple(r._positions), tuple(r._alleles),
+                      tuple(r._qualities)) for r in readset]
+    return rows, sets
+
+
+def host_phase(data, tmp) -> None:
+    """Phase 10: the host helpers on phase-cli's files against their Python
+    paths (the BAM pool decode, the reads through the realignment pool,
+    readselection), then the phase CLI on a HOST_CUT_VARIANTS-variant file of
+    the generator through both, byte-identical."""
+    from whatshap_torch.cli import phase as phase_cli
+    from whatshap_torch.io.sam import AlignmentFile
+    from whatshap_torch.readselect import readselection
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    def decode():
+        return [tuple(repr(getattr(seg, k)) for k in SEGMENT_FIELDS) for seg in AlignmentFile(data["bam"])]
+
+    def select():
+        return [sorted(readselection(rs, 15)) for rs in sets]
+
+    clear_bam_pool_cache()
+    native, t_native = timed(decode)
+    with python_host_paths():
+        python, t_python = timed(decode)
+    _require(len(native) > 0 and native == python, "host: the BAM pool decode equals the Python record loop")
+    print(f"host: BAM pool decode of {len(native)} records {t_native:.3f} s, the Python record loop "
+          f"{t_python:.3f} s; records equal: True", flush=True)
+    del native, python
+    clear_bam_pool_cache()
+    (rows, sets), t_native = timed(lambda: _read_rows(data))
+    with python_host_paths():
+        (rows_py, _sets), t_python = timed(lambda: _read_rows(data))
+    _require(len(rows) > 0 and rows == rows_py, "host: the realignment pool's reads equal the Python realignment's")
+    print(f"host: {len(rows)} reads through the BAM pool and the realignment pool {t_native:.3f} s, the Python "
+          f"realignment {t_python:.3f} s; reads equal: True", flush=True)
+    del rows, rows_py, _sets
+    picked, t_native = timed(select)
+    with python_host_paths():
+        picked_py, t_python = timed(select)
+    _require(picked == picked_py and 0 < sum(map(len, picked)), "host: readselection equals the Python selection")
+    print(f"host: readselection of {sum(map(len, picked))} of {sum(map(len, sets))} reads (max coverage 15) "
+          f"{t_native:.3f} s, the Python selection {t_python:.3f} s; equal: True", flush=True)
+    del sets
+
+    cut = write_synth(f"{tmp}/host-cut", HOST_CUT_VARIANTS, 14, seed=7)
+    args = dict(phase_input_files=[cut["bam"]], variant_file=cut["vcf"], reference=cut["fasta"],
+                write_command_line_header=False, device="cuda")
+    texts = {}
+    for route, paths in (("helpers", contextlib.nullcontext()), ("python", python_host_paths())):
+        clear_bam_pool_cache()
+        out = f"{tmp}/host-cut/{route}.vcf"
+        t0 = time.perf_counter()
+        with paths:
+            phase_cli.run_whatshap(**args, output=out)
+        wall = time.perf_counter() - t0
+        timers = phase_cli.LAST_TIMERS
+        stages = " ".join(f"{k} {timers.elapsed(k):.3f}" for k in ("parse_vcf", "read_bam", "select", "phase",
+                                                                    "components", "write_vcf"))
+        print(f"host: phase-cli-{HOST_CUT_VARIANTS} through the {route} host path: wall {wall:.3f} s = "
+              f"{HOST_CUT_VARIANTS / wall:.1f} variants phased/s; stages (s): {stages} ({host_context()})",
+              flush=True)
+        with open(out) as f:
+            texts[route] = f.read()
+    _require(texts["helpers"] == texts["python"], "host: the phase CLI's VCF is byte-identical on both host paths")
+    print(f"host: phase-cli-{HOST_CUT_VARIANTS} VCF byte-identical through the helpers and the Python paths: True",
+          flush=True)
+
+
 def cli_instance(data, label, expect, plain=True, reads=None, **kwargs):
     """Phase the files of `data` through run_whatshap on the card (counted,
     with the launch counters set to 0 just before and read just after), then
@@ -2486,6 +2631,7 @@ def cli_instance(data, label, expect, plain=True, reads=None, **kwargs):
                 write_command_line_header=False, device="cuda", **kwargs)
     out = data["vcf"][: -len("variants.vcf")]
     calls, events = [], []
+    clear_bam_pool_cache()
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -2503,7 +2649,8 @@ def cli_instance(data, label, expect, plain=True, reads=None, **kwargs):
     n = data["n_vars"]
     print(f"{label}: {n} variants, {data['n_reads']} reads, {len(data['haps'])} sample(s): wall {wall:.3f} s "
           f"(files in, VCF out) = {n / wall:.1f} variants phased/s", flush=True)
-    print(f"{label}: stages (s): " + " ".join(f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
+    print(f"{label}: stages (s): " + " ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" ({host_context()})",
+          flush=True)
     print(f"{label}: device time of the {len(events)} solves (CUDA events) {solves:.4f} s = {solves / wall:.4f} of "
           f"the wall: the card idles at least {1 - solves / wall:.4f} of it", flush=True)
     per_call = {k: v / max(len(calls), 1) for k, v in launches.items() if v}
@@ -2522,6 +2669,7 @@ def cli_instance(data, label, expect, plain=True, reads=None, **kwargs):
     if not plain:
         return launches, largest, wall, rates
 
+    clear_bam_pool_cache()
     reset_launches()
     t0 = time.perf_counter()
     with plain_route():
@@ -3059,6 +3207,7 @@ def geno_cli_instance(data, label, atol, min_concordance, kernels=("geno_backwar
                 write_command_line_header=False, device="cuda", **kwargs)
     out = data["vcf"][: -len("variants.vcf")]
     probe, reads = {}, []
+    clear_bam_pool_cache()
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -3075,7 +3224,8 @@ def geno_cli_instance(data, label, atol, min_concordance, kernels=("geno_backwar
     n = data["n_vars"]
     print(f"{label}: {n} variants, {data['n_reads']} reads, {len(data['haps'])} sample(s): wall {wall:.3f} s "
           f"(files in, VCF out) = {n / wall:.1f} variants genotyped/s", flush=True)
-    print(f"{label}: stages (s): " + " ".join(f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
+    print(f"{label}: stages (s): " + " ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" ({host_context()})",
+          flush=True)
     print(f"{label}: device time of the {len(probe['events'])} forward-backward calls (CUDA events) "
           f"{device_s:.4f} s = {device_s / wall:.4f} of the wall: the card idles at least "
           f"{1 - device_s / wall:.4f} of it", flush=True)
@@ -3299,6 +3449,11 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
     for name in _build.sources():
         _build.load(name)
+    secs, logs = _build.build_host()
+    print(f"host build: {secs:.2f} s for {sorted(logs) or 'nothing (already built)'} (g++, "
+          f"{os.cpu_count()} host CPUs)", flush=True)
+    for name in hostlib.__all__:
+        getattr(hostlib, name)
 
     # 2. kernels against their plain versions (row 13, the wide T=1 kernel,
     # at K = 18 to 23 and against the cluster kernel at K = 7 to 17)
@@ -3467,6 +3622,8 @@ def main() -> int:
         t0 = time.perf_counter()
         chrom = write_synth(f"{tmp}/chrom", CLI_VARIANTS, 14, seed=7)
         print(f"phase-cli: chromosome written in {time.perf_counter() - t0:.1f} s", flush=True)
+        host_phase(chrom, tmp)
+        print(f"phase 10 (host) done at {time.perf_counter() - t_start:.1f} s", flush=True)
         cli_launches, cli_packed, _w, _r = cli_instance(chrom, "phase-cli", ("wmec_forward_t1", "wmec_backtrace_t1"))
         del chrom
         t0 = time.perf_counter()
@@ -3662,10 +3819,7 @@ def main() -> int:
         launches[f"{name}:t1024"] = geno_fam7_launches[name]
         launches[f"{name}:p10"] = p10_geno_launches[name]
 
-    power = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    power = card_name_and_power()
     kernels = []
     for name, source, replaces in ENTRIES:
         t = times[name]

@@ -8,6 +8,7 @@ these plain versions on the card in tests/test_torch_cuda.py.
 """
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -533,14 +534,31 @@ def _banned_imports(tree):
     return found
 
 
+def _native_paths(source):
+    """The places where `source` names the repo's native/ directory as a
+    path: `native/` in its text (a string or a comment), or a string that
+    is the part `native` of a path (as in REPO / "native" or "../native")."""
+    found = re.findall(r"(?<![\w.])native/", source)
+    found += [
+        node.value for node in ast.walk(ast.parse(source))
+        if isinstance(node, ast.Constant) and isinstance(node.value, str)
+        and re.search(r"(^|[/\\])native([/\\]|$)", node.value)
+    ]
+    return found
+
+
 def test_port_imports_no_jax_and_no_reference():
     """(f) No module of the port, and not chip_smoke.py or the profile
     scripts, imports jax, the reference package, tools/ or a native module,
     absolutely or relatively (AST scan of every import statement, those
-    inside a try or a function included)."""
+    inside a try or a function included), or names the repo's native/
+    directory as a path: the port builds its host helpers from its own
+    csrc/host/."""
     for path in _port_files():
-        tree = ast.parse(path.read_text(), filename=str(path))
+        source = path.read_text()
+        tree = ast.parse(source, filename=str(path))
         assert _banned_imports(tree) == [], f"{path}: imports {_banned_imports(tree)}"
+        assert _native_paths(source) == [], f"{path}: names {_native_paths(source)}"
 
 
 @pytest.mark.parametrize("source", [
@@ -556,6 +574,17 @@ def test_port_imports_no_jax_and_no_reference():
 def test_import_scan_rejects(source):
     """The scan above catches each kind of import it bans."""
     assert _banned_imports(ast.parse(source)) != []
+
+
+@pytest.mark.parametrize("source", [
+    'SRC = Path(__file__).parent.parent / "native" / "bamlib.cpp"',
+    'subprocess.run(["g++", "-o", "x.so", "native/cigarlib.cpp"])',
+    "x = 1  # built from native/readselectlib.cpp",
+    'lib = ctypes.CDLL(os.path.join(REPO, "../native"))',
+])
+def test_native_path_scan_rejects(source):
+    """The scan above catches each way of naming the native/ directory."""
+    assert _native_paths(source) != []
 
 
 def test_port_imports_with_jax_blocked():

@@ -3,14 +3,18 @@ Alignment kernels for allele detection: banded unit-cost edit distance,
 Gotoh affine-gap edit distance with per-position mismatch costs, k-mer
 alignment with learned substitution costs.
 
-Semantics parity with whatshap/align.pyx (and with whatshap_tpu.align's
-Python path, of which this is a copy).
+Semantics parity with whatshap/align.pyx (and with whatshap_tpu.align, of
+which this is a copy).  The edit distances run in C++ (csrc/host/alignlib.cpp,
+hostlib.alignlib); the Python implementations are their plain versions.
 """
 
 import collections
 from typing import Dict, List, Sequence
 
 INT_MAX = 2147483647
+
+from . import hostlib
+
 
 def _as_bytes(s) -> bytes:
     return s.encode() if isinstance(s, str) else s
@@ -23,6 +27,9 @@ def edit_distance(s, t, maxdiff: int = -1) -> int:
     than maxdiff."""
     sv = _as_bytes(s)
     tv = _as_bytes(t)
+    _native = hostlib.alignlib
+    if _native is not None:
+        return _native.edit_distance(sv, tv, maxdiff)
     return _edit_distance_py(sv, tv, maxdiff)
 
 
@@ -96,6 +103,11 @@ def edit_distance_affine_gap(
     assert len(query) == len(mismatch_cost)
     sv = _as_bytes(query)
     tv = _as_bytes(ref)
+    _native = hostlib.alignlib
+    if _native is not None:
+        return _native.edit_distance_affine_gap(
+            sv, tv, list(mismatch_cost), gap_start, gap_extend
+        )
     return _edit_distance_affine_gap_py(sv, tv, mismatch_cost, gap_start, gap_extend)
 
 

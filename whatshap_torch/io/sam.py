@@ -52,6 +52,32 @@ for _c, _i in SEQ_ENCODE.items():
 _SEQ_ENC_TRANS = bytes(_SEQ_ENC_TRANS)
 
 
+# Process-wide cache of native-decoded BAM pools, keyed by
+# (path, size, mtime_ns).  Bounded by total decoded bytes; oldest entries
+# evict first.  clear_bam_pool_cache() exists so benchmarks can charge each
+# timed run the full fresh-process decode cost.
+_BAM_POOL_CACHE: "dict[tuple, tuple]" = {}
+_BAM_POOL_CACHE_MAX_BYTES = 1 << 30
+
+
+def _bam_pool_cache_put(key, value):
+    if len(value[0]) > _BAM_POOL_CACHE_MAX_BYTES:
+        return
+    _BAM_POOL_CACHE[key] = value
+    total = sum(len(v[0]) for v in _BAM_POOL_CACHE.values())
+    for k in list(_BAM_POOL_CACHE):
+        if total <= _BAM_POOL_CACHE_MAX_BYTES:
+            break
+        if k == key:
+            continue
+        total -= len(_BAM_POOL_CACHE[k][0])
+        del _BAM_POOL_CACHE[k]
+
+
+def clear_bam_pool_cache():
+    _BAM_POOL_CACHE.clear()
+
+
 class AlignmentFileNotIndexedError(Exception):
     pass
 
@@ -643,6 +669,52 @@ class AlignmentFile:
             return True
         return False
 
+    _NATIVE_SCAN_MAX_BYTES = 512 * 1024 * 1024
+
+    def _native_pool(self):
+        """Whole-file decode through the C++ loader (csrc/host/bamlib.cpp):
+        one BGZF inflation pass and record splitting in C.  The decoded
+        pool is cached process-wide keyed by (path, size, mtime) so a file
+        opened several times in one run (header probe + record pass, or one
+        pass per chromosome) inflates exactly once."""
+        if getattr(self, "_native_handle", None) is not None:
+            return self._native_cache
+        from ..hostlib import bamlib
+
+        if bamlib is None:
+            return None
+        try:
+            path = os.fspath(self._path)
+            st = os.stat(path)
+        except (OSError, TypeError):
+            return None
+        if st.st_size > self._NATIVE_SCAN_MAX_BYTES:
+            return None
+        key = (path, st.st_size, st.st_mtime_ns)
+        cached = _BAM_POOL_CACHE.get(key)
+        if cached is not None:
+            self._native_handle = True
+            self._native_cache = cached
+            return cached
+        import ctypes as _ct
+
+        h = bamlib._lib.wh_bam_load(path.encode())
+        if not h:
+            return None
+        n = bamlib._lib.wh_bam_n_records(h)
+        pool_size = bamlib._lib.wh_bam_pool_size(h)
+        pool = bytes(_ct.cast(bamlib._lib.wh_bam_pool(h), _ct.POINTER(_ct.c_char * pool_size)).contents) if pool_size else b""
+        offsets = list(
+            _ct.cast(
+                bamlib._lib.wh_bam_offsets(h), _ct.POINTER(_ct.c_uint64 * (n + 1))
+            ).contents
+        )
+        bamlib._lib.wh_bam_free(h)
+        self._native_handle = True
+        self._native_cache = (pool, offsets)
+        _bam_pool_cache_put(key, self._native_cache)
+        return self._native_cache
+
     def _iter_all(self) -> Iterator[AlignedSegment]:
         if self._mode == "cram":
             yield from self._cram_segments
@@ -653,6 +725,13 @@ class AlignmentFile:
                     if line.startswith("@") or not line.strip():
                         continue
                     yield self._parse_sam_line(line)
+            return
+        native = self._native_pool() if not hasattr(self._path, "write") else None
+        if native is not None:
+            pool, offsets = native
+            header = self.header
+            for i in range(len(offsets) - 1):
+                yield parse_bam_record(pool[offsets[i] : offsets[i + 1]], header)
             return
         r = BGZFReader(self._path)
         r.seek_virtual(self._body_voffset)

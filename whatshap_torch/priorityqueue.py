@@ -9,6 +9,9 @@ from typing import Dict, List, Optional, Tuple, Union
 
 Score = Tuple[int, ...]
 
+from . import hostlib
+
+
 def _score_tuple(score) -> Score:
     if isinstance(score, int):
         return (score,)
@@ -34,7 +37,7 @@ def _vector_score_lower(first: Score, second: Score) -> bool:
     return len(first) < len(second)
 
 
-class PriorityQueue:
+class _PriorityQueuePython:
     def __init__(self):
         self._heap: List[List] = []  # entries [score_tuple, item]
         self._positions: Dict[int, int] = {}
@@ -147,3 +150,66 @@ class PriorityQueue:
     def c_is_empty(self) -> bool:
         return not self._heap
 
+
+class _PriorityQueueNative:
+    """Wrapper over the CPython extension heap (csrc/host/pqext.cpp) — same
+    operation-for-operation heap layout as the Python implementation, so
+    the unstable tie behavior (part of the read-selection output contract)
+    is preserved exactly; differentially tested."""
+
+    __slots__ = ("_pq",)
+
+    def __init__(self):
+        self._pq = hostlib.pqext.PriorityQueueExt()
+
+    def push(self, score, item: int) -> None:
+        self._pq.c_push(_score_tuple(score), item)
+
+    def c_push(self, score: Score, item: int) -> None:
+        self._pq.c_push(score if isinstance(score, tuple) else tuple(score), item)
+
+    def pop(self):
+        score, item = self._pq.c_pop()
+        if len(score) == 1:
+            return score[0], item
+        return score, item
+
+    def c_pop(self):
+        return self._pq.c_pop()
+
+    def change_score(self, item: int, new_score) -> None:
+        self._pq.c_change_score(item, _score_tuple(new_score))
+
+    def c_change_score(self, item: int, new_score: Score) -> None:
+        self._pq.c_change_score(
+            item, new_score if isinstance(new_score, tuple) else tuple(new_score)
+        )
+
+    def get_score_by_item(self, item: int):
+        score = self._pq.c_get_score_by_item(item)
+        if score is None:
+            return None
+        if len(score) == 1:
+            return score[0]
+        return score
+
+    def c_get_score_by_item(self, item: int):
+        return self._pq.c_get_score_by_item(item)
+
+    def __len__(self) -> int:
+        return len(self._pq)
+
+    def size(self) -> int:
+        return len(self._pq)
+
+    def is_empty(self) -> bool:
+        return self._pq.c_is_empty()
+
+    def c_is_empty(self) -> bool:
+        return self._pq.c_is_empty()
+
+
+def PriorityQueue():
+    """A new heap: the extension's (hostlib.pqext, built at first use), or
+    the Python one where hostlib.pqext is None."""
+    return _PriorityQueueNative() if hostlib.pqext is not None else _PriorityQueuePython()

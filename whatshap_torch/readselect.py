@@ -100,7 +100,8 @@ def _compute_score_for_read(reads, index, vcf_indices):
 
 def _construct_priorityqueue(reads, read_indices, vcf_indices):
     # ascending read order: the heap layout among equal scores (and hence
-    # tie pops) depends on push order, so it must be deterministic
+    # tie pops) depends on push order, so it must be deterministic — and
+    # identical to the native engine's fill order (readselectlib.cpp)
     pq = PriorityQueue()
     for index in sorted(read_indices):
         pq.c_push(reads[index].score, index)
@@ -138,7 +139,8 @@ def _slice_read_selection(pq, coverages, max_cov, reads, vcf_indices, variant_to
                 )
             selected_read_set = set(reads_in_slice)
             # ascending read order: a deterministic update sequence (heap
-            # layout after equal-score updates depends on it)
+            # layout after equal-score updates depends on it); the native
+            # engine (readselectlib.cpp) applies the same order
             d_set = sorted(reads_whose_score_has_to_be_updated.difference(selected_read_set))
             for element in d_set:
                 oldscore = pq.c_get_score_by_item(element)
@@ -224,12 +226,53 @@ def _readselection_helper(
     return selected_reads
 
 
+def _readselection_native(readset, max_cov, bridging):
+    """One-call native selection (csrc/host/readselectlib.cpp): identical
+    slice/bridging semantics and heap tie behavior; returns the selected
+    index set, or None where hostlib.readselectlib is None (the Python path)."""
+    from .hostlib import readselectlib
+
+    if readselectlib is None:
+        return None
+    import numpy as np
+
+    n_reads = len(readset)
+    lens = np.fromiter((len(r._positions) for r in readset), np.int64, n_reads)
+    read_off = np.zeros(n_reads + 1, dtype=np.int32)
+    np.cumsum(lens, out=read_off[1:])
+    total = int(read_off[-1])
+    all_pos = np.fromiter(
+        (p for r in readset for p in r._positions), np.int64, total
+    )
+    quals = np.fromiter(
+        (q for r in readset for q in r._qualities), np.int32, total
+    )
+    uniq = np.unique(all_pos)
+    vidx = np.searchsorted(uniq, all_pos).astype(np.int32)
+    mask = readselectlib.readselection(
+        read_off, np.ascontiguousarray(vidx), np.ascontiguousarray(quals),
+        len(uniq), max_cov, bridging,
+    )
+    return set(np.nonzero(mask)[0].tolist())
+
+
 def readselection(readset, max_cov, preferred_source_ids=None, bridging=True):
     """Select read indices not violating the maximum coverage; preferred
     source ids (phased-VCF pseudo-reads) are selected first."""
     for r in readset:
         if not len(r) >= 2:
             raise ValueError("readselection expects reads that cover at least two variants")
+
+    # Native one-call route for the common case (no preferred reads: the
+    # preferred phase iterates a scattered CPython set whose order the
+    # native heap fill cannot reproduce, so it stays here in Python).
+    has_preferred = preferred_source_ids is not None and any(
+        read.source_id in preferred_source_ids for read in readset
+    )
+    if not has_preferred:
+        selected = _readselection_native(readset, max_cov, bridging)
+        if selected is not None:
+            return selected
 
     positions, vcf_indices, variant_to_reads_map, preferred_reads, reads = _construct_indexes(
         readset, preferred_source_ids

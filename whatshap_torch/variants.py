@@ -255,6 +255,69 @@ def _advance_along_cigar(cigar, reference_bases: int) -> Tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
+# native CIGAR engine glue
+
+
+def _pack_detect_state(native_cigar, normalized, progress):
+    """Flatten the reference-free detection metadata for the C++ engine
+    (csrc/host/cigarlib.cpp): per usable variant its position/id/REF length,
+    per allele the match/insert/delete targets and base string."""
+    positions, variant_ids, ref_lens = [], [], []
+    allele_off, match_t, insert_t, delete_t = [0], [], [], []
+    seq_off, chunks = [0], []
+    total = 0
+    for tracker in progress:
+        v = normalized[tracker.variant_id]
+        positions.append(v.position)
+        variant_ids.append(tracker.variant_id)
+        ref_lens.append(len(v.reference_allele))
+        for i, a in enumerate(tracker.alleles):
+            match_t.append(a.match_target)
+            insert_t.append(a.insert_target)
+            delete_t.append(a.delete_target)
+            seq = v.get_allele(i).encode()
+            chunks.append(seq)
+            total += len(seq)
+            seq_off.append(total)
+        allele_off.append(len(match_t))
+    return dict(
+        prog_positions=native_cigar._i64(positions),
+        prog_variant_id=native_cigar._i32(variant_ids),
+        prog_ref_len=native_cigar._i32(ref_lens),
+        allele_off=native_cigar._i32(allele_off),
+        match_t=native_cigar._i32(match_t),
+        insert_t=native_cigar._i32(insert_t),
+        delete_t=native_cigar._i32(delete_t),
+        seq_off=native_cigar._i32(seq_off),
+        allele_seq=b"".join(chunks),
+    )
+
+
+def _detect_alleles_native(native_cigar, state, first, seg):
+    ops = native_cigar._i32([op for op, _ in seg.cigartuples])
+    lens = native_cigar._i32([ln for _, ln in seg.cigartuples])
+    result = native_cigar.detect_alleles(
+        state["prog_positions"],
+        state["prog_variant_id"],
+        state["prog_ref_len"],
+        state["allele_off"],
+        state["match_t"],
+        state["insert_t"],
+        state["delete_t"],
+        state["seq_off"],
+        state["allele_seq"],
+        first,
+        seg.reference_start,
+        ops,
+        lens,
+        seg.query_sequence,
+        seg.query_qualities,
+    )
+    assert result is not None
+    return result
+
+
+# ---------------------------------------------------------------------------
 # the reader
 
 
@@ -346,6 +409,12 @@ class ReadSetReader:
             assert count == 1, f"Position {position} occurs more than once in variant list."
         assert restricted_genotypes is None or len(restricted_genotypes) == len(variants)
 
+        fast = self._read_pool_fast(
+            chromosome, variants, sample, reference, regions, restricted_genotypes
+        )
+        if fast is not None:
+            return fast
+
         alignments = self._usable_alignments(chromosome, sample, regions)
         aligned_reads = self._alignments_to_reads(
             alignments, variants, sample, reference, restricted_genotypes
@@ -357,6 +426,237 @@ class ReadSetReader:
             allow_supplementary_only_groups=self._allow_supplementary_only_read_groups,
         ):
             readset.add(merge_reads(*group))
+        return readset
+
+    def _read_pool_fast(
+        self, chromosome, variants, sample, reference, regions, restricted_genotypes
+    ) -> Optional[ReadSet]:
+        """Whole-chromosome batched read path: filtering, CIGAR/sequence
+        decode and realignment for EVERY record of the native BAM pool in
+        one threaded C++ call (csrc/host/cigarlib.cpp wh_realign_pool), then
+        bulk Read construction from the packed hit arrays.
+
+        Covers the default realign mode on a single plain BAM; anything
+        else (regions, kmerald, CIGAR-only detection, supplementary
+        grouping, CRAM/SAM, multi-BAM) returns None and takes the
+        per-alignment path.  Records the native pass cannot reproduce
+        exactly (symbolic ALTs in range, odd tag types, missing sequence)
+        come back with status -2 and are re-processed one by one through
+        the identical Python fallback, preserving record order."""
+        if (
+            regions is not None
+            or reference is None
+            or self._use_kmerald
+            or restricted_genotypes is not None
+            or self._use_supplementary
+            or self._allow_supplementary_only_read_groups
+            or not variants
+        ):
+            return None
+        from .hostlib import cigarlib as native_cigar
+
+        if native_cigar is None:
+            return None
+        reader = self._reader
+        if not isinstance(reader, SampleBamReader):
+            return None
+        samfile = reader._samfile
+        if getattr(samfile, "_mode", None) != "bam":
+            return None
+        native = samfile._native_pool()
+        if native is None:
+            return None
+        from .bam import ReferenceNotFoundError, SampleNotFoundError
+
+        if not reader.has_reference(chromosome):
+            raise ReferenceNotFoundError(chromosome)
+        rg_ids = None
+        if sample is not None:
+            if not reader.has_sample(sample):
+                raise SampleNotFoundError()
+            rg_ids = sorted(reader._groups_of[sample])
+        tid = samfile.header.get_reference_id(chromosome)
+        if tid is None or tid < 0:
+            raise ReferenceNotFoundError(chromosome)
+
+        import numpy as np
+
+        pool, offsets = native
+        reference = reference[:]  # plain str
+        self._native_cigar = native_cigar
+        # per-(variant list, chromosome) table cache: a trio reads the same
+        # chromosome three times (one call per sample) with one variant list
+        vpos = np.asarray([v.position for v in variants], dtype=np.int64)
+        cache_key = (id(variants), len(variants), int(vpos[0]), int(vpos[-1]))
+        cached = getattr(self, "_pool_tables_cache", None)
+        if cached is not None and cached[0] == cache_key:
+            self._native_positions, tables = cached[1], cached[2]
+            self._native_realign = tables
+        else:
+            import ctypes as _ct
+
+            self._native_positions = (_ct.c_int64 * len(vpos)).from_buffer_copy(
+                vpos.tobytes()
+            )
+            tables = self._native_realign = self._build_native_realign_tables(
+                variants, reference, native_cigar
+            )
+            self._pool_tables_cache = (cache_key, self._native_positions, tables)
+        res = native_cigar.realign_pool(
+            pool, offsets, tid, self._mapq_threshold, self._duplicates,
+            rg_ids, self._native_positions, len(variants),
+            tables["ref_lens"], tables["alt_off"], tables["alt_seq_off"],
+            tables["alt_seq"], tables["skip"], tables["reference"],
+            int(self._realign_cfg.overhang),
+            use_affine=self._realign_cfg.use_affine,
+            default_mismatch=int(self._realign_cfg.default_mismatch),
+            gap_start=int(self._realign_cfg.gap_start),
+            gap_extend=int(self._realign_cfg.gap_extend),
+        )
+        if res is None:
+            return None
+
+        numeric_sample_id = 0 if sample is None else self._numeric_sample_ids[sample]
+        status = res["status"]
+        hit_off = res["hit_off"]
+        hv, ha, hq = res["hit_var"], res["hit_allele"], res["hit_qual"]
+        flags = res["flag"]
+        mapqs = res["mapq"]
+        hps = res["hp"]
+        pss = res["ps"]
+        starts = res["ref_start"]
+        ends = res["ref_end"]
+        name_off = res["name_off"]
+        name_len = res["name_len"]
+        bx_off = res["bx_off"]
+        bx_len = res["bx_len"]
+
+        def aligned_reads():
+            # yields (AlignedRead, known_sorted): batch-constructed reads
+            # have strictly ascending positions by construction (the CIGAR
+            # walk emits each variant once, in order), so the singleton
+            # grouping shortcut can skip the is_sorted() re-check
+            from .io.sam import parse_bam_record
+
+            for r in np.nonzero(status != -1)[0].tolist():
+                st = int(status[r])
+                if st == -2:
+                    # exact Python fallback for this record (same screens,
+                    # tag handling and per-variant detection as the
+                    # per-alignment path)
+                    seg = parse_bam_record(
+                        pool[offsets[r] : offsets[r + 1]], samfile.header
+                    )
+                    if (
+                        seg.mapping_quality < self._mapq_threshold
+                        or seg.is_secondary
+                        or seg.is_unmapped
+                        or seg.is_supplementary
+                        or (seg.is_duplicate and not self._duplicates)
+                    ):
+                        continue
+                    if rg_ids is not None and not (
+                        seg.has_tag("RG") and seg.get_tag("RG") in rg_ids
+                    ):
+                        continue
+                    aln = AlignmentWithSourceID(reader.source_id, seg)
+                    read = self._empty_read_for(aln, numeric_sample_id)
+                    cursor = int(np.searchsorted(vpos, seg.reference_start))
+                    for j, allele, quality in self._detect_by_realignment(
+                        variants, None, cursor, seg, reference, None
+                    ):
+                        read.add_variant(variants[j].position, allele, quality)
+                    if read:
+                        yield AlignedRead(
+                            read,
+                            seg.is_supplementary,
+                            seg.is_reverse,
+                            seg.reference_start,
+                            seg.reference_end,
+                        ), False
+                    continue
+                if st == 0:
+                    continue  # covers no detectable variant
+                no = int(name_off[r])
+                read = Read(
+                    pool[no : no + int(name_len[r])].decode(),
+                    int(mapqs[r]),
+                    reader.source_id,
+                    numeric_sample_id,
+                    int(starts[r]),
+                    pool[int(bx_off[r]) : int(bx_off[r]) + int(bx_len[r])].decode()
+                    if bx_off[r] >= 0
+                    else "",
+                    int(hps[r]),
+                    int(pss[r]),
+                    chromosome=chromosome,
+                    sub_alignment_id=PRIMARY_DEFAULT_SUB_ALIGNMENT_ID,
+                    is_supplementary=False,
+                    is_reverse=bool(flags[r] & 0x10),
+                    reference_end=int(ends[r]),
+                )
+                a, b = int(hit_off[r]), int(hit_off[r + 1])
+                read._positions = vpos[hv[a:b]].tolist()
+                read._alleles = ha[a:b].tolist()
+                read._qualities = hq[a:b].tolist()
+                yield AlignedRead(
+                    read, False, bool(flags[r] & 0x10), int(starts[r]), int(ends[r])
+                ), True
+
+        # inline fragment grouping, semantics of _group_reads +
+        # merge_reads: singleton sorted primaries (the vast majority) go
+        # straight into the set; only real multi-part fragments pay the
+        # merge machinery
+        buckets: Dict[tuple, List[tuple]] = {}
+        readset = ReadSet()
+        for aligned, known_sorted in aligned_reads():
+            rd = aligned.read
+            key = (rd.source_id, rd.name, None, rd.sample_id)
+            if key in buckets:
+                buckets[key].append((aligned, known_sorted))
+            else:
+                buckets[key] = [(aligned, known_sorted)]
+                # optimistic placement: most fragments are singletons, so
+                # reserve the slot now to keep record order; multi-part
+                # groups resolve in a second pass below
+                readset._add_owned(rd)
+
+        n_multi = n_skipped = 0
+        needs_fix = []
+        for key, group in buckets.items():
+            first_aligned, first_sorted = group[0]
+            if len(group) == 1:
+                if not first_aligned.is_supplementary and (
+                    first_sorted or first_aligned.read.is_sorted()
+                ):
+                    continue  # already placed
+                merged = ReadSetReader.create_read_from_group(
+                    [first_aligned],
+                    self._supplementary_distance_threshold,
+                    allow_supplementary_only_groups=False,
+                )
+            else:
+                n_multi += 1
+                merged = ReadSetReader.create_read_from_group(
+                    [a for a, _ in group],
+                    self._supplementary_distance_threshold,
+                    allow_supplementary_only_groups=False,
+                )
+            if merged is None:
+                n_skipped += 1
+            needs_fix.append((first_aligned.read, merged))
+        if needs_fix:
+            replacement = {id(rd): merged for rd, merged in needs_fix}
+            readset_reads = [
+                replacement.get(id(rd), rd) for rd in readset._reads
+            ]
+            readset = ReadSet()
+            for rd in readset_reads:
+                if rd is not None:
+                    readset._add_owned(rd)
+        logger.info("Number of supplementary alignments: 0")
+        logger.info(f"Number of non-singleton groups: {n_multi}")
+        logger.info(f"Skipped {n_skipped} groups")
         return readset
 
     def _usable_alignments(self, chromosome, sample, regions=None):
@@ -380,6 +680,51 @@ class ReadSetReader:
 
     # -- alignment -> Read conversion
 
+    @staticmethod
+    def _build_native_realign_tables(variants, reference: str, native_cigar):
+        """Flattened per-variant tables consumed by the native realignment
+        engines (wh_realign_read / wh_realign_pool): REF lengths, ALT
+        sequences concatenated with offset vectors, and the symbolic-ALT
+        skip mask that routes a variant to the Python path."""
+        import ctypes as _ct
+
+        import numpy as np
+
+        def _i32_arr(xs):
+            a = np.asarray(xs, dtype=np.int32)
+            buf = a.tobytes()
+            return (_ct.c_int32 * max(len(a), 1)).from_buffer_copy(
+                buf if buf else b"\x00\x00\x00\x00"
+            )
+
+        alt_off = [0]
+        alt_seqs: List[str] = []
+        skip = bytearray()
+        for v in variants:
+            alts = v.get_alt_allele_list()
+            symbolic = any(a.startswith("<") for a in alts)
+            skip.append(1 if symbolic else 0)
+            if symbolic:
+                alt_off.append(alt_off[-1])
+            else:
+                alt_seqs.extend(alts)
+                alt_off.append(alt_off[-1] + len(alts))
+        alt_seq_off = np.zeros(len(alt_seqs) + 1, dtype=np.int32)
+        np.cumsum(
+            np.fromiter((len(a) for a in alt_seqs), np.int32, len(alt_seqs)),
+            out=alt_seq_off[1:],
+        )
+        return dict(
+            ref_lens=_i32_arr([len(v.reference_allele) for v in variants]),
+            alt_off=_i32_arr(alt_off),
+            alt_seq_off=_i32_arr(alt_seq_off),
+            alt_seq="".join(alt_seqs).encode(),
+            skip=(_ct.c_uint8 * max(len(skip), 1)).from_buffer_copy(
+                bytes(skip) if skip else b"\x00"
+            ),
+            reference=reference.encode(),
+        )
+
     def _alignments_to_reads(
         self,
         alignments,
@@ -393,11 +738,31 @@ class ReadSetReader:
         numeric_sample_id = 0 if sample is None else self._numeric_sample_ids[sample]
         kmerald = _KmeraldState(self._kmerald_cfg) if self._use_kmerald else None
 
+        from .hostlib import cigarlib as native_cigar
+
         if reference is not None:
             reference = reference[:]  # plain str for fast slicing
             scan_positions = [v.position for v in variants]
             cigar_walk_state = None
+            self._native_positions = (
+                native_cigar._i64([v.position for v in variants]) if native_cigar else None
+            )
+            self._native_cigar = native_cigar
+            # Batched native realignment (one engine call per read) covers
+            # the default mode exactly; affine/kmerald/restricted modes and
+            # symbolic-ALT variants keep the per-variant Python path.
+            self._native_realign = None
+            if (
+                native_cigar is not None
+                and self._native_positions is not None
+                and kmerald is None
+                and restricted_genotypes is None
+            ):
+                self._native_realign = self._build_native_realign_tables(
+                    variants, reference, native_cigar
+                )
         else:
+            self._native_realign = None
             normalized = [v.normalized() for v in variants]
             usable_ids = self.detect_non_overlapping_variants(normalized)
             scan_positions = [normalized[j].position for j in usable_ids]
@@ -406,6 +771,9 @@ class ReadSetReader:
                 key=lambda p: p.variant_id,
             )
             cigar_walk_state = (normalized, progress)
+            native_detect_state = (
+                _pack_detect_state(native_cigar, normalized, progress) if native_cigar else None
+            )
 
         n_supplementary = 0
         cursor = 0  # first variant (by scan position) not left of the current alignment
@@ -417,7 +785,12 @@ class ReadSetReader:
             read = self._empty_read_for(alignment, numeric_sample_id)
             if cigar_walk_state is not None:
                 normalized, progress = cigar_walk_state
-                detected = _detect_alleles(normalized, progress, cursor, seg)
+                if native_detect_state is not None and seg.cigartuples:
+                    detected = _detect_alleles_native(
+                        native_cigar, native_detect_state, cursor, seg
+                    )
+                else:
+                    detected = _detect_alleles(normalized, progress, cursor, seg)
             else:
                 detected = self._detect_by_realignment(
                     variants, restricted_genotypes, cursor, seg, reference, kmerald
@@ -637,7 +1010,52 @@ class ReadSetReader:
         cigartuples = seg.cigartuples
         if not cigartuples:
             return
-        hits = _iterate_cigar(variants, first_index, seg, cigartuples)
+        native_cigar = getattr(self, "_native_cigar", None)
+        nr = getattr(self, "_native_realign", None)
+        if (
+            nr is not None
+            and native_cigar is not None
+            and seg.query_sequence is not None
+        ):
+            results = native_cigar.realign_read(
+                self._native_positions,
+                len(variants),
+                first_index,
+                nr["ref_lens"],
+                nr["alt_off"],
+                nr["alt_seq_off"],
+                nr["alt_seq"],
+                nr["skip"],
+                nr["reference"],
+                seg.reference_start,
+                native_cigar._i32([op for op, _ in cigartuples]),
+                native_cigar._i32([ln for _, ln in cigartuples]),
+                seg.query_sequence,
+                int(self._realign_cfg.overhang),
+                use_affine=self._realign_cfg.use_affine,
+                default_mismatch=int(self._realign_cfg.default_mismatch),
+                gap_start=int(self._realign_cfg.gap_start),
+                gap_extend=int(self._realign_cfg.gap_extend),
+            )
+            if all(allele != -2 for _, allele, _ in results):
+                for index, allele, quality in results:
+                    if allele < 0:  # tie: variant skipped
+                        continue
+                    if allele <= len(variants[index].get_alt_allele_list()):
+                        yield (index, allele, quality)
+                return
+            # rare exact-fallback (symbolic ALT / reference-bound corner):
+            # use the per-variant Python path for the whole read
+        if native_cigar is not None and getattr(self, "_native_positions", None) is not None:
+            hits = native_cigar.iterate_cigar(
+                self._native_positions,
+                first_index,
+                seg.reference_start,
+                native_cigar._i32([op for op, _ in cigartuples]),
+                native_cigar._i32([ln for _, ln in cigartuples]),
+            )
+        else:
+            hits = _iterate_cigar(variants, first_index, seg, cigartuples)
         for index, i, consumed, query_pos in hits:
             restricted = restricted_genotypes[index] if restricted_genotypes else None
             allele, quality = self._realign_variant(
