@@ -7,11 +7,12 @@ Drive the PyTorch/CUDA port (whatshap_torch) on one CUDA card and check it.
 Phases, every one of which must pass:
 
 1. build    nvcc builds every kernel from whatshap_torch/csrc, one process per
-            source, all started together; then g++ builds the host helpers of
-            the read path from whatshap_torch/csrc/host (the BAM pool, the
-            CIGAR and realignment engine, the edit distances, read selection
-            and its heap: whatshap_torch.hostlib), one process per source,
-            and the build time is printed.
+            source, all started together; then g++ builds the host helpers
+            from whatshap_torch/csrc/host (the BAM pool, the CIGAR and
+            realignment engine, the edit distances, read selection and its
+            heap, the HapCHAT and PedMEC-heuristic solvers, the switch/flip
+            distance: whatshap_torch.hostlib), one process per source, and
+            the build time is printed.
 2. kernels  on the card, each kernel is held bit-equal against its plain
             torch version on the same CUDA tensors: the T=1 kernels at K = 7
             to 17 (B = 4 blocks of C = 256 columns: the forward kernel's
@@ -181,6 +182,21 @@ Phases, every one of which must pass:
             generator.  phase-cli-trio-ds23: a trio of 2,048 variants at
             coverage 8 a sample with --internal-downsampling 23 (K up to 21
             at T = 4), byte-identical to the plain route.
+11b. tools  the subcommands that follow phase, on an 8,192-variant file of
+            phase-cli's generator: phase on the card (rows 1-2 launched),
+            then compare against a truth VCF of the simulated haplotypes
+            (switch-error rate under 5 %), stats (blocks, N50), haplotag
+            (HP on at least 0.9 of the reads over two or more heterozygous
+            sites, agreeing with each read's haplotype of origin in at least
+            0.95 of the tagged reads within each phase set, up to a swap),
+            split by haplotag's list (the counts add up), unphase (the
+            input's genotypes back), and phase --algorithm heuristic (the 5 %
+            gate) and --algorithm hapchat (on one read-connected block of
+            1,024 variants: HapCHAT phases only a chromosome's first block;
+            the 5 % gate); then the host solvers' libraries (hapchatlib,
+            heurlib, switchfliplib) against their Python paths, equal
+            outputs.  Each tool's wall time is printed with the card's name,
+            power limit and the host's CPU count.
 12. genotype-cli  the genotype CLI on files, as a user runs it: the same
             generator's chromosome of 100,000 SNVs at coverage 14 with mixed
             genotypes (its two haplotypes drawn independently: hom ref, het
@@ -261,6 +277,7 @@ or when a phase fails, it exits non-zero and prints no result.
 import contextlib
 import functools
 import json
+import io
 import math
 import os
 import subprocess
@@ -384,6 +401,11 @@ GENO_CLI_VARIANTS = 100_000
 CLI_TRIO_VARIANTS = 8192
 # the host phase's CLI comparison through the helpers and the Python paths
 HOST_CUT_VARIANTS = 8192
+# the tools phase: phase-cli's generator at 8,192 variants, and one
+# read-connected block of 1,024 variants (HapCHAT phases only the first block
+# of a chromosome) for hapchat and for the host solvers' Python paths
+TOOLS_VARIANTS = 8192
+TOOLS_BLOCK_VARIANTS = 1024
 SINGLE = (1, ())
 TRIO = (3, ((0, 1, 2),))
 QUARTET = (4, ((0, 1, 2), (0, 1, 3)))
@@ -2295,7 +2317,9 @@ def write_synth(out_dir, n_vars, coverage, seed, trio=False, vars_per_read=30, s
     read group per sample and family.ped; with `children` above 1, that many
     children of the two (child1, child2, ...; three make the shape of
     tests/data/recombination_breaks.ped, T = 64).  Returns the paths, the sample
-    names and each sample's simulated haplotypes, (2, n_vars)."""
+    names, each sample's simulated haplotypes, (2, n_vars), and each read's
+    haplotype of origin (`origin`: 0 or 1 by read id, the N of its name
+    readN)."""
     from pathlib import Path
 
     from whatshap_torch.io.sam import AlignedSegment, AlignmentFile, AlignmentHeader, build_minimal_index
@@ -2351,6 +2375,7 @@ def write_synth(out_dir, n_vars, coverage, seed, trio=False, vars_per_read=30, s
                        + "FAM father 0 0 0 0\nFAM mother 0 0 0 0\n")
 
     reads = []  # (start, read id, sample, sequence)
+    origin = []  # by read id: the haplotype the read was drawn from
     for name in names:
         h = haps[name]
         for v_lo in range(0, n_vars, break_every):
@@ -2368,6 +2393,7 @@ def write_synth(out_dir, n_vars, coverage, seed, trio=False, vars_per_read=30, s
                 at = allele == 1
                 bases[pos[a:b][at] - g0] = alt[a:b][at]
                 reads.append((g0, len(reads), name, bases.tobytes().decode()))
+                origin.append(int(which[r]))
     reads.sort()
     header = AlignmentHeader.from_dict({
         "HD": {"VN": "1.6", "SO": "coordinate"},
@@ -2391,7 +2417,8 @@ def write_synth(out_dir, n_vars, coverage, seed, trio=False, vars_per_read=30, s
     bf.close()
     build_minimal_index(str(bam))
     return {"fasta": str(fasta), "bam": str(bam), "vcf": str(vcf), "ped": None if ped is None else str(ped),
-            "n_vars": n_vars, "n_reads": len(reads), "spacing": spacing, "haps": haps}
+            "n_vars": n_vars, "n_reads": len(reads), "spacing": spacing, "haps": haps,
+            "origin": np.array(origin, dtype=np.int8)}
 
 
 def switch_error_rates(vcf_text, data) -> dict:
@@ -2507,9 +2534,10 @@ def host_context() -> str:
 
 @contextlib.contextmanager
 def python_host_paths():
-    """The read path on the Python versions of the host helpers: every
+    """The host work on the Python versions of the host helpers: every
     attribute of hostlib None (the Python record loop, realignment and edit
-    distances, selection and heap), restored after the block."""
+    distances, selection and heap, the HapCHAT and heuristic solvers, the
+    switch/flip distance), restored after the block."""
     saved = {name: getattr(hostlib, name) for name in hostlib.__all__}
     for name in saved:
         setattr(hostlib, name, None)
@@ -2613,6 +2641,220 @@ def host_phase(data, tmp) -> None:
     _require(texts["helpers"] == texts["python"], "host: the phase CLI's VCF is byte-identical on both host paths")
     print(f"host: phase-cli-{HOST_CUT_VARIANTS} VCF byte-identical through the helpers and the Python paths: True",
           flush=True)
+
+
+def write_minimal_tbi(vcf_gz, contigs) -> None:
+    """Write a structurally valid (empty) tabix index next to a bgzipped VCF,
+    as write_synth's BAM gets a minimal .bai: the port's VCF reader scans and
+    filters, and takes the index as the existence check that indexed access
+    needs (haplotag fetches its VCF by region)."""
+    import struct
+
+    from whatshap_torch.io.bgzf import BGZFWriter
+
+    names = b"".join(c.encode() + b"\0" for c in contigs)
+    # VCF format (2), sequence column 1, begin column 2, no end column,
+    # meta character '#', no lines skipped
+    body = b"TBI\x01" + struct.pack("<8i", len(contigs), 2, 1, 2, 0, ord("#"), 0, len(names)) + names
+    body += struct.pack("<2i", 0, 0) * len(contigs)  # n_bin, n_intv of each contig
+    with open(f"{vcf_gz}.tbi", "wb") as raw:
+        writer = BGZFWriter(raw)
+        writer.write(body)
+        writer.close()
+
+
+def _text(path) -> str:
+    """A VCF or TSV, bgzipped or not, as text."""
+    import gzip
+
+    with (gzip.open(path, "rt") if str(path).endswith(".gz") else open(path)) as f:
+        return f.read()
+
+
+def write_truth_vcf(data, path) -> None:
+    """`data`'s variants.vcf with its one sample's simulated haplotypes as
+    phased genotypes (h0|h1, one phase set): compare's truth."""
+    (h,) = data["haps"].values()
+    with open(data["vcf"]) as src, open(path, "w") as out:
+        i = 0
+        for line in src:
+            if not line.startswith("#"):
+                line = line[: line.rindex("\t") + 1] + f"{h[0, i]}|{h[1, i]}\n"
+                i += 1
+            out.write(line)
+
+
+def _tsv_rows(path):
+    """The rows of a TSV with a #-header line, as dicts."""
+    with open(path) as f:
+        header, *rows = [line.rstrip("\n").split("\t") for line in f]
+    return [dict(zip([h.lstrip("#") for h in header], row)) for row in rows]
+
+
+def _haplotype_strings(path):
+    """The two haplotypes of a one-sample VCF's phased calls, every call
+    read as one block, as strings, and the calls' positions."""
+    calls = [(pos, gt.split("|")) for (_c, pos, _s), gt, _q, _l in vcf_calls(_text(path)) if "|" in gt]
+    return [pos for pos, _gt in calls], ["".join(gt[h] for _pos, gt in calls) for h in (0, 1)]
+
+
+def tools_phase(tmp) -> None:
+    """Phase 11b, tools: the subcommands that follow phase, on files of
+    phase-cli's generator (TOOLS_VARIANTS variants at coverage 14): phase on
+    the card (rows 1-2, launches counted), compare against the simulated
+    haplotypes (switch-error rate under phase-cli's 5 %), stats (blocks,
+    N50), haplotag (HP on at least 0.9 of the reads over two or more
+    heterozygous sites, and agreeing with each read's haplotype of origin in
+    at least 0.95 of the tagged reads, within each phase set up to a swap),
+    split by haplotag's list (the reads add up), unphase (the input's
+    genotypes), phase --algorithm heuristic (the 5 % gate) and --algorithm
+    hapchat on one read-connected block of TOOLS_BLOCK_VARIANTS (the gate
+    too); then the host solvers against their Python paths
+    (python_host_paths): hapchat's and heuristic's VCFs on the block's files,
+    and compare's switch/flip distance (SwitchFlipCalculator) of phase's
+    calls, read as one block, against the truth.  Each tool's wall time is
+    printed."""
+    from whatshap_torch.cli import phase as phase_cli
+    from whatshap_torch.cli.compare import run_compare
+    from whatshap_torch.cli.haplotag import run_haplotag
+    from whatshap_torch.cli.split import run_split
+    from whatshap_torch.cli.stats import run_stats
+    from whatshap_torch.cli.unphase import run_unphase
+    from whatshap_torch.io.sam import AlignmentFile
+    from whatshap_torch.polyphase.solver import SwitchFlipCalculator
+
+    t0 = time.perf_counter()
+    out = f"{tmp}/tools"
+    data = write_synth(out, TOOLS_VARIANTS, 14, seed=47)
+    block = write_synth(f"{tmp}/tools-block", TOOLS_BLOCK_VARIANTS, 14, seed=53, break_every=TOOLS_BLOCK_VARIANTS)
+    print(f"tools: files written in {time.perf_counter() - t0:.1f} s", flush=True)
+    walls = {}
+
+    def timed(name, fn):  # what a tool prints (compare's report) is not shown
+        clear_bam_pool_cache()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            fn()
+        walls[name] = time.perf_counter() - t0
+
+    def phase(files, algorithm, output):
+        phase_cli.run_whatshap(phase_input_files=[files["bam"]], variant_file=files["vcf"],
+                               reference=files["fasta"], write_command_line_header=False, device="cuda",
+                               algorithm=algorithm, output=output)
+
+    def gate(label, path, files):
+        rate, pairs = switch_error_rates(_text(path), files)["sample"]
+        print(f"tools: {label}: switch-error rate against the simulated haplotypes {rate} over {pairs} pairs",
+              flush=True)
+        _require(rate is not None and rate < 0.05 and pairs > 0.9 * files["n_vars"], f"tools: {label} recovers "
+                 "the haplotypes")
+
+    phased = f"{out}/phased.vcf.gz"  # bgzipped, and indexed below: haplotag fetches by region
+    torch.cuda.synchronize()
+    reset_launches()
+    timed("phase", lambda: phase(data, "whatshap", phased))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    write_minimal_tbi(phased, ["chr1"])
+    print(f"tools: phase launches {launches}", flush=True)
+    _require(launches["wmec_forward_t1"] > 0 and launches["wmec_backtrace_t1"] > 0,
+             "tools: phase ran rows 1-2 on the card")
+    gate("phase", phased, data)
+
+    truth = f"{out}/truth.vcf"
+    write_truth_vcf(data, truth)
+    timed("compare", lambda: run_compare(vcf=[truth, phased], ploidy=2, names="truth,phased",
+                                         tsv_pairwise=f"{out}/compare.tsv"))
+    (row,) = _tsv_rows(f"{out}/compare.tsv")
+    rate = float(row["all_switch_rate"])
+    print(f"tools: compare against the truth: switch-error rate {rate} ({row['all_switches']} switches in "
+          f"{row['all_assessed_pairs']} pairs), blockwise Hamming rate {row['blockwise_hamming_rate']}", flush=True)
+    _require(rate < 0.05 and int(row["all_assessed_pairs"]) > 0, "tools: compare's switch-error rate under 5 %")
+
+    timed("stats", lambda: run_stats(vcf=phased, tsv=f"{out}/stats.tsv"))
+    (row,) = _tsv_rows(f"{out}/stats.tsv")
+    print(f"tools: stats: {row['phased']} of {row['heterozygous_variants']} heterozygous variants phased in "
+          f"{row['blocks']} blocks, block N50 {row['block_n50']} bp", flush=True)
+    _require(int(row["blocks"]) > 0 and int(row["phased"]) > 0.9 * data["n_vars"], "tools: stats counts the blocks")
+
+    tagged, listing = f"{out}/tagged.bam", f"{out}/haplotags.tsv"
+    timed("haplotag", lambda: run_haplotag(variant_file=phased, alignment_file=data["bam"], output=tagged,
+                                           haplotag_list=listing))
+    positions = (np.arange(data["n_vars"]) + 1) * data["spacing"]  # 0-based, every one heterozygous
+    over_two = tagged_over_two = 0
+    by_block = {}
+    for seg in AlignmentFile(tagged):
+        n_sites = np.searchsorted(positions, seg.reference_end) - np.searchsorted(positions, seg.reference_start)
+        has_hp = seg.has_tag("HP")
+        over_two += n_sites >= 2
+        tagged_over_two += n_sites >= 2 and has_hp
+        if has_hp:
+            agree = seg.get_tag("HP") - 1 == data["origin"][int(seg.query_name[4:])]
+            counts = by_block.setdefault(seg.get_tag("PS"), [0, 0])
+            counts[0] += int(agree)
+            counts[1] += 1
+    n_tagged = sum(n for _a, n in by_block.values())
+    agreement = sum(max(a, n - a) for a, n in by_block.values()) / max(n_tagged, 1)
+    share = tagged_over_two / max(over_two, 1)
+    print(f"tools: haplotag: {tagged_over_two} of {over_two} reads over two or more heterozygous sites tagged "
+          f"({share:.4f}); HP agrees with the read's haplotype of origin in {agreement:.4f} of {n_tagged} tagged "
+          f"reads ({len(by_block)} phase sets, each up to a swap)", flush=True)
+    _require(share >= 0.9 and agreement >= 0.95, "tools: haplotag tags the reads by their haplotype")
+
+    parts = [f"{out}/{name}.bam" for name in ("h1", "h2", "untagged")]
+    timed("split", lambda: run_split(reads_file=data["bam"], list_file=listing, output_h1=parts[0],
+                                     output_h2=parts[1], output_untagged=parts[2]))
+    split_counts = [sum(1 for _seg in AlignmentFile(p)) for p in parts]
+    listed = [row["haplotype"] for row in _tsv_rows(listing)]
+    print(f"tools: split: H1 {split_counts[0]}, H2 {split_counts[1]}, untagged {split_counts[2]} of "
+          f"{data['n_reads']} reads", flush=True)
+    _require(sum(split_counts) == data["n_reads"] and split_counts[:2] == [listed.count("H1"), listed.count("H2")],
+             "tools: split's reads add up to the BAM's and to haplotag's list")
+
+    timed("unphase", lambda: run_unphase(phased, f"{out}/unphased.vcf"))
+    same = [gt for _k, gt, _q, _l in vcf_calls(_text(data["vcf"]))] == [
+        gt.replace("|", "/") for _k, gt, _q, _l in vcf_calls(_text(f"{out}/unphased.vcf"))]
+    print(f"tools: unphase: genotypes equal the input's: {same}", flush=True)
+    _require(same, "tools: unphase gives back the input's genotypes")
+
+    timed("heuristic", lambda: phase(data, "heuristic", f"{out}/heuristic.vcf"))
+    gate("phase --algorithm heuristic", f"{out}/heuristic.vcf", data)
+    block_out = f"{tmp}/tools-block"
+    timed("hapchat", lambda: phase(block, "hapchat", f"{block_out}/hapchat.vcf"))
+    gate(f"phase --algorithm hapchat (one block of {TOOLS_BLOCK_VARIANTS} variants)", f"{block_out}/hapchat.vcf",
+         block)
+    print("tools: wall (s): " + " ".join(f"{k} {v:.3f}" for k, v in walls.items()) + f" ({host_context()})",
+          flush=True)
+
+    # the host solvers against their Python paths: hapchat and heuristic on
+    # the block's files; the switch/flip distance on phase's calls, read as
+    # one block (a switch at most block boundaries), against the truth
+    truth_positions, truth_haps = _haplotype_strings(truth)
+    at, phased_haps = _haplotype_strings(phased)
+    index = {p: i for i, p in enumerate(truth_positions)}
+    truth_haps = ["".join(h[index[p]] for p in at) for h in truth_haps]
+    for label, fn in (
+        ("hapchat", lambda tag: phase(block, "hapchat", f"{block_out}/hapchat-{tag}.vcf")),
+        ("heuristic", lambda tag: phase(block, "heuristic", f"{block_out}/heuristic-{tag}.vcf")),
+        # compare's switch/flip distance (its per-column switches, flips and
+        # permutations too)
+        ("switchflip", lambda tag: SwitchFlipCalculator(2, 1, 1).compute_switch_flips_poly(phased_haps, truth_haps)),
+    ):
+        t0 = time.perf_counter()
+        helpers = fn("helpers")
+        t_helpers = time.perf_counter() - t0
+        with python_host_paths():
+            t0 = time.perf_counter()
+            python = fn("python")
+            t_python = time.perf_counter() - t0
+        if label == "switchflip":
+            what = f"{helpers[0]} switches and {helpers[1]} flips over phase's {len(at)} calls read as one block"
+        else:
+            helpers, python = _text(f"{block_out}/{label}-helpers.vcf"), _text(f"{block_out}/{label}-python.vcf")
+            what = f"VCF of one block of {TOOLS_BLOCK_VARIANTS} variants"
+        print(f"host: {label}: {what}, {t_helpers:.3f} s, the Python path {t_python:.3f} s; equal: "
+              f"{helpers == python} ({host_context()})", flush=True)
+        _require(helpers == python, f"host: {label} through its library equals its Python path")
 
 
 def cli_instance(data, label, expect, plain=True, reads=None, **kwargs):
@@ -3631,6 +3873,12 @@ def main() -> int:
         print(f"phase-cli-trio: trio written in {time.perf_counter() - t0:.1f} s", flush=True)
         cli_trio_launches, cli_trio_packed, _w, _r = cli_instance(trio, "phase-cli-trio", pedigree_kernels,
                                                                   ped=trio["ped"])
+        # tools: phase on the card, then compare, stats, haplotag, split,
+        # unphase and the host solvers (heuristic, hapchat) on its files
+        t0 = time.perf_counter()
+        tools_phase(tmp)
+        print(f"phase 11b (tools) took {time.perf_counter() - t0:.1f} s, done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # phase-cli-ds23: --internal-downsampling 23 on a coverage-30
         # chromosome, the single-sample main path past the cluster kernel
         torch.cuda.empty_cache()

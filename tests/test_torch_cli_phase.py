@@ -10,8 +10,10 @@ reference on its default routing, plus two generated chromosomes
 (tools/make_synth_chrom.py, as tests/test_cli_mesh.py builds them), with the
 reference on its default route too: on both its batched route (the route
 the port mirrors) writes the same bytes, but takes minutes on a CPU shared
-with other test workers.  BAMs are regenerated from the committed SAMs into
-a temporary directory; nothing under tests/data is written.
+with other test workers.  The host solvers' cases (`--algorithm hapchat`
+and `heuristic`) are the reference's `algorithm` fixture cases and its
+golden phased_hapchat.vcf.  BAMs are regenerated from the committed SAMs
+into a temporary directory; nothing under tests/data is written.
 """
 
 import os
@@ -222,19 +224,82 @@ def test_phase_synth_byte_identical(name, synth, tmp_path):
     assert out.read_bytes().count(b"|") > 100  # most of the chromosome is phased
 
 
+# (id, arguments) of the host solvers' cases: tests/test_run_phase.py's
+# `algorithm` fixture cases on the pacbio, CRAM and one-read fixtures, a
+# sample without read groups, three samples and the pedigree cases
+HOST_CASES = [
+    ("with_reference", dict(PACBIO)),
+    ("with_reference_and_indels", dict(PACBIO, only_snvs=False)),
+    ("with_read_merging", dict(PACBIO, read_merging=True)),
+    ("one_variant", dict(phase_input_files=[f"{DATA}/oneread.bam"], variant_file=f"{DATA}/onevariant.vcf")),
+    ("one_variant_cram", dict(
+        phase_input_files=[f"{DATA}/oneread.cram"], reference=f"{DATA}/oneread-ref.fasta",
+        variant_file=f"{DATA}/onevariant.vcf",
+    )),
+    ("bam_without_readgroup", dict(
+        phase_input_files=[f"{DATA}/no-readgroup.bam"], variant_file=f"{DATA}/onevariant.vcf",
+        ignore_read_groups=True,
+    )),
+    ("three_individuals", dict(
+        phase_input_files=["@trio.pacbio"], variant_file=TRIO, read_list_filename=True,
+    )),
+]
+
+
 @pytest.mark.parametrize("algorithm", ["hapchat", "heuristic"])
-def test_host_only_algorithms_raise(algorithm, tmp_path):
-    out = tmp_path / "out.vcf"
-    with pytest.raises(CommandLineError, match="Queue 1 item 11"):
-        run_whatshap(
-            phase_input_files=[f"{DATA}/pacbio/pacbio.bam"],
-            variant_file=f"{DATA}/pacbio/variants.vcf",
-            reference=f"{DATA}/pacbio/reference.fasta",
-            output=str(out),
-            algorithm=algorithm,
-            device="cpu",
-        )
-    assert not out.exists()
+@pytest.mark.parametrize("kwargs", [c[1] for c in HOST_CASES], ids=[c[0] for c in HOST_CASES])
+def test_host_algorithms_byte_identical(algorithm, kwargs, bams, tmp_path):
+    """`--algorithm hapchat` and `heuristic` (the host solvers,
+    csrc/host/hapchatlib.cpp and heurlib.cpp) write the reference's bytes."""
+    inputs = [bams[p[1:]] if p.startswith("@") else p for p in kwargs["phase_input_files"]]
+    ref, port = _phase_both(tmp_path, **dict(kwargs, phase_input_files=inputs, algorithm=algorithm))
+    assert ref.keys() == port.keys()
+    for name in ref:
+        assert port[name] == ref[name], f"{name} differs from the reference's"
+    if kwargs is HOST_CASES[0][1] and algorithm == "hapchat":
+        assert ref["out.vcf"] == (REPO / DATA / "pacbio" / "phased_hapchat.vcf").read_bytes()
+
+
+def test_heuristic_with_ped_byte_identical(tmp_path):
+    """heuristic with --ped on ped_samples.vcf: pedigree.ped names none of
+    its samples (its relationships are set aside, as in the reference), so
+    each sample is phased on its own, and the VCF is the reference's."""
+    ref, port = _phase_both(
+        tmp_path, phase_input_files=[f"{DATA}/ped_samples.bam"], variant_file=f"{DATA}/ped_samples.vcf",
+        ped=f"{DATA}/pedigree.ped", algorithm="heuristic", read_list_filename=True,
+    )
+    assert port == ref
+    assert ref["out.vcf"].count(b"|") > 0
+
+
+def test_heuristic_on_a_trio_fails_as_the_reference(tmp_path):
+    """heuristic on a real trio (ped_samples with trio.ped) stops with the
+    reference's own AssertionError: PedMecHeuristic returns the superreads
+    in its samples' numeric order, which the pipeline pairs with the family
+    order (whatshap_tpu/cli/phase.py process_chromosome).  The port is a
+    copy and stops the same way."""
+    args = dict(phase_input_files=[f"{DATA}/ped_samples.bam"], variant_file=f"{DATA}/ped_samples.vcf",
+                ped=PED, algorithm="heuristic", write_command_line_header=False)
+    errors = []
+    for run, extra in ((ref_run_whatshap, {}), (run_whatshap, {"device": "cpu"})):
+        with pytest.raises(AssertionError) as e:
+            run(**args, **extra, output=str(tmp_path / "out.vcf"))
+        errors.append(str(e.value))
+    assert errors[1] == errors[0]
+
+
+def test_hapchat_refuses_ped(tmp_path):
+    """hapchat has no pedigree support: both refuse --ped with the same
+    message before they open the output."""
+    messages = []
+    for side, run, extra in (("ref", ref_run_whatshap, {}), ("port", run_whatshap, {"device": "cpu"})):
+        out = tmp_path / f"{side}.vcf"
+        with pytest.raises(Exception) as e:
+            run(phase_input_files=[f"{DATA}/ped_samples.bam"], variant_file=f"{DATA}/ped_samples.vcf",
+                ped=PED, output=str(out), algorithm="hapchat", **extra)
+        messages.append((type(e.value).__name__, str(e.value)))
+        assert not out.exists()
+    assert messages[1] == messages[0] == ("CommandLineError", "The hapchat algorithm cannot do pedigree phasing")
 
 
 def test_cli_without_cuda_writes_nothing(tmp_path):

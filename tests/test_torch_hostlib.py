@@ -5,9 +5,12 @@ Python paths they replace, on the CPU:
 
 - each helper three ways: the port's C++ route, the port's Python path (the
   hostlib attributes set to None: the code the port ran before it had the
-  helpers) and the reference's Python path (whatshap_tpu with its native
-  handles set to None, so that the oracle does not depend on the
-  reference's own build);
+  helpers, or that it would run without them) and the reference's Python
+  path (whatshap_tpu with its native handles set to None, so that the
+  oracle does not depend on the reference's own build);
+- the host solvers the same way on random instances: HapChatCore
+  (hapchatlib), PedMecHeuristic on single samples and trios (heurlib) and
+  SwitchFlipCalculator (switchfliplib);
 - the BAM pool decode of every BAM under tests/data against the Python
   record loop, the realignment pool at one thread and at more;
 - the build: nothing at import, one whole library per source after six
@@ -27,6 +30,7 @@ import pytest
 sys.path.insert(0, str(Path(__file__).parent.parent / "tools"))
 
 import whatshap_tpu.align as ref_align  # noqa: E402
+import whatshap_tpu.core as ref_core  # noqa: E402
 import whatshap_tpu.native as ref_native  # noqa: E402
 import whatshap_tpu.priorityqueue as ref_pq  # noqa: E402
 import whatshap_tpu.readselect as ref_readselect  # noqa: E402
@@ -37,6 +41,9 @@ from whatshap_tpu.core import NumericSampleIds as RefNumericSampleIds  # noqa: E
 from whatshap_tpu.core import Read as RefRead  # noqa: E402
 from whatshap_tpu.core import ReadSet as RefReadSet  # noqa: E402
 from whatshap_tpu.io.sam import AlignmentFile as RefAlignmentFile  # noqa: E402
+from whatshap_tpu.polyphase.switchflip import SwitchFlipCalculator as RefSwitchFlipCalculator  # noqa: E402
+from whatshap_tpu.solver.hapchat import HapChatCore as RefHapChatCore  # noqa: E402
+from whatshap_tpu.solver.heuristic import PedMecHeuristic as RefPedMecHeuristic  # noqa: E402
 from whatshap_tpu.vcf import BiallelicVcfVariant as RefBiallelic  # noqa: E402
 from whatshap_tpu.vcf import VcfReader as RefVcfReader  # noqa: E402
 
@@ -45,8 +52,12 @@ from whatshap_torch import align, hostlib, priorityqueue, readselect, variants  
 from whatshap_torch.cli import PhasedInputReader  # noqa: E402
 from whatshap_torch.cli.phase import run_whatshap  # noqa: E402
 from whatshap_torch.core import NumericSampleIds, Read, ReadSet  # noqa: E402
+import whatshap_torch.core as core  # noqa: E402
 from whatshap_torch.io.sam import AlignmentFile  # noqa: E402
 from whatshap_torch.ops import _build  # noqa: E402
+from whatshap_torch.polyphase.switchflip import SwitchFlipCalculator  # noqa: E402
+from whatshap_torch.solver.hapchat import HapChatCore  # noqa: E402
+from whatshap_torch.solver.heuristic import PedMecHeuristic  # noqa: E402
 from whatshap_torch.vcf import BiallelicVcfVariant, VcfReader  # noqa: E402
 
 REPO = Path(__file__).parent.parent
@@ -81,7 +92,8 @@ def _python_routes(monkeypatch, fn):
             m.setattr(hostlib, name, None, raising=False)
         port = fn("port")
     with monkeypatch.context() as m:
-        for name in ("lib", "bamlib", "cigarlib", "readselectlib", "pqext"):
+        for name in ("lib", "bamlib", "cigarlib", "readselectlib", "pqext",
+                     "hapchatlib", "heurlib", "switchfliplib"):
             m.setattr(ref_native, name, None)
         m.setattr(ref_align, "_native", None)
         m.setattr(ref_readselect, "PriorityQueue", ref_pq._PriorityQueuePython)
@@ -495,6 +507,125 @@ def test_extension_heap_matches_python_heap(seed):
 
 
 # ---------------------------------------------------------------------------
+# the host solvers: HapCHAT, the PedMEC heuristic, the switch/flip distance
+
+
+def _solver_readsets(rng, n_pos, n_reads, n_samples=1):
+    """`n_reads` random reads (1-n_pos consecutive sites, each kept nine
+    times in ten, a draw that keeps none drawn again) as a port ReadSet and
+    a reference ReadSet, sorted."""
+    positions = sorted(rng.sample(range(10, 1200), n_pos))
+    sets = (core.ReadSet(), ref_core.ReadSet())
+    i = 0
+    while len(sets[0]) < n_reads:
+        i += 1
+        start = rng.randint(0, n_pos - 1)
+        length = rng.randint(1, n_pos - start)
+        sample = rng.randint(0, n_samples - 1)
+        variants = [(positions[p], rng.randint(0, 1), rng.choice([5, 10, 30]))
+                    for p in range(start, start + length) if rng.random() < 0.9]
+        if not variants:
+            continue
+        for rs, mod in zip(sets, (core, ref_core)):
+            read = mod.Read(f"r{i}", 50, 0, sample)
+            for position, allele, quality in variants:
+                read.add_variant(position, allele, quality)
+            rs.add(read)
+    for rs in sets:
+        rs.sort()
+    return sets, positions
+
+
+@pytest.mark.parametrize("seed", range(30))
+def test_hapchat_matches_python(seed, monkeypatch):
+    """HapChatCore through hapchatlib: the superreads and the optimal cost of
+    the port's and the reference's Python DPs."""
+    import random
+
+    rng = random.Random(5000 + seed)
+    (port_rs, ref_rs), _ = _solver_readsets(rng, rng.randint(2, 16), rng.randint(2, 16))
+
+    def solve(side):
+        hc = HapChatCore(port_rs) if side != "ref" else RefHapChatCore(ref_rs)
+        superreads, _ = hc.get_super_reads()
+        return [[(v.position, v.allele, v.quality) for v in superreads[0][k]] for k in (0, 1)], \
+            hc.get_optimal_cost(), hc.get_optimal_partitioning()
+
+    native = solve("native")
+    port, ref = _python_routes(monkeypatch, solve)
+    assert native == port == ref
+    assert len(native[0][0]) > 0
+
+
+def _heuristic_instance(seed):
+    import random
+
+    rng = random.Random(4000 + seed)
+    trio = rng.random() < 0.5
+    n_ind, n_pos = (3 if trio else 1), rng.randint(2, 10)
+    (port_rs, ref_rs), positions = _solver_readsets(rng, n_pos, rng.randint(2, 10), n_ind)
+    genotypes = [[rng.randint(0, 2) for _ in range(n_pos)] for _ in range(n_ind)]
+    recomb = [rng.choice([1, 2, 5]) for _ in range(n_pos)]
+    distrust, row_limit = rng.random() < 0.3, rng.choice([16, 256])
+
+    def solver(mod, cls, rs):
+        pedigree = mod.Pedigree(mod.NumericSampleIds())
+        for i in range(n_ind):
+            pedigree.add_individual(f"ind{i}", [mod.Genotype.from_index(g, 2) for g in genotypes[i]], None)
+        if trio:
+            pedigree.add_relationship("ind0", "ind1", "ind2")
+        return cls(rs, recomb, pedigree, row_limit, distrust_genotypes=distrust, positions=positions,
+                   allow_mutations=True, verbosity=0)
+
+    return lambda: solver(core, PedMecHeuristic, port_rs), lambda: solver(ref_core, RefPedMecHeuristic, ref_rs)
+
+
+@pytest.mark.parametrize("seed", range(30))
+def test_heuristic_matches_python(seed, monkeypatch):
+    """PedMecHeuristic through heurlib, single samples and trios: the
+    bipartition, transmissions, haplotypes, mutations and superreads of the
+    port's and the reference's Python engines."""
+    port_solver, ref_solver = _heuristic_instance(seed)
+
+    def solve(side):
+        h = ref_solver() if side == "ref" else port_solver()
+        superreads, trans = h.get_super_reads()
+        return ([bool(x) for x in h.optBipart], trans, h.optHaps, [sorted(m) for m in h.get_mutations()],
+                h.get_optimal_partitioning(), h.get_optimal_cost(),
+                [[(v.position, v.allele) for v in rs[k]] for rs in superreads for k in (0, 1)])
+
+    native = solve("native")
+    port, ref = _python_routes(monkeypatch, solve)
+    assert native == port == ref
+
+
+def _phasings(rng, ploidy, n):
+    return ["".join(str(rng.randint(0, 1)) for _ in range(n)) for _ in range(ploidy)]
+
+
+@pytest.mark.parametrize("seed", range(20))
+@pytest.mark.parametrize("ploidy", [2, 3, 4])
+def test_switchflip_matches_python(seed, ploidy, monkeypatch):
+    """SwitchFlipCalculator through switchfliplib: the totals, the switches
+    and flips a column and the permutation chain of the port's and the
+    reference's Python DPs, on random phasings."""
+    import random
+
+    rng = random.Random(8700 + seed)
+    n = rng.randint(1, 40)
+    phasing0, phasing1 = _phasings(rng, ploidy, n), _phasings(rng, ploidy, n)
+    costs = (ploidy, rng.choice([1, 2, 0.5]), rng.choice([1, 2, 5]))
+
+    def solve(side):
+        cls = RefSwitchFlipCalculator if side == "ref" else SwitchFlipCalculator
+        return cls(*costs).compute_switch_flips_poly(phasing0, phasing1)
+
+    native = solve("native")
+    port, ref = _python_routes(monkeypatch, solve)
+    assert native == port == ref
+
+
+# ---------------------------------------------------------------------------
 # the build
 
 
@@ -507,6 +638,8 @@ def test_nothing_is_built_at_import(tmp_path):
         "b.BUILD_DIR = pathlib.Path(sys.argv[1])\n"
         "import whatshap_torch.cli.phase, whatshap_torch.cli.genotype, whatshap_torch.hostlib as h\n"
         "import whatshap_torch.io.sam, whatshap_torch.variants, whatshap_torch.readselect\n"
+        "import whatshap_torch.solver.hapchat, whatshap_torch.solver.heuristic, whatshap_torch.cli.compare\n"
+        "import whatshap_torch.cli.haplotag, whatshap_torch.cli.split, whatshap_torch.cli.stats\n"
         "print(sorted(n for n in h.__all__ if n in vars(h)), b.BUILD_DIR.exists())\n"
     )
     out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "build")], cwd=REPO,

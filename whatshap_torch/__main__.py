@@ -2,7 +2,7 @@
 whatshap-torch: read-based phasing of genomic variants on a CUDA GPU
 
 Subcommand launcher (counterpart of whatshap/__main__.py).  Subcommand
-modules live in ``whatshap_torch/cli`` (``phase`` and ``genotype`` so far); their module
+modules live in ``whatshap_torch/cli``; their module
 docstrings double as help text and are read via ``ast`` so that listing
 commands does not pay the import cost of every pipeline.  Each module provides
 ``add_arguments(parser)``, optionally ``validate(args, parser)``, and

@@ -559,9 +559,11 @@ class _Config:
     """Everything run_whatshap was called with, minus the I/O resources."""
 
     max_coverage: int
+    row_limit: int
     distrust_genotypes: bool
     include_homozygous: bool
     genetic_haplotyping: bool
+    algorithm: str
     default_gq: int
     gl_regularizer: Optional[float]
     recombination_list_filename: Optional[str]
@@ -608,7 +610,10 @@ class _PhasingPipeline:
             readset = readset.subset([i for i, read in enumerate(readset) if len(read) >= 2])
             logger.info("Kept %d reads that cover at least two variants each", len(readset))
             merged = self.read_merger.merge(readset)
-            selection = select_reads(merged, max_cov, preferred_source_ids=vcf_source_ids)
+            if cfg.algorithm == "heuristic":
+                selection = merged
+            else:
+                selection = select_reads(merged, max_cov, preferred_source_ids=vcf_source_ids)
         return readset, selection
 
     # -- solver dispatch
@@ -616,16 +621,38 @@ class _PhasingPipeline:
     def _solve(
         self, all_reads, recombination_costs, pedigree, accessible_positions
     ) -> PhasingAlgorithm:
-        # exact wMEC/PedMEC: the column DP in the CUDA kernels of
-        # ops.wmec_cuda on a CUDA device, the plain torch mirror on the CPU
-        return PedigreeDPTable(
-            all_reads,
-            recombination_costs,
-            pedigree,
-            self.config.distrust_genotypes,
-            accessible_positions,
-            device=self.config.device,
-        )
+        cfg = self.config
+        solver: PhasingAlgorithm
+        if cfg.algorithm == "hapchat":
+            from ..solver.hapchat import HapChatCore
+
+            solver = HapChatCore(all_reads)
+        elif cfg.algorithm == "heuristic":
+            from ..solver.heuristic import PedMecHeuristic
+
+            all_reads.sort()
+            solver = PedMecHeuristic(
+                all_reads,
+                recombination_costs,
+                pedigree,
+                cfg.row_limit,
+                distrust_genotypes=cfg.distrust_genotypes,
+                positions=accessible_positions,
+                allow_mutations=True,
+                verbosity=0,
+            )
+        else:
+            # exact wMEC/PedMEC: the column DP in the CUDA kernels of
+            # ops.wmec_cuda on a CUDA device, the plain torch mirror on the CPU
+            solver = PedigreeDPTable(
+                all_reads,
+                recombination_costs,
+                pedigree,
+                cfg.distrust_genotypes,
+                accessible_positions,
+                device=cfg.device,
+            )
+        return solver
 
     # -- per-family phasing
 
@@ -900,18 +927,20 @@ def run_whatshap(
     device="cuda",
 ) -> None:
     """Run the whole phasing pipeline.  Parameter semantics match the
-    reference's run_whatshap (whatshap/cli/phase.py:289).  The exact solver
-    runs on `device`: a CUDA device unless the caller passes "cpu" (see
-    ops.wmec.resolve_device, which raises before any output is opened when
-    no CUDA device is available; so does a PED family past the card's
-    kernels, refuse_families_past_envelope)."""
-    if algorithm in ("hapchat", "heuristic"):
-        raise CommandLineError(
-            f"--algorithm {algorithm} is not ported to whatshap_torch yet: its host "
-            "solver comes with the host-only subcommands (ROADMAP Queue 1 item 11)"
-        )
+    reference's run_whatshap (whatshap/cli/phase.py:289).  `algorithm`
+    picks the solver: "whatshap" the exact wMEC/PedMEC DP, which runs on
+    `device`, a CUDA device unless the caller passes "cpu"; "hapchat"
+    (HapChatCore, single samples only) and "heuristic" (PedMecHeuristic,
+    which takes every merged read and skips read selection) run on the host,
+    in csrc/host/hapchatlib.cpp and heurlib.cpp.  The device is resolved
+    first for every algorithm (ops.wmec.resolve_device raises before any
+    output is opened when no CUDA device is available; so does a PED family
+    past the card's kernels under "whatshap",
+    refuse_families_past_envelope)."""
+    if algorithm == "hapchat" and ped is not None:
+        raise CommandLineError("The hapchat algorithm cannot do pedigree phasing")
     device = resolve_device(device)
-    if ped is not None:
+    if ped is not None and algorithm == "whatshap":
         refuse_families_past_envelope(
             PedReader(ped).samples() if use_ped_samples else samples or vcf_samples(variant_file),
             ped,
@@ -1014,9 +1043,11 @@ def run_whatshap(
         pipeline = _PhasingPipeline(
             _Config(
                 max_coverage=max_coverage,
+                row_limit=row_limit,
                 distrust_genotypes=distrust_genotypes,
                 include_homozygous=include_homozygous,
                 genetic_haplotyping=genetic_haplotyping,
+                algorithm=algorithm,
                 default_gq=default_gq,
                 gl_regularizer=gl_regularizer,
                 recombination_list_filename=recombination_list_filename,

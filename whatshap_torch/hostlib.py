@@ -1,7 +1,6 @@
 """
-The host helpers of the read path, loaded with ctypes: the C++ sources in
-csrc/host/, built with g++ at first use by ops/_build.build_host into
-build/whatshap_torch/.
+The host helpers, loaded with ctypes: the C++ sources in csrc/host/, built
+with g++ at first use by ops/_build.build_host into build/whatshap_torch/.
 
     alignlib       banded and affine-gap edit distance (align.py)
     bamlib         whole-file BAM decode into one record pool (io/sam.py)
@@ -9,6 +8,12 @@ build/whatshap_torch/.
                    threaded realignment pool (variants.py)
     readselectlib  read selection in one call (readselect.py)
     pqext          the selection heap, a CPython extension (priorityqueue.py)
+    hapchatlib     the HapCHAT column DP of phase --algorithm hapchat
+                   (solver/hapchat.py)
+    heurlib        the PedMEC beam search of phase --algorithm heuristic
+                   (solver/heuristic.py)
+    switchfliplib  the switch/flip distance of compare
+                   (polyphase/switchflip.py)
 
 Each is an attribute of this module, built and loaded the first time it is
 read (nothing is built at import); a build or load that fails raises
@@ -24,7 +29,10 @@ import threading
 
 from .ops import _build
 
-__all__ = ["alignlib", "bamlib", "cigarlib", "readselectlib", "pqext"]
+__all__ = [
+    "alignlib", "bamlib", "cigarlib", "readselectlib", "pqext",
+    "hapchatlib", "heurlib", "switchfliplib",
+]
 
 _LOCK = threading.Lock()
 
@@ -327,6 +335,135 @@ class _ReadSelectLib:
         return out[:n_reads]
 
 
+class _HeurLib:
+    def __init__(self, cdll):
+        c = self._lib = cdll
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        f64p = ctypes.POINTER(ctypes.c_double)
+        c.wh_pedmec_heuristic.restype = ctypes.c_int32
+        c.wh_pedmec_heuristic.argtypes = [
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            f64p, f64p, i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p, f64p,
+            ctypes.POINTER(ctypes.c_uint8), i32p, i32p, i32p, i32p, i32p,
+        ]
+
+    def solve(
+        self, m, n, num_samples, trios, tm_bits, row_limit, distrust,
+        recomb_cost, mutation_cost, genotypes_flat,
+        read_sample, read_first, read_last, var_off, var_pos, var_allele, var_qual,
+    ):
+        """Returns (bipart list, trans list, haps[sample][hap][col],
+        mutations[sample] list of (hap, col))."""
+        def i32(xs):
+            return (ctypes.c_int32 * max(len(xs), 1))(*xs)
+
+        def f64(xs):
+            return (ctypes.c_double * max(len(xs), 1))(*xs)
+
+        out_bipart = (ctypes.c_uint8 * max(m, 1))()
+        out_trans = (ctypes.c_int32 * max(n, 1))()
+        out_haps = (ctypes.c_int32 * max(num_samples * 2 * n, 1))()
+        cap = max(2 * n * num_samples, 1)
+        out_ms = (ctypes.c_int32 * cap)()
+        out_mh = (ctypes.c_int32 * cap)()
+        out_mp = (ctypes.c_int32 * cap)()
+        trios_flat = [x for t in trios for x in t]
+        nm = self._lib.wh_pedmec_heuristic(
+            m, n, num_samples, len(trios), tm_bits, row_limit, int(distrust),
+            f64(recomb_cost), f64(mutation_cost), i32(trios_flat), i32(genotypes_flat),
+            i32(read_sample), i32(read_first), i32(read_last),
+            i32(var_off), i32(var_pos), i32(var_allele), f64(var_qual),
+            out_bipart, out_trans, out_haps, out_ms, out_mh, out_mp,
+        )
+        if nm < 0:
+            return None
+        bipart = [bool(out_bipart[i]) for i in range(m)]
+        trans = [int(out_trans[p]) for p in range(n)]
+        haps = [
+            [[int(out_haps[(s * 2 + h) * n + p]) for p in range(n)] for h in range(2)]
+            for s in range(num_samples)
+        ]
+        mutations = [[] for _ in range(num_samples)]
+        for i in range(nm):
+            mutations[out_ms[i]].append((int(out_mh[i]), int(out_mp[i])))
+        return bipart, trans, haps, mutations
+
+
+class _HapchatLib:
+    def __init__(self, cdll):
+        c = self._lib = cdll
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        c.wh_hapchat_solve.restype = ctypes.c_int32
+        c.wh_hapchat_solve.argtypes = [
+            ctypes.c_int32, ctypes.c_int32,
+            i32p, i32p, i32p, i32p,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_double),
+        ]
+
+    def solve(self, n_reads, n_cols, var_off, var_pos, var_allele, var_qual):
+        """Returns (hap1 list, hap2 list, optimal cost) or None."""
+        def i32(xs):
+            return (ctypes.c_int32 * max(len(xs), 1))(*xs)
+
+        h1 = (ctypes.c_uint8 * max(n_cols, 1))()
+        h2 = (ctypes.c_uint8 * max(n_cols, 1))()
+        cost = ctypes.c_double()
+        rc = self._lib.wh_hapchat_solve(
+            n_reads, n_cols, i32(var_off), i32(var_pos), i32(var_allele),
+            i32(var_qual), h1, h2, ctypes.byref(cost),
+        )
+        if rc != 0:
+            return None
+        return (
+            [bool(h1[c]) for c in range(n_cols)],
+            [bool(h2[c]) for c in range(n_cols)],
+            cost.value,
+        )
+
+
+class _SwitchFlipLib:
+    def __init__(self, cdll):
+        c = self._lib = cdll
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        f64p = ctypes.POINTER(ctypes.c_double)
+        c.wh_switchflip.restype = ctypes.c_int32
+        c.wh_switchflip.argtypes = [
+            ctypes.c_int32, ctypes.c_double, ctypes.c_double, ctypes.c_int32,
+            i32p, i32p, f64p, f64p, i32p, i32p, i32p, i32p,
+        ]
+
+    def compute(self, ploidy, switch_cost, flip_cost, num_vars, phase0_flat, phase1_flat):
+        """Returns (switches, flips, sw_col, fl_col, perm_col) or None for
+        a DP dead-end (caller returns inf)."""
+        def i32(xs):
+            return (ctypes.c_int32 * max(len(xs), 1))(*xs)
+
+        sw = ctypes.c_double()
+        fl = ctypes.c_double()
+        sw_col = (ctypes.c_int32 * max(num_vars, 1))()
+        fl_off = (ctypes.c_int32 * (num_vars + 1))()
+        fl_haps = (ctypes.c_int32 * max(num_vars * ploidy, 1))()
+        perm_col = (ctypes.c_int32 * max(num_vars * ploidy, 1))()
+        rc = self._lib.wh_switchflip(
+            ploidy, switch_cost, flip_cost, num_vars,
+            i32(phase0_flat), i32(phase1_flat),
+            ctypes.byref(sw), ctypes.byref(fl), sw_col, fl_off, fl_haps, perm_col,
+        )
+        if rc != 0:
+            return None
+        switches_in_column = [int(sw_col[i]) for i in range(num_vars)]
+        flips_in_column = [
+            [int(fl_haps[k]) for k in range(fl_off[i], fl_off[i + 1])]
+            for i in range(num_vars)
+        ]
+        perm_in_column = [
+            [int(perm_col[i * ploidy + j]) for j in range(ploidy)] for i in range(num_vars)
+        ]
+        return sw.value, fl.value, switches_in_column, flips_in_column, perm_in_column
+
+
 def _load_extension(path):
     loader = importlib.machinery.ExtensionFileLoader("_pqext", str(path))
     module = importlib.util.module_from_spec(importlib.util.spec_from_loader("_pqext", loader))
@@ -339,6 +476,9 @@ _WRAPPERS = {
     "bamlib": _BamLib,
     "cigarlib": _CigarLib,
     "readselectlib": _ReadSelectLib,
+    "hapchatlib": _HapchatLib,
+    "heurlib": _HeurLib,
+    "switchfliplib": _SwitchFlipLib,
 }
 
 

@@ -11,10 +11,11 @@ built when this module is imported: the CPU path never needs nvcc.
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/whatshap_torch/<name>-<hash>.so csrc/<name>.cu
 
-The host helpers of the read path (csrc/host/<name>.cpp: the BAM pool, the
+The host helpers (csrc/host/<name>.cpp: of the read path the BAM pool, the
 CIGAR and realignment engine, the edit distances, read selection and the
-selection heap) are built the same way with g++ by build_host(), on the CPU
-route as on the card's:
+selection heap; the HapCHAT and PedMEC-heuristic solvers; the switch/flip
+distance of compare) are built the same way with g++ by build_host(), on the
+CPU route as on the card's:
 
     g++ -O3 -shared -fPIC -std=c++17 [extra flags] -o build/whatshap_torch/<name>-<hash>.so csrc/host/<name>.cpp
 
@@ -46,7 +47,10 @@ NVCC_FLAGS = [
 ]
 
 HOST_CSRC = CSRC / "host"
-HOST_SOURCES = ("alignlib", "bamlib", "cigarlib", "readselectlib", "pqext")
+HOST_SOURCES = (
+    "alignlib", "bamlib", "cigarlib", "readselectlib", "pqext",
+    "hapchatlib", "heurlib", "switchfliplib",
+)
 GXX = "g++"
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
@@ -147,6 +151,9 @@ def _host_command(name: str):
         libs = ["-lz"]  # BGZF inflation
     elif name == "pqext":
         extra = [f"-I{sysconfig.get_paths()['include']}"]  # a CPython extension
+    elif name in ("hapchatlib", "heurlib", "switchfliplib"):
+        # no fused multiply-add: the double sums round as the Python paths' do
+        extra = ["-ffp-contract=off"]
     return [GXX, *GXX_FLAGS, *extra, "-o", str(HOST_CSRC / f"{name}.cpp"), *libs]
 
 
