@@ -11,8 +11,9 @@ Phases, every one of which must pass:
             from whatshap_torch/csrc/host (the BAM pool, the CIGAR and
             realignment engine, the edit distances, read selection and its
             heap, the HapCHAT and PedMEC-heuristic solvers, the switch/flip
-            distance: whatshap_torch.hostlib), one process per source, and
-            the build time is printed.
+            distance, polyphase's cluster editing, haplotype threading and
+            read-pair scoring: whatshap_torch.hostlib), one process per
+            source, and the build time is printed.
 2. kernels  on the card, each kernel is held bit-equal against its plain
             torch version on the same CUDA tensors: the T=1 kernels at K = 7
             to 17 (B = 4 blocks of C = 256 columns: the forward kernel's
@@ -137,14 +138,14 @@ Phases, every one of which must pass:
             past the cluster kernel) with the budget pinned: 16 segments of
             64 (the XLA-route rule) in row 14's two modes, also equal to the
             plain route on the card.
-10. host     the host helpers on phase-cli's files (below), each held to
-            the Python path it replaces (the hostlib attributes set to None,
-            python_host_paths): every record of the BAM pool decode against
-            the Python record loop, the reads of ReadSetReader.read through
-            the realignment pool against the Python realignment, and
-            readselection in one call against the Python selection, each
-            with both times; then the phase CLI on an 8,192-variant file of
-            the generator through the helpers and through the Python paths:
+10. host     the host helpers on an 8,192-variant file of phase-cli's
+            generator (below), each held to the Python path it replaces (the
+            hostlib attributes set to None, python_host_paths): every record
+            of the BAM pool decode against the Python record loop, the reads
+            of ReadSetReader.read through the realignment pool against the
+            Python realignment, and readselection in one call against the
+            Python selection, each with both times; then the phase CLI on
+            that file through the helpers and through the Python paths:
             byte-identical VCFs, both runs' stages printed.
     phase-cli  the phase CLI on files, as a user runs it: a synthetic
             chromosome of 100,000 heterozygous SNVs (spacing 150, coverage
@@ -197,6 +198,25 @@ Phases, every one of which must pass:
             heurlib, switchfliplib) against their Python paths, equal
             outputs.  Each tool's wall time is printed with the card's name,
             power limit and the host's CPU count.
+11c. polyphase  polyploid phasing, which runs on the host alone (no device
+            work, as in the reference): `python -m whatshap_torch polyphase`
+            on the committed fixtures tests/data/polyploid.chr22.42M.12k (42
+            variants at ploidy 4; --threads 1, and --threads 4 through the
+            spawn pool) and tests/data/polyploid.indels, each VCF equal, but
+            for its ##commandline line, to an in-process run at one thread
+            on the Python paths (python_host_paths), the three commands
+            started at once; before them read-pair scoring (scorelib),
+            cluster editing (clusterlib) and threading (threadlib) on a
+            synthetic tetraploid block of 300 variants and 600 reads, each
+            against its Python path (equal results); and polyphase-chrom, a
+            synthetic tetraploid chromosome of 4,000 SNVs at coverage 48
+            (6,400 reads of 30 variants), run_polyphase at one thread
+            through the libraries, its VCF byte-equal to a run on the Python
+            paths in a process of its own, started after the host build
+            (it runs beside phase 2, which times nothing on the host).
+            Each run's wall (polyphase-chrom's with its stages) and each
+            library's time beside its Python path's are printed with the
+            card's name, power limit and the host's CPU count.
 12. genotype-cli  the genotype CLI on files, as a user runs it: the same
             generator's chromosome of 100,000 SNVs at coverage 14 with mixed
             genotypes (its two haplotypes drawn independently: hom ref, het
@@ -406,6 +426,17 @@ HOST_CUT_VARIANTS = 8192
 # of a chromosome) for hapchat and for the host solvers' Python paths
 TOOLS_VARIANTS = 8192
 TOOLS_BLOCK_VARIANTS = 1024
+# the polyphase phase: the committed fixtures (file stem, ploidy, --threads),
+# and the synthetic block the libraries are timed on (variants, reads)
+POLYPHASE_RUNS = (("polyploid.chr22.42M.12k", 4, 1), ("polyploid.chr22.42M.12k", 4, 4),
+                  ("polyploid.indels", 4, 1))
+POLYPHASE_BLOCK = (300, 600)
+# polyphase-chrom: a synthetic tetraploid chromosome (variants, coverage,
+# seed), phased in process on the libraries and, in a process of its own
+# started after the host build, on the Python paths
+POLYPHASE_CHROM = (4000, 48, 61)
+# the child processes this script starts, stopped when it ends
+CHILDREN = []
 SINGLE = (1, ())
 TRIO = (3, ((0, 1, 2),))
 QUARTET = (4, ((0, 1, 2), (0, 1, 3)))
@@ -945,13 +976,19 @@ def compare_walks(device, random_shapes=((1, 7, 3, 1), (1, 15, 12, 1), (1, 17, 2
     that most columns are free.  Returns {kernel: max abs error}."""
     err = {"wmec_backtrace_t1": 0, "wmec_backtrace_t": 0}
     rng = np.random.RandomState(91)
+    # the tables (up to 2^30 entries at T = 4, K = 20) are drawn on the card
+    gen = torch.Generator(device=device).manual_seed(91)
     for T, K, B, M in random_shapes:
         S, C = 1 << K, n_cols
-        die = (rng.randint(0, S, (B, C)) * (rng.rand(B, C) < 0.5)).astype(np.int32)
-        shaped = np.arange(S, dtype=np.int32) ^ (rng.randint(0, S, (B, C, T, S), dtype=np.int32) & die[:, :, None, None])
-        broken = np.where(rng.rand(B, C, T, S) < 0.05, rng.randint(0, S, (B, C, T, S), dtype=np.int32), shaped)
-        whole = rng.randint(0, S, (B, C, T, S), dtype=np.int32)
-        pjmin = torch.from_numpy(rng.randint(0, T, (B, C, T, S), dtype=np.int32)).to(device) if T > 1 else None
+        die = torch.from_numpy((rng.randint(0, S, (B, C)) * (rng.rand(B, C) < 0.5)).astype(np.int32)).to(device)
+
+        def draw(high):
+            return torch.randint(0, high, (B, C, T, S), generator=gen, device=device, dtype=torch.int32)
+
+        shaped = torch.arange(S, dtype=torch.int32, device=device) ^ (draw(S) & die[:, :, None, None])
+        broken = torch.where(torch.rand((B, C, T, S), generator=gen, device=device) < 0.05, draw(S), shaped)
+        whole = draw(S)
+        pjmin = draw(T) if T > 1 else None
         if T == 1:
             start = torch.from_numpy(rng.randint(0, S, B).astype(np.int32)).to(device)
         else:
@@ -959,10 +996,9 @@ def compare_walks(device, random_shapes=((1, 7, 3, 1), (1, 15, 12, 1), (1, 17, 2
                                                rng.randint(0, T, (B, M))], axis=2).astype(np.int32)).to(device)
         e = 0
         for pidx in (broken, whole):
-            pidx = torch.from_numpy(pidx).to(device)
             tables = (pidx[:, :, 0].contiguous(),) if T == 1 else (pidx, pjmin)
-            e = max(e, _walk_pair(T, tables, start, torch.from_numpy(die).to(device)))
-        del shaped, broken, whole
+            e = max(e, _walk_pair(T, tables, start, die))
+        del shaped, broken, whole, pjmin, tables
         name = "wmec_backtrace_t1" if T == 1 else "wmec_backtrace_t"
         print(f"kernels random tables T={T:2d} K={K:2d} B={B} M={M} C={C} "
               f"({B * M} walks): {name} max|err|={e}", flush=True)
@@ -2421,6 +2457,74 @@ def write_synth(out_dir, n_vars, coverage, seed, trio=False, vars_per_read=30, s
             "origin": np.array(origin, dtype=np.int8)}
 
 
+def write_synth_poly(out_dir, n_vars, coverage, seed, ploidy=4, vars_per_read=30, spacing=150, err=0.02):
+    """Write a synthetic polyploid chromosome, as write_synth writes a
+    diploid one: variants.vcf of biallelic SNVs every `spacing` bases, one
+    sample whose `ploidy` haplotypes are drawn at random (no site
+    homozygous), and reads.bam (with a minimal .bai) of all-match reads
+    `vars_per_read` variants long, drawn from one haplotype each and placed
+    at random over the whole chromosome, `coverage` reads over a variant on
+    average, with `err` of the alleles flipped.  Returns the paths and the
+    haplotypes, (ploidy, n_vars)."""
+    from pathlib import Path
+
+    from whatshap_torch.io.sam import AlignedSegment, AlignmentFile, AlignmentHeader, build_minimal_index
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    contig, ref_len = "chr1", (n_vars + 2) * spacing
+    ref_code = rng.integers(0, 4, ref_len)
+    ref = BASES[ref_code]
+    pos = (np.arange(n_vars) + 1) * spacing  # 0-based
+    alt = BASES[(ref_code[pos] + rng.integers(1, 4, n_vars)) % 4]
+    haps = rng.integers(0, 2, (ploidy, n_vars))
+    flat = haps.min(axis=0) == haps.max(axis=0)
+    haps[rng.integers(0, ploidy, n_vars)[flat], np.flatnonzero(flat)] ^= 1
+    gts = ["/".join("1" * int(d) + "0" * (ploidy - int(d)))[::-1] for d in haps.sum(axis=0)]
+    vcf = out / "variants.vcf"
+    with open(vcf, "w") as f:
+        f.write("##fileformat=VCFv4.2\n")
+        f.write(f"##contig=<ID={contig},length={ref_len}>\n")
+        f.write('##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n')
+        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tsample\n")
+        refs, alts = ref[pos].tobytes().decode(), alt.tobytes().decode()
+        f.writelines(f"{contig}\t{p + 1}\t.\t{refs[i]}\t{alts[i]}\t50\tPASS\t.\tGT\t{gts[i]}\n"
+                     for i, p in enumerate(pos.tolist()))
+
+    n_reads = round(coverage * n_vars / vars_per_read)
+    which = rng.integers(0, ploidy, n_reads)
+    v_start = np.sort(rng.integers(0, n_vars - vars_per_read + 1, n_reads))
+    lead = rng.integers(10, spacing - 10, (n_reads, 2))
+    header = AlignmentHeader.from_dict({
+        "HD": {"VN": "1.6", "SO": "coordinate"},
+        "SQ": [{"SN": contig, "LN": ref_len}],
+        "RG": [{"ID": "sample", "SM": "sample"}],
+    })
+    bam = out / "reads.bam"
+    bf = AlignmentFile(str(bam), "wb", header=header)
+    for r in range(n_reads):
+        a, b = int(v_start[r]), int(v_start[r]) + vars_per_read
+        g0, g1 = int(pos[a]) - int(lead[r, 0]), int(pos[b - 1]) + int(lead[r, 1])
+        bases = ref[g0:g1].copy()
+        at = (haps[which[r], a:b] ^ (rng.random(vars_per_read) < err)) == 1
+        bases[pos[a:b][at] - g0] = alt[a:b][at]
+        seg = AlignedSegment(header)
+        seg.query_name = f"read{r}"
+        seg.flag = 0
+        seg.reference_id = 0
+        seg.reference_start = g0
+        seg.mapping_quality = 50
+        seg.cigartuples = [(0, g1 - g0)]
+        seg.query_sequence = bases.tobytes().decode()
+        seg.query_qualities = bytes([30]) * (g1 - g0)
+        seg.tags = {"RG": "sample"}
+        bf.write(seg)
+    bf.close()
+    build_minimal_index(str(bam))
+    return {"bam": str(bam), "vcf": str(vcf), "n_vars": n_vars, "n_reads": n_reads, "haps": haps}
+
+
 def switch_error_rates(vcf_text, data) -> dict:
     """Per sample, the switch-error rate of a phased VCF against the
     simulated haplotypes, counted as bench.py's CLI leg counts it: over
@@ -2537,7 +2641,9 @@ def python_host_paths():
     """The host work on the Python versions of the host helpers: every
     attribute of hostlib None (the Python record loop, realignment and edit
     distances, selection and heap, the HapCHAT and heuristic solvers, the
-    switch/flip distance), restored after the block."""
+    switch/flip distance, polyphase's read-pair scoring, cluster editing and
+    threading), restored after the block.  In this process only: a spawned
+    worker (polyphase --threads > 1) loads the libraries."""
     saved = {name: getattr(hostlib, name) for name in hostlib.__all__}
     for name in saved:
         setattr(hostlib, name, None)
@@ -2575,11 +2681,11 @@ def _read_rows(data):
     return rows, sets
 
 
-def host_phase(data, tmp) -> None:
-    """Phase 10: the host helpers on phase-cli's files against their Python
-    paths (the BAM pool decode, the reads through the realignment pool,
-    readselection), then the phase CLI on a HOST_CUT_VARIANTS-variant file of
-    the generator through both, byte-identical."""
+def host_phase(tmp) -> None:
+    """Phase 10: the host helpers against their Python paths (the BAM pool
+    decode, the reads through the realignment pool, readselection) on a
+    HOST_CUT_VARIANTS-variant file of phase-cli's generator, then the phase
+    CLI on that file through both, byte-identical."""
     from whatshap_torch.cli import phase as phase_cli
     from whatshap_torch.io.sam import AlignmentFile
     from whatshap_torch.readselect import readselection
@@ -2595,6 +2701,7 @@ def host_phase(data, tmp) -> None:
     def select():
         return [sorted(readselection(rs, 15)) for rs in sets]
 
+    data = write_synth(f"{tmp}/host-cut", HOST_CUT_VARIANTS, 14, seed=7)
     clear_bam_pool_cache()
     native, t_native = timed(decode)
     with python_host_paths():
@@ -2619,8 +2726,7 @@ def host_phase(data, tmp) -> None:
           f"{t_native:.3f} s, the Python selection {t_python:.3f} s; equal: True", flush=True)
     del sets
 
-    cut = write_synth(f"{tmp}/host-cut", HOST_CUT_VARIANTS, 14, seed=7)
-    args = dict(phase_input_files=[cut["bam"]], variant_file=cut["vcf"], reference=cut["fasta"],
+    args = dict(phase_input_files=[data["bam"]], variant_file=data["vcf"], reference=data["fasta"],
                 write_command_line_header=False, device="cuda")
     texts = {}
     for route, paths in (("helpers", contextlib.nullcontext()), ("python", python_host_paths())):
@@ -2855,6 +2961,187 @@ def tools_phase(tmp) -> None:
         print(f"host: {label}: {what}, {t_helpers:.3f} s, the Python path {t_python:.3f} s; equal: "
               f"{helpers == python} ({host_context()})", flush=True)
         _require(helpers == python, f"host: {label} through its library equals its Python path")
+
+
+def polyphase_block(n_vars, n_reads, ploidy=4, seed=59, err=0.03):
+    """An AlleleMatrix of one read-connected polyploid block: n_reads reads
+    of 6-30 variants drawn in turn from `ploidy` random haplotypes, with
+    allele errors at rate err."""
+    from whatshap_torch.polyphase.solver import AlleleMatrix
+
+    rng = np.random.default_rng(seed)
+    haps = rng.integers(0, 2, size=(ploidy, n_vars))
+    rs = core.ReadSet()
+    for i in range(n_reads):
+        start = int(rng.integers(0, n_vars - 10))
+        end = min(start + int(rng.integers(6, 30)), n_vars)
+        alleles = haps[i % ploidy, start:end].copy()
+        alleles[rng.random(end - start) < err] ^= 1
+        read = core.Read(f"read{i}", 50, 0, 0)
+        for c, a in zip(range(start, end), alleles.tolist()):
+            read.add_variant(10 * (c + 1), a, 30)
+        rs.add(read)
+    rs.sort()
+    return AlleleMatrix(rs)
+
+
+def _polyphase_chrom(data, output):
+    """run_polyphase on write_synth_poly's files at ploidy 4, one thread;
+    returns its wall seconds and the stage lines of its summary."""
+    import logging
+
+    from whatshap_torch.cli.polyphase import logger, run_polyphase
+
+    stages = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda record: stages.append(record.getMessage())
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        run_polyphase(phase_input_files=[data["bam"]], variant_file=data["vcf"], ploidy=4,
+                      ignore_read_groups=True, output=output, threads=1, write_command_line_header=False)
+        wall = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    spent = [" ".join(m.split()[2:]) for m in stages if m.startswith("Time spent")]
+    return wall, spent
+
+
+def start_polyphase_python(tmp):
+    """Write polyphase-chrom's files under `tmp` and start this script in a
+    process of its own (`--polyphase-python-paths`) that phases them on the
+    Python paths; returns the files and the process."""
+    n_vars, coverage, seed = POLYPHASE_CHROM
+    data = write_synth_poly(f"{tmp}/polychrom", n_vars, coverage, seed)
+    with open(f"{tmp}/polychrom/python.out", "w") as out, open(f"{tmp}/polychrom/python.err", "w") as err:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--polyphase-python-paths", data["vcf"],
+                                 data["bam"], f"{tmp}/polychrom/python.vcf"], stdout=out, stderr=err)
+    CHILDREN.append(proc)
+    return data, proc
+
+
+def polyphase_python_paths(vcf, bam, output) -> int:
+    """The child of start_polyphase_python: phase on the Python paths and
+    print the wall seconds and the stage lines as one JSON object."""
+    with python_host_paths():
+        wall, spent = _polyphase_chrom({"vcf": vcf, "bam": bam}, output)
+    print(json.dumps({"wall": wall, "stages": spent}))
+    return 0
+
+
+def polyphase_phase(tmp, chrom) -> None:
+    """Phase 11c, polyphase (host only): the three libraries against their
+    Python paths on a synthetic block, timed alone; polyphase-chrom (`chrom`,
+    start_polyphase_python's files and process) phased in process on the
+    libraries, its VCF equal to the Python paths' run; then the subcommand as
+    a user runs it on the committed fixtures of POLYPHASE_RUNS, the three
+    processes started at once (each spends most of its wall importing
+    torch and scipy), each VCF equal to an in-process run on the Python
+    paths at one thread (all but the ##commandline line, which names the
+    command).  Prints each library's time beside its Python path's and each
+    run's wall."""
+    import threading
+    from math import ceil
+
+    from whatshap_torch.cli.polyphase import run_polyphase
+    from whatshap_torch.polyphase import haplothreader
+    from whatshap_torch.polyphase import solver as poly_solver
+    from whatshap_torch.polyphase import threading as poly_threading
+
+    n_vars, n_reads = POLYPHASE_BLOCK
+    am = polyphase_block(n_vars, n_reads)
+    ploidy = 4
+    results, secs = {}, {}
+    for route, paths in (("library", contextlib.nullcontext()), ("python", python_host_paths())):
+        with paths:
+            t0 = time.perf_counter()
+            sim = poly_solver.scoreReadset(am, 2, ploidy, 0.07)
+            t1 = time.perf_counter()
+            clustering = poly_solver.ClusterEditingSolver(sim, False).run()
+            t2 = time.perf_counter()
+            depths, _ = poly_threading.get_allele_depths(am, clustering, ploidy)
+            cov_map = poly_threading.select_clusters(depths, ploidy, 10)
+            affine = ceil(poly_threading.compute_readlength_snp_distance_ratio(am))
+            threader = haplothreader.HaploThreader(ploidy, 4 * affine, affine, 10, 0)
+            t3 = time.perf_counter()
+            threads = threader.computePathsBlockwise([0], cov_map, depths)
+            t4 = time.perf_counter()
+        results[route] = (sorted(sim.m.items()), clustering, threads)
+        secs[route] = {"scorelib": t1 - t0, "clusterlib": t2 - t1, "threadlib": t4 - t3}
+    for i, name in enumerate(("scorelib", "clusterlib", "threadlib")):
+        same = results["library"][i] == results["python"][i]
+        print(f"host: {name}: a block of {n_vars} variants and {n_reads} reads at ploidy {ploidy}, "
+              f"{secs['library'][name]:.4f} s, the Python path {secs['python'][name]:.4f} s; equal: {same} "
+              f"({host_context()})", flush=True)
+        _require(same, f"host: {name} equals its Python path")
+    _require(len(results["library"][1]) >= ploidy, "polyphase: the block's reads fall in clusters")
+
+    data, proc = chrom
+    files = os.path.dirname(data["vcf"])
+    library = f"{files}/library.vcf"
+    wall, spent = _polyphase_chrom(data, library)
+    proc.wait(timeout=600)
+    err = _text(f"{files}/python.err")[-2000:]
+    _require(proc.returncode == 0, f"polyphase-chrom on the Python paths exits 0 ({err})")
+    python = json.loads(_text(f"{files}/python.out").strip().splitlines()[-1])
+    records = [line.split("\t") for line in _text(library).splitlines() if not line.startswith("#")]
+    phased = sum("|" in r[9] for r in records)
+    same = _text(library) == _text(f"{files}/python.vcf")
+    n_vars, coverage, _seed = POLYPHASE_CHROM
+    print(f"polyphase: polyphase-chrom, {n_vars} variants, {data['n_reads']} reads at ploidy 4 and coverage "
+          f"{coverage}: {phased} of {len(records)} records phased; the libraries {wall:.3f} s (stages: "
+          f"{'; '.join(spent)}), the Python paths {python['wall']:.3f} s (stages: {'; '.join(python['stages'])}; "
+          f"in a process of its own beside phase 2); equal VCFs: {same} ({host_context()})", flush=True)
+    _require(same and phased > 0, "polyphase: polyphase-chrom through the libraries writes the Python paths' VCF")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(root, "tests", "data")
+    out = f"{tmp}/polyphase"
+    os.makedirs(out)
+    runs, walls = {}, {}
+
+    def wait(label, proc, t0):
+        runs[label] = (proc.communicate(timeout=300), proc.returncode)
+        walls[label] = time.perf_counter() - t0
+
+    watchers = []
+    for stem, ploidy, threads in POLYPHASE_RUNS:
+        label = f"{stem} -t {threads}"
+        args = [sys.executable, "-m", "whatshap_torch", "polyphase", "--ploidy", str(ploidy), "--ignore-read-groups",
+                "--threads", str(threads), "-o", f"{out}/{stem}-t{threads}.vcf", f"{data}/{stem}.vcf",
+                f"{data}/{stem}.bam"]
+        proc = subprocess.Popen(args, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        watchers.append(threading.Thread(target=wait, args=(label, proc, time.perf_counter())))
+        watchers[-1].start()
+    for stem, ploidy, _threads in POLYPHASE_RUNS:
+        python = f"{out}/{stem}-python.vcf"
+        if not os.path.exists(python):
+            with python_host_paths():
+                t0 = time.perf_counter()
+                run_polyphase(phase_input_files=[f"{data}/{stem}.bam"], variant_file=f"{data}/{stem}.vcf",
+                              ploidy=ploidy, ignore_read_groups=True, output=python, threads=1)
+                walls[f"{stem} in process on the Python paths"] = time.perf_counter() - t0
+    for watcher in watchers:
+        watcher.join()
+
+    def body(path):
+        return [line for line in _text(path).splitlines() if not line.startswith("##commandline=")]
+
+    for stem, _ploidy, threads in POLYPHASE_RUNS:
+        label = f"{stem} -t {threads}"
+        (_stdout, stderr), rc = runs[label]
+        _require(rc == 0, f"polyphase: {label} exits 0 ({stderr[-2000:]})")
+        lines, python = body(f"{out}/{stem}-t{threads}.vcf"), body(f"{out}/{stem}-python.vcf")
+        records = [line.split("\t") for line in lines if not line.startswith("#")]
+        phased = sum("|" in r[9] for r in records)
+        print(f"polyphase: {label}: {phased} of {len(records)} records phased; equal to the Python paths' VCF: "
+              f"{lines == python}", flush=True)
+        _require(lines == python and phased > 0, f"polyphase: {label} writes the Python paths' VCF")
+    print("polyphase: wall (s): " + "; ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f" (the three commands at once, each wall from its interpreter's start; {host_context()})", flush=True)
 
 
 def cli_instance(data, label, expect, plain=True, reads=None, **kwargs):
@@ -3696,6 +3983,11 @@ def main() -> int:
           f"{os.cpu_count()} host CPUs)", flush=True)
     for name in hostlib.__all__:
         getattr(hostlib, name)
+    # polyphase-chrom on the Python paths takes about two minutes of one host
+    # CPU: it runs beside phase 2, which times nothing on the host, and is
+    # read in phase 11c
+    poly_tmp = tempfile.TemporaryDirectory()
+    poly_chrom = start_polyphase_python(poly_tmp.name)
 
     # 2. kernels against their plain versions (row 13, the wide T=1 kernel,
     # at K = 18 to 23 and against the cluster kernel at K = 7 to 17)
@@ -3864,7 +4156,7 @@ def main() -> int:
         t0 = time.perf_counter()
         chrom = write_synth(f"{tmp}/chrom", CLI_VARIANTS, 14, seed=7)
         print(f"phase-cli: chromosome written in {time.perf_counter() - t0:.1f} s", flush=True)
-        host_phase(chrom, tmp)
+        host_phase(tmp)
         print(f"phase 10 (host) done at {time.perf_counter() - t_start:.1f} s", flush=True)
         cli_launches, cli_packed, _w, _r = cli_instance(chrom, "phase-cli", ("wmec_forward_t1", "wmec_backtrace_t1"))
         del chrom
@@ -3878,6 +4170,12 @@ def main() -> int:
         t0 = time.perf_counter()
         tools_phase(tmp)
         print(f"phase 11b (tools) took {time.perf_counter() - t0:.1f} s, done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        # polyphase: the host-only polyploid phaser and its libraries
+        t0 = time.perf_counter()
+        polyphase_phase(tmp, poly_chrom)
+        poly_tmp.cleanup()
+        print(f"phase 11c (polyphase) took {time.perf_counter() - t0:.1f} s, done at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         # phase-cli-ds23: --internal-downsampling 23 on a coverage-30
         # chromosome, the single-sample main path past the cluster kernel
@@ -4093,4 +4391,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        if sys.argv[1:2] == ["--polyphase-python-paths"]:
+            sys.exit(polyphase_python_paths(*sys.argv[2:5]))
+        sys.exit(main())
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()

@@ -11,10 +11,16 @@ Python paths they replace, on the CPU:
 - the host solvers the same way on random instances: HapChatCore
   (hapchatlib), PedMecHeuristic on single samples and trios (heurlib) and
   SwitchFlipCalculator (switchfliplib);
+- polyphase's libraries the same way on random instances: read-pair
+  scoring (scorelib), cluster editing in both bundling modes (clusterlib),
+  haplotype threading, also at small row limits that prune (threadlib),
+  and the polyphase CLI through all three;
 - the BAM pool decode of every BAM under tests/data against the Python
   record loop, the realignment pool at one thread and at more;
-- the build: nothing at import, one whole library per source after six
-  processes build at once, and a failing compiler raises with its output.
+- the build: nothing at import (core's re-exports of the host solvers
+  included), one whole library per source after six processes build at
+  once, a cache key that holds what -march=native means on this CPU, and a
+  failing compiler raises with its output.
 
 Generated files go under pytest's temporary directories only.
 """
@@ -93,7 +99,8 @@ def _python_routes(monkeypatch, fn):
         port = fn("port")
     with monkeypatch.context() as m:
         for name in ("lib", "bamlib", "cigarlib", "readselectlib", "pqext",
-                     "hapchatlib", "heurlib", "switchfliplib"):
+                     "hapchatlib", "heurlib", "switchfliplib",
+                     "clusterlib", "threadlib", "scorelib"):
             m.setattr(ref_native, name, None)
         m.setattr(ref_align, "_native", None)
         m.setattr(ref_readselect, "PriorityQueue", ref_pq._PriorityQueuePython)
@@ -626,6 +633,169 @@ def test_switchflip_matches_python(seed, ploidy, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# polyphase: read-pair scoring, cluster editing and threading
+
+
+def _poly_readsets(seed, ploidy, n_pos=50, n_reads=56, err=0.06, n_alleles=2):
+    """The same random reads drawn from `ploidy` haplotypes (after
+    test_{clusterediting,threading,readscoring}_native.py) as a port
+    ReadSet and a reference ReadSet."""
+    rng = np.random.default_rng(9100 + seed)
+    haps = rng.integers(0, n_alleles, size=(ploidy, n_pos))
+    sets = (ReadSet(), RefReadSet())
+    for i in range(n_reads):
+        start = int(rng.integers(0, n_pos - 8))
+        end = min(start + int(rng.integers(2, 18)), n_pos)
+        alleles = haps[i % ploidy, start:end].copy()
+        errors = rng.random(end - start) < err
+        alleles[errors] = (alleles[errors] + 1) % n_alleles
+        quals = rng.integers(5, 40, end - start).tolist()
+        for rs, cls in zip(sets, (Read, RefRead)):
+            read = cls(f"r{i}", 50, 0, 0)
+            for c, a, q in zip(range(start, end), alleles.tolist(), quals):
+                read.add_variant(7 * (c + 1), a, q)
+            rs.add(read)
+    for rs in sets:
+        rs.sort()
+    return sets
+
+
+def _poly_modules(side):
+    if side == "ref":
+        from whatshap_tpu.polyphase import haplothreader, solver, threading
+    else:
+        from whatshap_torch.polyphase import haplothreader, solver, threading
+    return haplothreader, solver, threading
+
+
+POLY_CASES = [(seed, ploidy, n_alleles) for seed, (ploidy, n_alleles) in
+              enumerate([(2, 2), (3, 2), (4, 2), (4, 3), (5, 2), (6, 2)] * 2)]
+
+
+@pytest.mark.parametrize("seed,ploidy,n_alleles", POLY_CASES)
+def test_scorelib_matches_python(seed, ploidy, n_alleles, monkeypatch):
+    """scoreReadset through scorelib: every entry of the similarity matrix
+    of the port's and the reference's Python pair loops."""
+    sets = _poly_readsets(seed, ploidy, n_alleles=n_alleles)
+
+    def score(side):
+        _, solver, _ = _poly_modules(side)
+        am = solver.AlleleMatrix(sets[side == "ref"])
+        out = []
+        for min_overlap, err in ((2, 0.07), (4, 0.03)):
+            sim = solver.scoreReadset(am, min_overlap, ploidy, err)
+            out.append((sorted(sim.m.items()), sim.getMaxDim()))
+        return out
+
+    native = score("native")
+    port, ref = _python_routes(monkeypatch, score)
+    assert native == port == ref
+    assert len(native[0][0]) > 0
+
+
+@pytest.mark.parametrize("seed,ploidy,n_alleles", POLY_CASES)
+def test_clusterlib_matches_python(seed, ploidy, n_alleles, monkeypatch):
+    """ClusterEditingSolver through clusterlib, with and without bundled
+    edges: the clusters of the port's and the reference's Python editing
+    loops on the same similarity matrix."""
+    sets = _poly_readsets(seed, ploidy, n_alleles=n_alleles)
+    _, solver, _ = _poly_modules("port")
+    sim = solver.scoreReadset(solver.AlleleMatrix(sets[0]), 2, 3, 0.07)
+
+    def cluster(side):
+        _, solver, _ = _poly_modules(side)
+        m = solver.TriangleSparseMatrix()
+        m.m, m.maxDim = dict(sim.m), sim.maxDim
+        return [solver.ClusterEditingSolver(m, bundle).run() for bundle in (False, True)]
+
+    native = cluster("native")
+    port, ref = _python_routes(monkeypatch, cluster)
+    assert native == port == ref
+    assert len(native[0]) > 1
+
+
+def _threading_inputs(side, sets, ploidy):
+    _, solver, threading = _poly_modules(side)
+    am = solver.AlleleMatrix(sets[side == "ref"])
+    clustering = solver.ClusterEditingSolver(solver.scoreReadset(am, 2, ploidy, 0.07), False).run()
+    depths, _ = threading.get_allele_depths(am, clustering, ploidy)
+    return am, clustering, depths, threading.select_clusters(depths, ploidy, 10)
+
+
+# the Python threading DP at ploidy 6 without a row limit takes ~2 min on a
+# CPU: ploidy 6 runs with the limits that prune
+THREAD_CASES = [(*case, limit) for case in POLY_CASES[:8] for limit in (0, 2, 4, 8)
+                if case[1] <= 5 or limit]
+
+
+@pytest.mark.parametrize("seed,ploidy,n_alleles,row_limit", THREAD_CASES)
+def test_threadlib_matches_python(seed, ploidy, n_alleles, row_limit, monkeypatch):
+    """HaploThreader through threadlib: the threaded paths of the port's
+    and the reference's Python DPs (float32 scores, ties), with no row
+    limit and with small ones that prune (the stable score sort), on the
+    same cluster coverage."""
+    from math import ceil
+
+    sets = _poly_readsets(seed, ploidy, n_alleles=n_alleles)
+    am, _clustering, depths, cov_map = _threading_inputs("port", sets, ploidy)
+    _, _, threading = _poly_modules("port")
+    affine = ceil(threading.compute_readlength_snp_distance_ratio(am))
+
+    def thread(side):
+        haplothreader, _, _ = _poly_modules(side)
+        threader = haplothreader.HaploThreader(ploidy, 4 * affine, affine, 10, row_limit)
+        starts = [0, len(cov_map) // 2]
+        return threader.computePathsBlockwise(starts, cov_map, depths)
+
+    native = thread("native")
+    port, ref = _python_routes(monkeypatch, thread)
+    assert native == port == ref
+    assert len(native) == len(cov_map)
+
+
+@pytest.mark.parametrize("seed,ploidy,n_alleles", [c for c in POLY_CASES[:8] if c[1] <= 5])
+def test_run_threading_matches_python(seed, ploidy, n_alleles, monkeypatch):
+    """run_threading (threads and haplotypes) through all three libraries
+    against both Python paths."""
+    sets = _poly_readsets(seed, ploidy, n_alleles=n_alleles)
+
+    def run(side):
+        am, clustering, depths, _ = _threading_inputs(side, sets, ploidy)
+        genotypes = [{a: max(1, round(ploidy * d[a] / max(1, sum(d)))) for a in range(len(d)) if d[a]}
+                     for d in (am.getAlleleDepths(p) for p in range(am.getNumPositions()))]
+        return _poly_modules(side)[2].run_threading(am, clustering, ploidy, genotypes)
+
+    native = run("native")
+    port, ref = _python_routes(monkeypatch, run)
+    assert native == port == ref
+
+
+@pytest.mark.parametrize("case", ["chr22", "cuts_prephasing", "indels"])
+def test_polyphase_cli_matches_python_paths(case, tmp_path, monkeypatch):
+    """The polyphase CLI through scorelib, clusterlib and threadlib writes
+    the bytes of the port's and the reference's Python paths (one thread:
+    python paths are set in this process only)."""
+    from whatshap_torch.cli.polyphase import run_polyphase
+    from whatshap_tpu.cli.polyphase import run_polyphase as ref_run_polyphase
+
+    bam, vcf = {"chr22": ("polyploid.chr22.42M.12k.bam", "polyploid.chr22.42M.12k.vcf"),
+                "cuts_prephasing": ("polyploid.cuts.bam", "polyploid.cuts.vcf"),
+                "indels": ("polyploid.indels.bam", "polyploid.indels.vcf")}[case]
+    args = dict(phase_input_files=[str(DATA / bam)], variant_file=str(DATA / vcf), ploidy=4,
+                ignore_read_groups=True, use_prephasing=case == "cuts_prephasing",
+                block_cut_sensitivity=1 if case == "cuts_prephasing" else 4, threads=1)
+
+    def phase(side):
+        out = tmp_path / f"{side}.vcf"
+        (ref_run_polyphase if side == "ref" else run_polyphase)(**args, output=str(out))
+        return out.read_bytes()
+
+    native = phase("native")
+    port, ref = _python_routes(monkeypatch, phase)
+    assert native == port == ref
+
+
+# ---------------------------------------------------------------------------
 # the build
 
 
@@ -640,12 +810,53 @@ def test_nothing_is_built_at_import(tmp_path):
         "import whatshap_torch.io.sam, whatshap_torch.variants, whatshap_torch.readselect\n"
         "import whatshap_torch.solver.hapchat, whatshap_torch.solver.heuristic, whatshap_torch.cli.compare\n"
         "import whatshap_torch.cli.haplotag, whatshap_torch.cli.split, whatshap_torch.cli.stats\n"
+        "import whatshap_torch.cli.polyphase, whatshap_torch.polyphase.algorithm\n"
+        "import whatshap_torch.polyphase.plots, whatshap_torch.polyphase.solver\n"
         "print(sorted(n for n in h.__all__ if n in vars(h)), b.BUILD_DIR.exists())\n"
     )
     out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "build")], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[] False"
+
+
+def test_core_reexports_the_host_solvers_and_builds_nothing(tmp_path):
+    """`from whatshap_torch.core import HapChatCore, PedMecHeuristic` names
+    the classes of whatshap_torch.solver.hapchat and .heuristic, and builds
+    and loads no host helper."""
+    code = (
+        "import sys, pathlib\n"
+        "import whatshap_torch.ops._build as b\n"
+        "b.BUILD_DIR = pathlib.Path(sys.argv[1])\n"
+        "from whatshap_torch.core import HapChatCore, PedMecHeuristic\n"
+        "import whatshap_torch.core as core, whatshap_torch.hostlib as h\n"
+        "import whatshap_torch.solver.hapchat as hc, whatshap_torch.solver.heuristic as he\n"
+        "print(HapChatCore is hc.HapChatCore, PedMecHeuristic is he.PedMecHeuristic,\n"
+        "      'HapChatCore' in core.__all__ and 'PedMecHeuristic' in core.__all__,\n"
+        "      sorted(n for n in h.__all__ if n in vars(h)), b.BUILD_DIR.exists())\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "build")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True True True [] False"
+    assert core.HapChatCore is HapChatCore and core.PedMecHeuristic is PedMecHeuristic
+
+
+def test_native_target_is_part_of_the_cache_key(tmp_path, monkeypatch):
+    """clusterlib's library (built with -march=native) is named by what g++
+    makes of -march=native on this CPU: another answer names another file,
+    so a cache written on another CPU is not loaded.  The libraries built
+    without it are named by their source and flags alone."""
+    assert "-march=native" in _build._host_command("clusterlib")
+    assert "-ffp-contract=off" in _build._host_command("clusterlib")
+    for name in ("threadlib", "scorelib"):
+        assert "-ffp-contract=off" in _build._host_command(name)
+        assert "-march=native" not in _build._host_command(name)
+    here = {n: _build.host_library_path(n) for n in ("clusterlib", "threadlib", "alignlib")}
+    monkeypatch.setitem(_build._NATIVE_TARGETS, _build.GXX, "-march=\t\tsomeothercpu\n")
+    assert _build.host_library_path("clusterlib") != here["clusterlib"]
+    assert _build.host_library_path("threadlib") == here["threadlib"]
+    assert _build.host_library_path("alignlib") == here["alignlib"]
 
 
 RACE = """

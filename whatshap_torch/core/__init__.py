@@ -1,8 +1,9 @@
 """
-Public core API of the PyTorch port, mirroring whatshap_tpu.core for what
-this package has so far: the read data model, the pedigree model, the exact
-wMEC solver and the forward-backward genotyper (the host-only solvers,
-HapChatCore, Caller and PedMecHeuristic, are not ported yet).
+Public core API of the PyTorch port, mirroring whatshap_tpu.core: the read
+data model, the pedigree model, the exact wMEC solver, the forward-backward
+genotyper and the host-only solvers HapChatCore and PedMecHeuristic (of the
+reference's surface only Caller, the solver of find_snv_candidates, is not
+ported yet).
 """
 
 from .genotype import (
@@ -26,9 +27,11 @@ from .readset import (
 from .pedigree_model import Pedigree, PedigreePartitions
 from .variant import Variant
 
-# The solver lives in whatshap_torch.solver but is re-exported here for
+# The solvers live in whatshap_torch.solver but are re-exported here for
 # parity with `from whatshap.core import PedigreeDPTable`.
 from ..solver.dptable import PedigreeDPTable  # noqa: E402
+from ..solver.hapchat import HapChatCore  # noqa: E402
+from ..solver.heuristic import PedMecHeuristic  # noqa: E402
 from ..solver.genotyping import (  # noqa: E402
     GenotypeDPTable,
     GenotypeDistribution,
@@ -54,6 +57,8 @@ __all__ = [
     "PedigreePartitions",
     "Variant",
     "PedigreeDPTable",
+    "HapChatCore",
+    "PedMecHeuristic",
     "GenotypeDPTable",
     "GenotypeDistribution",
     "compute_genotypes",

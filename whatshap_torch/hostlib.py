@@ -14,6 +14,10 @@ with g++ at first use by ops/_build.build_host into build/whatshap_torch/.
                    (solver/heuristic.py)
     switchfliplib  the switch/flip distance of compare
                    (polyphase/switchflip.py)
+    clusterlib     polyphase's cluster editing (polyphase/clusterediting.py)
+    threadlib      polyphase's haplotype threading DP
+                   (polyphase/haplothreader.py)
+    scorelib       polyphase's read-pair scoring (polyphase/readscoring.py)
 
 Each is an attribute of this module, built and loaded the first time it is
 read (nothing is built at import); a build or load that fails raises
@@ -32,6 +36,7 @@ from .ops import _build
 __all__ = [
     "alignlib", "bamlib", "cigarlib", "readselectlib", "pqext",
     "hapchatlib", "heurlib", "switchfliplib",
+    "clusterlib", "threadlib", "scorelib",
 ]
 
 _LOCK = threading.Lock()
@@ -464,6 +469,174 @@ class _SwitchFlipLib:
         return sw.value, fl.value, switches_in_column, flips_in_column, perm_in_column
 
 
+class _ClusterLib:
+    def __init__(self, cdll):
+        c = self._lib = cdll
+        c.wh_cluster_run.restype = ctypes.c_longlong
+        c.wh_cluster_run.argtypes = [
+            ctypes.c_int,
+            ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int,
+        ]
+        c.wh_cluster_nodes.restype = ctypes.POINTER(ctypes.c_int)
+        c.wh_cluster_nodes.argtypes = []
+        c.wh_cluster_offsets.restype = ctypes.POINTER(ctypes.c_int64)
+        c.wh_cluster_offsets.argtypes = []
+
+    def run(self, n_nodes, us, vs, ws, bundle_edges):
+        import numpy as np
+
+        n = len(us)
+        ua = np.ascontiguousarray(us, dtype=np.int32)
+        va = np.ascontiguousarray(vs, dtype=np.int32)
+        wa = np.ascontiguousarray(ws, dtype=np.float32)
+        k = self._lib.wh_cluster_run(
+            n_nodes,
+            n,
+            ua.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            va.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            wa.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            int(bundle_edges),
+        )
+        nodes_p = self._lib.wh_cluster_nodes()
+        offs_p = self._lib.wh_cluster_offsets()
+        if k <= 0:
+            return []
+        offs = np.ctypeslib.as_array(offs_p, shape=(k + 1,))
+        nodes = np.ctypeslib.as_array(nodes_p, shape=(int(offs[k]),)).tolist()
+        return [nodes[offs[i] : offs[i + 1]] for i in range(k)]
+
+
+class _ThreadLib:
+    def __init__(self, cdll):
+        c = self._lib = cdll
+        c.wh_thread_paths.restype = ctypes.c_int32
+        c.wh_thread_paths.argtypes = [
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.c_double,
+            ctypes.c_double,
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+
+    def thread_paths(
+        self,
+        num_vars,
+        ploidy,
+        switch_cost,
+        affine_switch_cost,
+        max_cluster_gap,
+        row_limit,
+        block_starts,
+        cov_offsets,
+        cov_ids,
+        cov_totals,
+    ):
+        import numpy as np
+
+        p32 = ctypes.POINTER(ctypes.c_int32)
+
+        def _arr(seq):
+            a = np.ascontiguousarray(
+                seq if isinstance(seq, np.ndarray) else np.fromiter(seq, np.int32, count=len(seq)),
+                dtype=np.int32,
+            )
+            if a.size == 0:
+                a = np.zeros(1, np.int32)
+            return a
+
+        bs, co, ci, ct = _arr(block_starts), _arr(cov_offsets), _arr(cov_ids), _arr(cov_totals)
+        out = np.empty(num_vars * ploidy, np.int32)
+        n = self._lib.wh_thread_paths(
+            num_vars,
+            ploidy,
+            switch_cost,
+            affine_switch_cost,
+            max_cluster_gap,
+            row_limit,
+            bs.ctypes.data_as(p32),
+            len(block_starts),
+            co.ctypes.data_as(p32),
+            ci.ctypes.data_as(p32),
+            ct.ctypes.data_as(p32),
+            out.ctypes.data_as(p32),
+        )
+        if n < 0:
+            return None
+        return out[: n * ploidy].reshape(n, ploidy).tolist()
+
+
+class _ScoreLib:
+    def __init__(self, cdll):
+        c = self._lib = cdll
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        c.wh_score_pairs.restype = ctypes.c_int64
+        c.wh_score_pairs.argtypes = [
+            ctypes.c_int32, ctypes.c_int32,
+            i32p, i32p, i32p, u32p, u32p, i32p, i32p, f32p,
+            ctypes.c_int32, ctypes.c_float,
+            i32p, i32p, f32p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+        ]
+
+    def score_pairs(
+        self, n_reads, num_alleles, read_off, read_pos, read_allele,
+        first_pos, last_pos, sorted_reads, lut_of_pos, luts_flat,
+        min_overlap, offset, cap,
+    ):
+        """Returns (i_array, j_array, score_array, nan_count) or None.
+
+        Inputs may be numpy arrays (zero-copy pointer pass) or plain
+        sequences; outputs are numpy views trimmed to the pair count."""
+        import numpy as np
+
+        def as_np(xs, dt):
+            a = np.ascontiguousarray(xs, dtype=dt)
+            return a if a.size else np.zeros(1, dt)
+
+        ro = as_np(read_off, np.int32)
+        rp = as_np(read_pos, np.int32)
+        ra = as_np(read_allele, np.int32)
+        fp = as_np(first_pos, np.uint32)
+        lp = as_np(last_pos, np.uint32)
+        sr = as_np(sorted_reads, np.int32)
+        lop = as_np(lut_of_pos, np.int32)
+        lf = as_np(luts_flat, np.float32)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        oi = np.empty(max(cap, 1), np.int32)
+        oj = np.empty(max(cap, 1), np.int32)
+        osc = np.empty(max(cap, 1), np.float32)
+        nans = ctypes.c_int64()
+        n = self._lib.wh_score_pairs(
+            n_reads, num_alleles,
+            ro.ctypes.data_as(i32p), rp.ctypes.data_as(i32p),
+            ra.ctypes.data_as(i32p), fp.ctypes.data_as(u32p),
+            lp.ctypes.data_as(u32p), sr.ctypes.data_as(i32p),
+            lop.ctypes.data_as(i32p), lf.ctypes.data_as(f32p),
+            min_overlap, offset,
+            oi.ctypes.data_as(i32p), oj.ctypes.data_as(i32p),
+            osc.ctypes.data_as(f32p), cap, ctypes.byref(nans),
+        )
+        if n < 0:
+            return None
+        if n > cap:
+            return ("retry", n)
+        return oi[:n], oj[:n], osc[:n], nans.value
+
+
 def _load_extension(path):
     loader = importlib.machinery.ExtensionFileLoader("_pqext", str(path))
     module = importlib.util.module_from_spec(importlib.util.spec_from_loader("_pqext", loader))
@@ -479,6 +652,9 @@ _WRAPPERS = {
     "hapchatlib": _HapchatLib,
     "heurlib": _HeurLib,
     "switchfliplib": _SwitchFlipLib,
+    "clusterlib": _ClusterLib,
+    "threadlib": _ThreadLib,
+    "scorelib": _ScoreLib,
 }
 
 

@@ -14,10 +14,14 @@ built when this module is imported: the CPU path never needs nvcc.
 The host helpers (csrc/host/<name>.cpp: of the read path the BAM pool, the
 CIGAR and realignment engine, the edit distances, read selection and the
 selection heap; the HapCHAT and PedMEC-heuristic solvers; the switch/flip
-distance of compare) are built the same way with g++ by build_host(), on the
+distance of compare; polyphase's cluster editing, haplotype threading and
+read-pair scoring) are built the same way with g++ by build_host(), on the
 CPU route as on the card's:
 
     g++ -O3 -shared -fPIC -std=c++17 [extra flags] -o build/whatshap_torch/<name>-<hash>.so csrc/host/<name>.cpp
+
+A library built with -march=native (clusterlib) also hashes what g++ makes
+of that flag on this CPU, so a cache written on another CPU is not loaded.
 
 Each compiler writes to a file of its own process that os.replace moves into
 place, so processes that build one library at once all load a whole one.
@@ -50,11 +54,13 @@ HOST_CSRC = CSRC / "host"
 HOST_SOURCES = (
     "alignlib", "bamlib", "cigarlib", "readselectlib", "pqext",
     "hapchatlib", "heurlib", "switchfliplib",
+    "clusterlib", "threadlib", "scorelib",
 )
 GXX = "g++"
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_NATIVE_TARGETS: Dict[str, str] = {}
 
 
 def sources() -> Tuple[str, ...]:
@@ -151,15 +157,36 @@ def _host_command(name: str):
         libs = ["-lz"]  # BGZF inflation
     elif name == "pqext":
         extra = [f"-I{sysconfig.get_paths()['include']}"]  # a CPython extension
-    elif name in ("hapchatlib", "heurlib", "switchfliplib"):
+    elif name in ("hapchatlib", "heurlib", "switchfliplib", "threadlib", "scorelib"):
         # no fused multiply-add: the double sums round as the Python paths' do
         extra = ["-ffp-contract=off"]
+    elif name == "clusterlib":
+        # -march=native for the heap and scan loops; no fused multiply-add,
+        # so the induced-cost float sums round as the Python path's do
+        extra = ["-march=native", "-ffp-contract=off"]
     return [GXX, *GXX_FLAGS, *extra, "-o", str(HOST_CSRC / f"{name}.cpp"), *libs]
+
+
+def _native_target() -> str:
+    """What g++ makes of -march=native on this CPU (its target options)."""
+    if GXX not in _NATIVE_TARGETS:
+        cmd = [GXX, "-march=native", "-Q", "--help=target"]
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+        except OSError as e:
+            raise RuntimeError(f"cannot run {GXX}: {e}") from e
+        if out.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed (exit {out.returncode}):\n{out.stderr}")
+        _NATIVE_TARGETS[GXX] = out.stdout
+    return _NATIVE_TARGETS[GXX]
 
 
 def host_library_path(name: str) -> Path:
     h = hashlib.sha256((HOST_CSRC / f"{name}.cpp").read_bytes())
-    h.update(" ".join(_host_command(name)).encode())
+    cmd = _host_command(name)
+    h.update(" ".join(cmd).encode())
+    if "-march=native" in cmd:
+        h.update(_native_target().encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
