@@ -288,6 +288,26 @@ Phases, every one of which must pass:
             instances of genotype-cli-fam5 (the kernels line) and
             genotype-cli-cov20, beside their float32 plain versions on the
             first 64 columns and their bounds.
+15. last   15a: wmec.forward_cost_batched (the costs-only forward from the
+            initial state, kernel row 17) on the card against its plain
+            version, bit for bit on all three outputs (cost, jmin, key), at
+            T = 1, K = 7, 15, 17 and 20 (row 13's carry mode); T = 4, K = 12
+            and 16; T = 16, K = 13; T = 64, K = 15 (row 14's): one launch of
+            the shape's carry kernel and no other, every plain version made
+            to raise.  15b: parallel/dryrun.py's dryrun_multichip(4) over
+            cuda:0 x 4 (one card: the shards run one after another through
+            the split, copies and gather of the sharded launches): sharded
+            solves and costs-only forwards of a single-sample and a trio
+            batch against serial solves, then the phase CLI with every
+            batched launch sharded, byte-identical to one device; its time
+            and launches printed (the kernels line reads row 17's launches
+            there).  15c: find_snv_candidates on tests/data/pacbio (the
+            records of tests/data/expected-calls.vcf), learn on
+            tests/data/short-genome/learn-data (expected.txt), and
+            polyphasegenetic (--sample Parent_A, a PED of 24 progeny) whose
+            records hash to the reference's (POLYPHASEGENETIC_RECORDS_SHA256);
+            host only, each wall printed.  Row 17 is timed in phase 14 at
+            the slice's bucket (the kernels line) and at entry()'s batch.
 
 It prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}.  Where there is no CUDA device,
@@ -386,6 +406,9 @@ ENTRIES = [
     ("wmec_forward_t_wide:carry_in", "wmec_forward_t_wide", "whatshap_tpu/ops/wmec.py:687"),
     ("geno_backward_wide", "geno_backward_wide", "whatshap_tpu/ops/genotyping_jax.py:214"),
     ("geno_forward_wide", "geno_forward_wide", "whatshap_tpu/ops/genotyping_jax.py:237"),
+    # row 17, forward_cost_batched: the carry kernels from a zero carry (at
+    # the slice's bucket, T = 1 and K = 15, the T = 1 kernel's carry mode)
+    ("forward_cost_batched", "wmec_forward_t1", "whatshap_tpu/ops/wmec.py:916"),
     # the same kernels at five trios (":t1024", T = 1024: phase-cli-fam7,
     # genotype-cli-fam7) and five founders (":p10", P = 10: pedigree-p10)
     *((f"{name}:{tag}", source, replaces)
@@ -3962,6 +3985,188 @@ def time_geno_wide(static, stacked, label, plain_cols=64, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# forward_cost_batched, the dry run over several devices, the last host
+# commands
+# ---------------------------------------------------------------------------
+
+# (T, K) at which forward_cost_batched is held to its plain version: T = 1 in
+# the cluster kernel (K 7 to 17) and the wide one (K = 20), T = 4 and 16 in
+# the general-T cluster kernel, T = 64 in the wide general-T kernel
+FORWARD_COST_SHAPES = ((1, 7), (1, 15), (1, 17), (1, 20), (4, 12), (4, 16), (16, 13), (64, 15))
+# the plain versions that the CUDA route of forward_cost_batched must not reach
+FORWARD_COST_PLAIN = ((wmec, "forward_scan"), (wmec, "forward_carry"), (wmec_cuda, "forward_carry_t1_plain"),
+                      (wmec_cuda, "forward_carry_t_plain"))
+# polyphasegenetic on the committed fixtures: the parents' VCF, the progeny's
+# (64 samples), a PED naming Parent_A x Parent_B as the parents of
+# Progeny_1 to Progeny_24, --sample Parent_A at ploidy 4; the SHA-256 of its
+# record lines (those not starting with "#"), which
+# tests/test_torch_polyphasegenetic.py holds equal to the reference's
+POLYPHASEGENETIC_PROGENY = 24
+POLYPHASEGENETIC_RECORDS_SHA256 = "36248ab2d16a27db51e1babbccd5833a84a378e0286f24913ab63efca20fa37e"
+
+
+@contextlib.contextmanager
+def refused(names):
+    """Each (module, attribute) of `names` made to raise within the block."""
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("a plain version ran on the CUDA route")
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in names]
+    for mod, name, _fn in saved:
+        setattr(mod, name, refuse)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _carry_kernel(K, T, P) -> str:
+    """The carry kernel that forward_cost_batched launches at (K, T, P)."""
+    return _t1_name(K, "wmec_forward_carry_t1") if T == 1 else _t_name(K, T, P, "wmec_forward_carry_t")
+
+
+def compare_forward_cost(device="cuda", shapes=FORWARD_COST_SHAPES):
+    """Phase 15a: wmec.forward_cost_batched on the card (the carry kernels
+    from a zero carry) against its plain version on the same CUDA tensors,
+    bit for bit on all three outputs (cost, jmin, key), at each (T, K) of
+    `shapes`: one launch of the shape's carry kernel and of no other kernel,
+    with every plain version made to raise.  Returns the max abs error."""
+    worst = 0
+    for T, K in shapes:
+        if T == 1:
+            P = 2
+            arrays = packed_bucket(4, 128, K, 6000 + K, device) if K <= 17 else packed_bucket(2, 32, K, 6000 + K,
+                                                                                                device)
+        else:
+            P = 4
+            n_blocks, n_cols = (3, 64) if T < 64 else (2, 40)
+            arrays = pedigree_bucket(n_blocks, n_cols, K, T, 7000 + K + T, device)
+        plain = wmec.forward_cost_batched_plain(K, T, P, *arrays)
+        reset_launches()
+        with refused(FORWARD_COST_PLAIN):
+            got = wmec.forward_cost_batched(K, T, P, *arrays)
+            torch.cuda.synchronize()
+        launched = {name: n for name, n in read_launches().items() if n}
+        e = _max_err(zip(got, plain))
+        print(f"forward_cost_batched T={T:2d} K={K:2d} B={arrays[0].shape[0]} C={arrays[0].shape[1]}: "
+              f"max|err|={e} (cost, jmin, key), launches {launched}", flush=True)
+        _require(launched == {_carry_kernel(K, T, P): 1}, f"forward_cost_batched at T={T}, K={K} launches its "
+                 "carry kernel once and nothing else")
+        _require(e == 0, f"forward_cost_batched bit-equal to plain at T={T}, K={K}")
+        worst = max(worst, e)
+        del got, plain, arrays
+    return worst
+
+
+def time_forward_cost(arrays, K, T, P, label, reps=3):
+    """Row 17, forward_cost_batched, at `arrays` (one launch of its carry
+    kernel), beside its plain version and its bound: the bytes of the
+    function's inputs (rc not read at T = 1) and outputs, against the int32
+    adds of the carry mode (5 a state and column at T = 1; above as
+    _general_t_ops counts them)."""
+    B, C, S = arrays[0].shape[0], arrays[0].shape[1], 1 << K
+    ms = _time(lambda: wmec.forward_cost_batched(K, T, P, *arrays), reps=reps)
+    got = wmec.forward_cost_batched(K, T, P, *arrays)
+    plain, plain_ms = _plain_ms(lambda: wmec.forward_cost_batched_plain(K, T, P, *arrays))
+    err = _max_err(zip(got, plain))
+    ops = 5 * B * C * S if T == 1 else _general_t_ops(K, T, P, arrays[4])
+    bound = _bound(_nbytes(*(arrays[:5] if T == 1 else arrays)), _nbytes(*got), ops)
+    print(f"{label} forward_cost_batched (B={B} C={C} K={K} T={T}; {_carry_kernel(K, T, P)}): {ms:.3f} ms "
+          f"(plain {plain_ms:.3f} ms), bound {bound[0]:.4f} ms by {bound[1]}, max|err|={err}; "
+          f"{card_name_and_power()}", flush=True)
+    _require(err == 0, f"{label}: forward_cost_batched bit-equal to plain")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound[0], bound_by=bound[1])
+
+
+def dryrun_phase(n_devices=4):
+    """Phase 15b: parallel/dryrun.py's dry run over cuda:0 x n_devices (one
+    card: the shards run one after another through the split, copies and
+    gather of the sharded launches): the sharded solves and costs-only
+    forwards against serial solves, then the phase CLI sharded against one
+    device, byte-identical.  Returns the launches of the run."""
+    from whatshap_torch.parallel import dryrun
+
+    devices = dryrun.dryrun_devices(n_devices, "cuda")
+    reset_launches()
+    wmec.LAUNCH_STATS.clear()
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(n_devices, "cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    sharded = sum(1 for stats in wmec.LAUNCH_STATS if stats[-1] > 1)
+    print(f"dryrun_multichip({n_devices}) over {[str(d) for d in devices]}: {secs:.2f} s; {sharded} sharded "
+          f"launches in the CLI run; kernel launches {({k: v for k, v in launches.items() if v})}; "
+          f"{card_name_and_power()}", flush=True)
+    _require(sharded > 0, "the dry run's CLI sharded a launch")
+    _require(launches["wmec_forward_carry_t1"] == n_devices and launches["wmec_forward_carry_t"] == n_devices,
+             "the dry run's costs-only forwards launched the carry kernels once a shard")
+    return launches
+
+
+def records_sha256(path) -> str:
+    """SHA-256 of a VCF's record lines (those not starting with '#')."""
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(b"".join(line for line in f if not line.startswith(b"#"))).hexdigest()
+
+
+def write_polyphasegenetic_ped(path, n=POLYPHASEGENETIC_PROGENY) -> str:
+    with open(path, "w") as f:
+        f.writelines(f"Parent_A Parent_B Progeny_{i}\n" for i in range(1, n + 1))
+    return str(path)
+
+
+def host_commands_phase(tmp) -> None:
+    """Phase 15c: the last host commands, on committed fixtures (no device
+    work): find_snv_candidates on tests/data/pacbio (its records equal
+    tests/data/expected-calls.vcf's), learn on
+    tests/data/short-genome/learn-data (equal to expected.txt), and
+    polyphasegenetic (--sample Parent_A, ploidy 4, the PED of
+    write_polyphasegenetic_ped) whose record lines must hash to
+    POLYPHASEGENETIC_RECORDS_SHA256.  Each wall is printed."""
+    import filecmp
+
+    from whatshap_torch.cli.find_snv_candidates import run_find_snv_candidates
+    from whatshap_torch.cli.learn import run_learn
+    from whatshap_torch.cli.polyphasegenetic import run_polyphasegenetic
+
+    walls = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_find_snv_candidates("tests/data/pacbio/reference.fasta", "tests/data/pacbio/pacbio.bam",
+                                datatype="pacbio", output=f"{tmp}/calls.vcf")
+    walls["find_snv_candidates"] = time.perf_counter() - t0
+
+    def records(path):
+        return [line for line in open(path) if not line.startswith("#")]
+
+    _require(records(f"{tmp}/calls.vcf") == records("tests/data/expected-calls.vcf"),
+             "find_snv_candidates calls tests/data/expected-calls.vcf's sites")
+    t0 = time.perf_counter()
+    learn_dir = "tests/data/short-genome/learn-data"
+    run_learn(reference=f"{learn_dir}/short_ref.fasta", bam=f"{learn_dir}/short-reads.bam",
+              vcf=f"{learn_dir}/variant.vcf", k=7, window=25, output=f"{tmp}/learn.txt")
+    walls["learn"] = time.perf_counter() - t0
+    _require(filecmp.cmp(f"{learn_dir}/expected.txt", f"{tmp}/learn.txt", shallow=False),
+             "learn writes expected.txt")
+    t0 = time.perf_counter()
+    run_polyphasegenetic("tests/data/polyphasegenetic.test.parents.vcf", write_polyphasegenetic_ped(f"{tmp}/pg.ped"),
+                         4, progeny_file="tests/data/polyphasegenetic.test.progeny.vcf.gz", samples=["Parent_A"],
+                         output=f"{tmp}/pg.vcf", write_command_line_header=False)
+    walls["polyphasegenetic"] = time.perf_counter() - t0
+    phased = sum(1 for line in records(f"{tmp}/pg.vcf") if "|" in line)
+    _require(records_sha256(f"{tmp}/pg.vcf") == POLYPHASEGENETIC_RECORDS_SHA256,
+             "polyphasegenetic writes the reference's records")
+    print(f"host commands: find_snv_candidates {walls['find_snv_candidates']:.3f} s, learn {walls['learn']:.3f} s, "
+          f"polyphasegenetic {walls['polyphasegenetic']:.3f} s ({phased} variants phased); {host_context()}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4243,15 +4448,38 @@ def main() -> int:
         print(f"genotype-cli-fam7 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"phases 12-13 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # 15. forward_cost_batched against its plain version, the dry run over
+    # cuda:0 x 4, and the last host commands
+    t0 = time.perf_counter()
+    errs["forward_cost_batched"] = compare_forward_cost("cuda")
+    t1 = time.perf_counter()
+    dryrun_launches = dryrun_phase(4)
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        host_commands_phase(tmp)
+    t3 = time.perf_counter()
+    print(f"phase 15 took {t3 - t0:.1f} s (15a {t1 - t0:.1f}, 15b {t2 - t1:.1f}, 15c {t3 - t2:.1f}), done at "
+          f"{t3 - t_start:.1f} s", flush=True)
+
     # 14. kernel times at the main paths' shapes
     # (rows 1-2 and 6-8 of the kernels line at the phase CLI's buckets and
     # rows 11-12 at the genotype CLI's instance, the paths users run; the
     # library cells' as before beside them)
+    times = {}
     packed = wmec.pack_problem(rs, [1] * len(positions), het, False)
     time_kernels(packed)
+    # row 17, forward_cost_batched, at the slice's bucket (the kernels line)
+    # and at entry()'s example batch
+    (_c, slice_k), slice_members, _ri = main_bucket(packed)
+    times["forward_cost_batched"] = time_forward_cost(
+        blocks.to_device(blocks.stack_blocks(slice_members), "cuda"), slice_k, 1, 2, "slice")
+    del slice_members
+    from whatshap_torch.parallel import dryrun
+    entry_fn, entry_args = dryrun.entry("cuda")
+    time_forward_cost(entry_args, entry_args[0].shape[2], 1, 2, "entry", reps=10)
     del packed
     torch.cuda.empty_cache()
-    times = time_kernels(cli_packed, "phase-cli")
+    times.update(time_kernels(cli_packed, "phase-cli"))
     del cli_packed
     torch.cuda.empty_cache()
     time_kernels(packed1, "single")
@@ -4364,6 +4592,9 @@ def main() -> int:
     for name in WIDE_GENO:
         launches[f"{name}:t1024"] = geno_fam7_launches[name]
         launches[f"{name}:p10"] = p10_geno_launches[name]
+
+    # row 17 on its path: the dry run's costs-only forwards over cuda:0 x 4
+    launches["forward_cost_batched"] = dryrun_launches["wmec_forward_carry_t1"]
 
     power = card_name_and_power()
     kernels = []

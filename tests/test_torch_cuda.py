@@ -1558,3 +1558,71 @@ def test_genotype_cli_on_cuda_never_runs_the_plain_versions(cuda_device, tmp_pat
     assert [k.launches for k in wmec_kernels] == before
     calls = chip_smoke.vcf_calls(out.read_text())
     assert len(calls) == 15 and all(len(call[3]) == 3 for call in calls)
+
+
+FORWARD_COST_KERNELS = ("forward_carry_t1", "forward_carry_t1_wide", "forward_carry_t", "forward_carry_t_wide")
+ALL_WMEC_KERNELS = FORWARD_COST_KERNELS + ("forward_t1", "forward_t1_wide", "backtrace_t1", "forward_t",
+                                           "forward_t_wide", "forward_m_t", "forward_m_t_wide", "backtrace_t")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K", [(1, 7), (1, 15), (1, 17), (1, 20), (4, 12), (4, 16), (4, 18), (16, 13)])
+def test_forward_cost_batched_matches_plain(cuda_device, monkeypatch, T, K):
+    """forward_cost_batched on the card (the carry kernels from a zero carry)
+    equals its plain version bit for bit on all three outputs (cost, jmin and
+    key), launching its carry kernel once and no other kernel, with every
+    plain version made to raise."""
+    if T == 1:
+        arrays = _bucket(K, n_blocks=3, n_cols=48, seed=K)
+    else:
+        arrays = _pedigree_bucket(K, T, n_blocks=3, n_cols=48, seed=K + T)
+    K = arrays[0].shape[2]
+    ta = blocks.to_device(arrays, cuda_device)
+    P = 2 if T == 1 else 4
+    if T == 1:
+        kernel = "forward_carry_t1" if K <= wmec_cuda.MAX_K else "forward_carry_t1_wide"
+    else:
+        kernel = "forward_carry_t" if wmec_cuda.cluster_supported(K, T, P) else "forward_carry_t_wide"
+    plain = wmec.forward_cost_batched_plain(K, T, P, *ta)
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a plain version ran on the CUDA route")
+
+    for name in ("forward_scan", "forward_carry"):
+        monkeypatch.setattr(wmec, name, refuse)
+    for name in ("forward_carry_t1_plain", "forward_carry_t_plain"):
+        monkeypatch.setattr(wmec_cuda, name, refuse)
+    before = {name: getattr(wmec_cuda, name).launches for name in ALL_WMEC_KERNELS}
+    got = wmec.forward_cost_batched(K, T, P, *ta)
+    torch.cuda.synchronize()
+    rose = {name for name in ALL_WMEC_KERNELS if getattr(wmec_cuda, name).launches != before[name]}
+    assert rose == {kernel} and getattr(wmec_cuda, kernel).launches == before[kernel] + 1
+    assert [tuple(x.shape) for x in got] == [(3, T, 1 << K), (3, T, 1 << K), (3, 1 << K)]
+    for x, y in zip(got, plain):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["single", "trio"])
+def test_sharded_solve_over_one_card_three_times(cuda_device, kind):
+    """solve_blocks_sharded over cuda:0 x 3 (uneven shards of 7 single-sample
+    or 4 trio blocks) equals the unsharded solve on the card and the CPU's,
+    and per-block serial solves; LAUNCH_STATS records three devices."""
+    from whatshap_torch.parallel import mesh as mesh_mod
+    from whatshap_torch.parallel import workloads
+
+    if kind == "single":
+        K, T, P, packed_list, arrays = workloads.build_single_sample_batch(7, n_cols=16, coverage=4, seed=3)
+    else:
+        K, T, P, packed_list, arrays = workloads.build_trio_batch(4, n_pos=10, seed=7)
+    card = torch.device("cuda", torch.cuda.current_device())
+    sharded = mesh_mod.solve_blocks_sharded([card] * 3, K, T, P, arrays)
+    assert wmec.LAUNCH_STATS[-1][-1] == 3
+    whole = mesh_mod.solve_blocks_sharded([card], K, T, P, arrays)
+    cpu = mesh_mod.solve_blocks_sharded([torch.device("cpu")], K, T, P, arrays)
+    for s, w, c in zip(sharded, whole, cpu):
+        np.testing.assert_array_equal(s, w)
+        np.testing.assert_array_equal(s, c)
+    workloads.assert_batched_matches_serial(packed_list, *sharded)
+    dp_last, _j, _k = mesh_mod.run_blocks_sharded([card] * 3, K, T, P, arrays)
+    np.testing.assert_array_equal(mesh_mod.optimal_costs_from_batched(dp_last), sharded[0])

@@ -1,9 +1,8 @@
 """
 Public core API of the PyTorch port, mirroring whatshap_tpu.core: the read
 data model, the pedigree model, the exact wMEC solver, the forward-backward
-genotyper and the host-only solvers HapChatCore and PedMecHeuristic (of the
-reference's surface only Caller, the solver of find_snv_candidates, is not
-ported yet).
+genotyper and the host-only solvers HapChatCore, PedMecHeuristic and Caller
+(the k-mer pileup engine of `learn`): the reference's whole surface.
 """
 
 from .genotype import (
@@ -31,6 +30,7 @@ from .variant import Variant
 # parity with `from whatshap.core import PedigreeDPTable`.
 from ..solver.dptable import PedigreeDPTable  # noqa: E402
 from ..solver.hapchat import HapChatCore  # noqa: E402
+from ..solver.caller import Caller  # noqa: E402
 from ..solver.heuristic import PedMecHeuristic  # noqa: E402
 from ..solver.genotyping import (  # noqa: E402
     GenotypeDPTable,
@@ -58,6 +58,7 @@ __all__ = [
     "Variant",
     "PedigreeDPTable",
     "HapChatCore",
+    "Caller",
     "PedMecHeuristic",
     "GenotypeDPTable",
     "GenotypeDistribution",

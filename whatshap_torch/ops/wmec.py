@@ -947,10 +947,46 @@ def _over_budget(K: int, T: int, P: int, need: int, budget: int) -> NotImplement
     )
 
 
-def _launch_batched(solve, K, T, P, arrays, per_block_bytes: int):
-    """One batched call of `solve` (a tensor or a tuple of tensors with a
-    leading block axis), split along the block axis into sequential chunks
-    so that one chunk's tables and scratch stay under the table budget."""
+#: The devices that batched launches split their blocks over.  None: every
+#: visible card when the launch's tensors lie on a CUDA device, else their
+#: device alone.  A list of two or more devices (the same one may repeat, as
+#: in parallel/dryrun.py) shards every launch of B > 1 blocks over them.
+MESH_DEVICES: Optional[Sequence] = None
+
+#: Shape records of the most recent batched launches, (K, T, C, B, B_padded,
+#: n_devices) as the reference's wmec.LAUNCH_STATS; B_padded is B (the
+#: kernels take B at launch, so no replica pads a shard).  Bounded so that
+#: long runs do not grow it.
+LAUNCH_STATS: List[Tuple[int, int, int, int, int, int]] = []
+_LAUNCH_STATS_CAP = 4096
+
+
+def _record_launch(K, T, C, B, B_padded, n_dev):
+    if len(LAUNCH_STATS) < _LAUNCH_STATS_CAP:
+        LAUNCH_STATS.append((K, T, C, B, B_padded, n_dev))
+
+
+def _mesh_devices(device: torch.device) -> List[torch.device]:
+    """The devices a launch whose tensors lie on `device` may shard over."""
+    if MESH_DEVICES is not None:
+        return [torch.device(d) for d in MESH_DEVICES]
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _cat(parts, device: torch.device):
+    """Put the outputs of consecutive block chunks (each a tensor or a tuple
+    of tensors) together on `device`, in block order."""
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat([p.to(device) for p in parts])
+    return tuple(torch.cat([x.to(device) for x in xs]) for xs in zip(*parts))
+
+
+def _launch_chunked(solve, K, T, P, arrays, per_block_bytes: int):
+    """One batched call of `solve` on the device its arrays lie on, split
+    along the block axis into sequential chunks so that one chunk's tables
+    and scratch stay under that device's table budget."""
     B = arrays[0].shape[0]
     budget = _table_budget(arrays[0].device)
     if budget is None or B * per_block_bytes <= budget:
@@ -959,9 +995,43 @@ def _launch_batched(solve, K, T, P, arrays, per_block_bytes: int):
     if max_b < 1:
         raise _over_budget(K, T, P, per_block_bytes, budget)
     parts = [solve(K, T, P, *(a[i : i + max_b] for a in arrays)) for i in range(0, B, max_b)]
-    if isinstance(parts[0], torch.Tensor):
-        return torch.cat(parts)
-    return tuple(torch.cat(xs) for xs in zip(*parts))
+    return _cat(parts, arrays[0].device)
+
+
+def _launch_sharded(solve, K, T, P, arrays, per_block_bytes: int, devices):
+    """The counterpart of the reference's _launch_sharded: the block axis
+    split into contiguous shards (tensor_split: uneven shards where B is not
+    a multiple of the devices, none empty), each copied to its device and
+    chunked against that device's own table budget.  Every shard is
+    launched before anything waits for a device; the outputs come back to
+    the launch device in block order.  Blocks are independent, so the
+    result is the unsharded launch's."""
+    home = arrays[0].device
+    n = min(len(devices), arrays[0].shape[0])
+    # every shard reaches its device before any is launched: a copy out of
+    # the launch device waits for the work queued there, so a shard launched
+    # there first would hold back the copies of the shards after it
+    shards = [
+        tuple(a.to(dev) for a in shard)
+        for dev, shard in zip(devices, zip(*(torch.tensor_split(a, n) for a in arrays)))
+    ]
+    parts = [_launch_chunked(solve, K, T, P, shard, per_block_bytes) for shard in shards]
+    return _cat(parts, home)
+
+
+def _launch_batched(solve, K, T, P, arrays, per_block_bytes: int):
+    """One batched call of `solve` (a tensor or a tuple of tensors with a
+    leading block axis): sharded over the devices of _mesh_devices when
+    there are two or more and B > 1, each shard (or the whole batch)
+    chunked under its device's table budget.  Records the launch in
+    LAUNCH_STATS."""
+    B, C = arrays[0].shape[0], arrays[0].shape[1]
+    devices = _mesh_devices(arrays[0].device)
+    n_dev = min(len(devices), B)
+    _record_launch(K, T, C, B, B, n_dev)
+    if n_dev > 1:
+        return _launch_sharded(solve, K, T, P, arrays, per_block_bytes, devices)
+    return _launch_chunked(solve, K, T, P, arrays, per_block_bytes)
 
 
 def _pick(K, T, P, device, kernel_route, mirror):
@@ -1002,7 +1072,7 @@ def forward_m_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0):
     R = dp0.shape[1] if dp0.dim() == 3 else 1
     arrays = (wdiff, wbase, rankw, acost, die_prev, rc)
     if fwd is forward_m_batched:
-        return fwd(K, T, P, *arrays, dp0)
+        return _launch_batched(fwd, K, T, P, arrays + (dp0,), 0)
     per_seed = wmec_cuda.state_bytes(K, T, P, seeds=1)
     budget = _table_budget(wdiff.device)
     if budget is None or R * per_seed <= budget:
@@ -1029,6 +1099,59 @@ def solve_seeded_auto(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, dp0, di
         per_block += wmec_cuda.state_bytes(K, T, P)
     return _launch_batched(
         solve, K, T, P, (wdiff, wbase, rankw, acost, die_prev, rc, dp0, die_next), per_block
+    )
+
+
+def _zero_carry(K: int, T: int, B: int, device: torch.device):
+    """The scan's initial state in the kernels' carry layout: cost and jmin
+    (B, T, 2^K) and key (B, 2^K), int32 zeros (cost and jmin one tensor:
+    the carry mode reads both and writes neither)."""
+    zeros = torch.zeros((B, T, 1 << K), dtype=torch.int32, device=device)
+    return zeros, zeros, torch.zeros((B, 1 << K), dtype=torch.int32, device=device)
+
+
+def _forward_cost(carry_pass):
+    """`carry_pass` (forward_carry's signature) from the scan's initial
+    state, in solve_batched's signature."""
+
+    def run(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
+        carry = _zero_carry(K, T, wdiff.shape[0], wdiff.device)
+        return carry_pass(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc, carry)
+
+    return run
+
+
+def forward_cost_batched_plain(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
+    """Plain torch version of forward_cost_batched: the mirror's carry pass
+    (forward_carry) from a zero carry, on the device the inputs lie on, in
+    one launch."""
+    return _forward_cost(forward_carry)(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc)
+
+
+def forward_cost_batched(K, T, P, wdiff, wbase, rankw, acost, die_prev, rc):
+    """The batched forward scan from the initial state, final costs only:
+    the reference's forward_cost_batched (whatshap_tpu/ops/wmec.py:916), the
+    scale-out step whose block axis shards over several devices
+    (parallel/mesh.py run_blocks_sharded).
+
+    Inputs are stacked blocks as forward_scan's, on the device they lie on.
+    Returns (dp_last (B, T, 2^K), jmin_last (B, T, 2^K), key_last (B,
+    2^K)), int32, in the kernels' carry layout: the reference's dp_last and
+    jmin_last are (B, 2^K, T), their transposes.  jmin_last is zero at T ==
+    1, as the reference's.  On CUDA it runs the carry kernels from a zero
+    carry (wmec_cuda._carry_pass: forward_carry_t1 at T = 1, forward_carry_t
+    above, their wide kernels past the cluster kernels' envelope) and
+    raises for shapes past them; on the CPU their plain versions, and the
+    torch mirror's forward_carry for shapes past the kernels.  Launched
+    through _launch_batched: chunked under the table budget counting the
+    kernel's state and the carry in and out, and sharded over
+    MESH_DEVICES."""
+    carry_pass = _pick(K, T, P, wdiff.device, wmec_cuda._carry_pass, forward_carry)
+    per_block = (3 * T + 2) * 4 << K  # the zero carry in, the carry out
+    if carry_pass is wmec_cuda._carry_pass:
+        per_block += wmec_cuda.state_bytes(K, T, P)
+    return _launch_batched(
+        _forward_cost(carry_pass), K, T, P, (wdiff, wbase, rankw, acost, die_prev, rc), per_block
     )
 
 

@@ -568,7 +568,12 @@ def pack_die(die_prev):
     into (B, C) int32, bit k set where slot k dies before column c (the
     slots the forward fold of column c visits)."""
     K = die_prev.shape[-1]
-    weights = torch.tensor([1 << k for k in range(K)], dtype=torch.int32, device=die_prev.device)
+    # the weights are made on the device: a copy from host memory would make
+    # the host wait for the work queued before it (the forward launch), and
+    # hold back the launches of the shards after this one
+    weights = torch.ones(K, dtype=torch.int32, device=die_prev.device) << torch.arange(
+        K, dtype=torch.int32, device=die_prev.device
+    )
     return (die_prev * weights).sum(dim=-1, dtype=torch.int32)
 
 
