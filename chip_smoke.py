@@ -308,6 +308,30 @@ Phases, every one of which must pass:
             records hash to the reference's (POLYPHASEGENETIC_RECORDS_SHA256);
             host only, each wall printed.  Row 17 is timed in phase 14 at
             the slice's bucket (the kernels line) and at entry()'s batch.
+16. packed-list  lists of independent instances through the list entries,
+            each with the launch counters and wmec.LAUNCH_STATS set to 0
+            just before and read just after, then timed again:
+            packed-list-trio, the reference's bench_trio workload at its
+            accelerator size (workloads.build_trio_batch(256, n_pos=256,
+            n_reads=120, seed=17, c_pad=256, read_len=12)) through
+            wmec.solve_packed_list (rows 3/4 and 5); packed-list-single,
+            64 single-sample instances of 512 columns at coverage 14 and
+            four at coverage 18-20 (K 18-20: row 13 beside rows 1-2).  Every
+            instance is held to its own run_dp on the card (cost,
+            transmission path, partitioning, the index path on its active
+            slots), a cut of 16 to the plain route on the card bit for bit,
+            and the buckets (K, C, B), launches, wall, instances and
+            variants per second printed beside the card's name and power
+            limit; then one extra launch of the list's smallest bucket is
+            timed against the padded work that merging it into the next K
+            would add.  genotype-list and genotype-list-fam5: 32 and 16
+            same-shaped instances (one sample, 1,024 columns: rows 11-12;
+            three children, T = 64, 128 columns: rows 15-16) through
+            genotyping.run_genotyping_batched, each held to its own
+            run_genotyping on the card (bit for bit at rows 11-12; within
+            atol 1e-5 at rows 15-16, whose partial sums follow the grid's
+            split of the tiles, which depends on B) and a cut of 16 to the
+            float64 plain route on the card (atol 2e-4 / 3e-4).
 
 It prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}.  Where there is no CUDA device,
@@ -4167,6 +4191,223 @@ def host_commands_phase(tmp) -> None:
           flush=True)
 
 
+# packed-list (phase 16): lists of independent instances.  The trio list is
+# the reference's bench_trio workload at its accelerator size (bench.py:797,
+# workloads.build_trio_batch); the single-sample list is 64 instances of 512
+# columns at coverage 14 (building one takes 45-70 ms of the chip host's CPU:
+# 256 took 11.5 s of the phase) and four at coverage 18, 19, 20 and 20 (K
+# 18-20, row 13); each list holds a cut of PACKED_CUT instances to the plain
+# route.  The genotyping lists are (label, instances, columns, coverage
+# a sample, pedigree, seed, atol against the float64 plain route, atol
+# against each instance's own run_genotyping or None for bit-equal, kernels
+# expected).  The wide kernels (rows 15-16) sum an instance's tiles in the
+# rows of the CTAs that hold them, and a CTA holds consecutive tiles
+# (geno_wide.cuh cta_of): how many depends on the grid, so on B, and a batch
+# is held to B = 1 within phase 2's likelihood bar, not bit for bit.
+PACKED_TRIO = (256, dict(n_pos=256, n_reads=120, seed=17, c_pad=256, read_len=12))
+PACKED_SINGLE = (64, 512, 14, 61)  # instances, columns, coverage, seed
+PACKED_WIDE_COVERAGES = (18, 19, 20, 20)
+PACKED_CUT = 16
+GENO_LISTS = (
+    ("genotype-list", 32, 1024, 12, SINGLE, 71, 2e-4, None, ("geno_backward", "geno_forward")),
+    ("genotype-list-fam5", 16, 128, 2, FAMILY5, 73, 3e-4, 1e-5, ("geno_backward_wide", "geno_forward_wide")),
+)
+
+
+def _active_bits(packed):
+    """Per column, the index-path bits of the slots active there (the bits of
+    other slots are don't-cares of the backtrace)."""
+    return (packed.active.astype(np.int64) << np.arange(packed.K, dtype=np.int64)).sum(axis=1)
+
+
+def _same_results(a, b) -> bool:
+    return (a.optimal_cost == b.optimal_cost and np.array_equal(a.index_path, b.index_path)
+            and np.array_equal(a.trans_path, b.trans_path))
+
+
+def solve_list(label, packed_list, c_pad, expect, cut):
+    """Phase 16: a list of independent instances through
+    wmec.solve_packed_list on the card, the kernels' launch counters and
+    wmec.LAUNCH_STATS set to 0 just before and read just after, then again
+    timed; every instance held to its own run_dp on the card (cost,
+    transmission path, partitioning and the index path on its active slots,
+    the whole index path counted), and the instances `cut` to the plain route
+    on the card, bit for bit.  Returns the counted run's launch counts."""
+    n, n_cols = len(packed_list), sum(p.n_cols for p in packed_list)
+    torch.cuda.synchronize()
+    wmec.LAUNCH_STATS.clear()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = wmec.solve_packed_list(packed_list, c_pad=c_pad, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    buckets = [(K, C, B) for K, _T, C, B, _Bp, _n in wmec.LAUNCH_STATS]
+    t0 = time.perf_counter()
+    again = wmec.solve_packed_list(packed_list, c_pad=c_pad, device="cuda")
+    wall2 = time.perf_counter() - t0
+    print(f"{label}: {n} instances of {n_cols // n} columns on average, T={packed_list[0].T}; buckets (K, C, B) "
+          f"{buckets}; launches {launches}; wall {wall:.3f} s, again {wall2:.3f} s = {n / wall2:.1f} "
+          f"instances/s = {n_cols / wall2:.1f} variants/s ({card_name_and_power()})", flush=True)
+    _require(all(launches[k] > 0 for k in expect), f"{label}: every kernel of its path launched")
+    _require(all(map(_same_results, results, again)), f"{label}: both runs agree")
+
+    t0 = time.perf_counter()
+    whole = 0
+    for i, (packed, r) in enumerate(zip(packed_list, results)):
+        serial = wmec.run_dp(packed, device="cuda")
+        mask = _active_bits(packed)
+        _require(r.optimal_cost == serial.optimal_cost and np.array_equal(r.trans_path, serial.trans_path)
+                 and np.array_equal(r.index_path & mask, serial.index_path & mask)
+                 and wmec.extract_partitioning(packed, r) == wmec.extract_partitioning(packed, serial),
+                 f"{label}: instance {i} equals its own run_dp on the card")
+        whole += int(np.array_equal(r.index_path, serial.index_path))
+    print(f"{label}: every instance's cost, transmission path, partitioning and index path on its active slots "
+          f"equal its own run_dp on the card ({time.perf_counter() - t0:.1f} s); whole index paths equal for "
+          f"{whole} of {n} (run_dp slices an instance of several read-connected ranges at each range's K)",
+          flush=True)
+
+    t0 = time.perf_counter()
+    plain = wmec.solve_packed_list([packed_list[i] for i in cut], c_pad=c_pad, device="cuda", solve=plain_solve)
+    same = all(_same_results(results[i], p) for i, p in zip(cut, plain))
+    print(f"{label}: a cut of {len(cut)} instances (K {sorted({packed_list[i].K for i in cut})}) on the plain "
+          f"route on the card ({time.perf_counter() - t0:.1f} s): costs, index and transmission paths equal: "
+          f"{same}", flush=True)
+    _require(same, f"{label}: the cut equals the plain route")
+    return launches
+
+
+def merge_lead(label, packed_list, c_pad, reps=10):
+    """Open question of PERF.md section 7: one extra launch of the list's
+    smallest bucket against the padded work that merging it into the bucket
+    of the next K (same columns) adds, each solve_batched_auto on arrays
+    already on the card, timed by CUDA events."""
+    buckets = wmec.bucket_packed_list(packed_list, c_pad)
+    pairs = [(s, min((b for b in buckets if b[1] == s[1] and b[0] > s[0]), key=lambda b: b[0]))
+             for s in buckets if any(b[1] == s[1] and b[0] > s[0] for b in buckets)]
+    (k_s, cp, idx_s, st_s), (k_n, _cp, idx_n, st_n) = min(pairs, key=lambda pair: len(pair[0][2]))
+    T, P = packed_list[0].T, packed_list[0].P
+    merged = blocks.stack_blocks([blocks.pad_block(packed_list[i], cp, k_pad=k_n) for i in idx_s + idx_n])
+    ms = {}
+    for name, k, stacked in (("small", k_s, st_s), ("next", k_n, st_n), ("merged", k_n, merged)):
+        arrays = blocks.to_device(stacked, "cuda")
+        ms[name] = _time(lambda: wmec.solve_batched_auto(k, T, P, *arrays), reps)
+        del arrays
+    print(f"{label}: merge lead: one extra launch of the K={k_s} bucket (B={len(idx_s)}, C={cp}) "
+          f"{ms['small']:.3f} ms against {ms['merged'] - ms['next']:.3f} ms of padded work added by merging it "
+          f"into the K={k_n} bucket (B={len(idx_n)}: {ms['next']:.3f} ms alone, {ms['merged']:.3f} merged; "
+          f"{card_name_and_power()})", flush=True)
+    return ms
+
+
+def same_shaped_genotyping(n, n_cols, coverage, pedigree, seed):
+    """n genotyping instances of one shape: simulate_genotyping's reads and
+    pedigree once (instance 0), then per instance the same reads (spans and
+    samples, so the same K) with their alleles flipped at 5 % and their
+    qualities drawn anew.  Returns (packed list, pedigree)."""
+    rs, pos, ped, _nsi, _truth = simulate_genotyping(n_cols, coverage, pedigree, seed)
+    rng = np.random.RandomState(seed)
+    packed_list = []
+    for j in range(n):
+        rs_j = rs
+        if j:
+            rs_j = core.ReadSet()
+            for read in rs:
+                r = core.Read(read.name, 50, 0, read.sample_id)
+                flips = (rng.rand(len(read)) < 0.05).tolist()
+                quals = rng.randint(10, 40, size=len(read)).tolist()
+                for v, f, q in zip(read, flips, quals):
+                    r.add_variant(v.position, v.allele ^ f, q)
+                rs_j.add(r)
+            rs_j.sort()
+        packed_list.append(wmec.pack_problem(rs_j, [10] * n_cols, ped, False, pos, check_conflicts=False,
+                                             emission_tables=False))
+    return packed_list, ped
+
+
+def genotype_list(label, n, n_cols, coverage, pedigree, seed, atol, b1_atol, expect):
+    """Phase 16: n same-shaped genotyping instances through
+    genotyping.run_genotyping_batched on the card, the launch counters set to
+    0 just before and read just after; every instance held to its own
+    run_genotyping on the card (B = 1), bit for bit or, with b1_atol, within
+    it (identical NaN patterns), and a cut of PACKED_CUT instances to the
+    float64 plain route on the card within `atol`.  Returns the counted run's
+    launch counts."""
+    packed_list, ped = same_shaped_genotyping(n, n_cols, coverage, pedigree, seed)
+    shapes = {(p.n_cols, p.K, p.T, p.P) for p in packed_list}
+    _require(len(shapes) == 1, f"{label}: one shape")
+    (C, K, T, P), n_ind = shapes.pop(), len(ped)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    lik = genotyping.run_genotyping_batched(packed_list, ped, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"{label}: {n} instances of C={C}, K={K}, T={T}, P={P}; launches {launches}; wall {wall:.3f} s = "
+          f"{n / wall:.1f} instances/s = {n * C / wall:.1f} variants genotyped/s ({card_name_and_power()})",
+          flush=True)
+    _require(all(launches[k] > 0 for k in expect), f"{label}: every kernel of its path launched")
+    _require(lik.shape == (n, C, n_ind, 3) and np.isfinite(lik).all(), f"{label}: finite likelihoods")
+
+    t0 = time.perf_counter()
+    worst, same = 0.0, 0
+    for b, packed in enumerate(packed_list):
+        one = genotyping.run_genotyping(packed, ped, device="cuda")
+        same += int(np.array_equal(one, lik[b]))
+        worst = max(worst, _lik_err(one, lik[b]))
+    print(f"{label}: each instance's own run_genotyping on the card ({time.perf_counter() - t0:.1f} s): "
+          f"bit-equal for {same} of {n}, likelihoods max|err|={worst:.3e} (limit {b1_atol or 0})", flush=True)
+    _require(same == n if b1_atol is None else worst <= b1_atol,
+             f"{label}: every instance equals its own run_genotyping"
+             + ("" if b1_atol is None else f" within {b1_atol}"))
+
+    cut = np.linspace(0, n - 1, min(PACKED_CUT, n)).astype(int).tolist()
+    t0 = time.perf_counter()
+    with plain_genotyping():
+        ref = genotyping.run_genotyping_batched([packed_list[i] for i in cut], ped, device="cuda")
+    e = _lik_err(lik[cut], ref)
+    print(f"{label}: a cut of {len(cut)} instances against the float64 plain route on the card "
+          f"({time.perf_counter() - t0:.1f} s): likelihoods max|err|={e:.3e} (limit {atol})", flush=True)
+    _require(e <= atol, f"{label}: the kernels agree with the float64 plain route")
+    return launches
+
+
+def packed_list_phase():
+    """Phase 16: packed-list-trio, packed-list-single (with the merge lead of
+    each) and the genotyping lists.  Returns {label: launch counts}."""
+    from whatshap_torch.parallel import workloads
+
+    out = {}
+    t0 = time.perf_counter()
+    n, spec = PACKED_TRIO
+    _K, _T, _P, trio, _arrays = workloads.build_trio_batch(n, **spec)
+    del _arrays
+    print(f"packed-list-trio: built in {time.perf_counter() - t0:.1f} s", flush=True)
+    cut = np.linspace(0, len(trio) - 1, PACKED_CUT).astype(int).tolist()
+    out["packed-list-trio"] = solve_list("packed-list-trio", trio, spec["c_pad"],
+                                         ("wmec_forward_t", "wmec_backtrace_t"), cut)
+    merge_lead("packed-list-trio", trio, spec["c_pad"])
+    del trio
+
+    n, n_cols, coverage, seed = PACKED_SINGLE
+    t0 = time.perf_counter()
+    single = workloads.build_single_sample_batch(n, n_cols=n_cols, coverage=coverage, read_len=12, seed=seed)[3]
+    for i, cov in enumerate(PACKED_WIDE_COVERAGES):
+        single += workloads.build_single_sample_batch(1, n_cols=n_cols, coverage=cov, read_len=12,
+                                                      seed=seed + n + i)[3]
+    print(f"packed-list-single: built in {time.perf_counter() - t0:.1f} s", flush=True)
+    _require(max(p.K for p in single) > wmec_cuda.MAX_K, "packed-list-single: instances past the cluster kernel")
+    cut = list(range(PACKED_CUT - len(PACKED_WIDE_COVERAGES))) + list(range(n, len(single)))
+    out["packed-list-single"] = solve_list("packed-list-single", single, None,
+                                           ("wmec_forward_t1", "wmec_backtrace_t1", "wmec_forward_t1_wide"), cut)
+    merge_lead("packed-list-single", single, None)
+    del single
+
+    for label, *spec in GENO_LISTS:
+        torch.cuda.empty_cache()
+        out[label] = genotype_list(label, *spec)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4460,6 +4701,15 @@ def main() -> int:
     t3 = time.perf_counter()
     print(f"phase 15 took {t3 - t0:.1f} s (15a {t1 - t0:.1f}, 15b {t2 - t1:.1f}, 15c {t3 - t2:.1f}), done at "
           f"{t3 - t_start:.1f} s", flush=True)
+
+    # 16. lists of independent instances: solve_packed_list and
+    # run_genotyping_batched
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    packed_list_phase()
+    torch.cuda.empty_cache()
+    print(f"phase 16 (packed-list) took {time.perf_counter() - t0:.1f} s, done at "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 14. kernel times at the main paths' shapes
     # (rows 1-2 and 6-8 of the kernels line at the phase CLI's buckets and

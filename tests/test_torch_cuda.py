@@ -1626,3 +1626,116 @@ def test_sharded_solve_over_one_card_three_times(cuda_device, kind):
     workloads.assert_batched_matches_serial(packed_list, *sharded)
     dp_last, _j, _k = mesh_mod.run_blocks_sharded([card] * 3, K, T, P, arrays)
     np.testing.assert_array_equal(mesh_mod.optimal_costs_from_batched(dp_last), sharded[0])
+
+
+def _assert_equals_run_dp(packed_list, results, device):
+    """Each result equals its instance's own run_dp on `device`: cost,
+    transmission path and partitioning, the index path on the bits of the
+    active slots, and the whole index path for an instance of one
+    read-connected range (run_dp slices several at each range's K, where the
+    bits of inactive slots are don't-cares)."""
+    for packed, r in zip(packed_list, results):
+        serial = wmec.run_dp(packed, device=device)
+        assert r.optimal_cost == serial.optimal_cost
+        np.testing.assert_array_equal(r.trans_path, serial.trans_path)
+        mask = (packed.active.astype(np.int64) << np.arange(packed.K, dtype=np.int64)).sum(axis=1)
+        np.testing.assert_array_equal(r.index_path & mask, serial.index_path & mask)
+        assert wmec.extract_partitioning(packed, r) == wmec.extract_partitioning(packed, serial)
+        if len(wmec.connected_column_ranges(packed)) == 1:
+            np.testing.assert_array_equal(r.index_path, serial.index_path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["trio", "single"])
+def test_solve_packed_list_on_cuda_matches_run_dp(cuda_device, kind):
+    """solve_packed_list on the card: a trio list with one member at K = 17
+    (past the cluster kernel: row 14) or a single-sample list with one at K =
+    18 (row 13) equals each instance's run_dp on the card, the CPU's
+    solve_packed_list bit for bit, and launches the kernels of its path."""
+    from whatshap_torch.parallel import workloads
+
+    if kind == "trio":
+        packed_list = workloads.build_trio_batch(4, n_pos=24, n_reads=12, seed=3, c_pad=24, read_len=5)[3]
+        packed_list += workloads.build_trio_batch(1, n_pos=24, n_reads=40, seed=7, c_pad=24, read_len=10)[3]
+        expect = ("forward_t", "forward_t_wide", "backtrace_t")
+    else:
+        packed_list = workloads.build_single_sample_batch(4, n_cols=32, coverage=5, seed=11)[3]
+        packed_list += workloads.build_single_sample_batch(1, n_cols=32, coverage=18, read_len=12, seed=19)[3]
+        expect = ("forward_t1", "forward_t1_wide", "backtrace_t1")
+    assert max(p.K for p in packed_list) == (17 if kind == "trio" else 18)
+    for name in expect:
+        getattr(wmec_cuda, name).launches = 0
+    got = wmec.solve_packed_list(packed_list, device=cuda_device)
+    assert all(getattr(wmec_cuda, name).launches > 0 for name in expect)
+    cpu = wmec.solve_packed_list(packed_list, device="cpu")
+    for g, c in zip(got, cpu):
+        assert g.optimal_cost == c.optimal_cost
+        np.testing.assert_array_equal(g.index_path, c.index_path)
+        np.testing.assert_array_equal(g.trans_path, c.trans_path)
+    _assert_equals_run_dp(packed_list, got, cuda_device)
+
+
+def _same_shaped_genotyping(n, n_cols, n_ind, trios, seed, lanes=3):
+    """n genotyping instances of one shape: one read layout (`lanes` lanes
+    of reads an individual, so one K) over one pedigree with random
+    genotype likelihoods, each instance with its own alleles and
+    qualities."""
+    rng = np.random.RandomState(seed)
+    positions = [(i + 1) * 10 for i in range(n_cols)]
+    ped = core.Pedigree(core.NumericSampleIds())
+    for i in range(n_ind):
+        gls = [core.PhredGenotypeLikelihoods(list(rng.dirichlet([1, 1, 1]))) for _ in positions]
+        ped.add_individual(f"ind{i}", [core.Genotype([])] * n_cols, gls)
+    for f, m, c in trios:
+        ped.add_relationship(f"ind{f}", f"ind{m}", f"ind{c}")
+    layout = []
+    for ind in range(n_ind):
+        for _lane in range(lanes):
+            start = int(rng.randint(0, 3))
+            while start < n_cols - 1:
+                end = min(n_cols, start + int(rng.randint(2, 8)))
+                layout.append((ind, start, end))
+                start = end
+    packed_list = []
+    for _j in range(n):
+        rs = core.ReadSet()
+        for i, (ind, a, b) in enumerate(layout):
+            read = core.Read(f"r{i}", 50, 0, ind)
+            for c in range(a, b):
+                read.add_variant(positions[c], int(rng.randint(0, 2)), int(rng.randint(10, 40)))
+            rs.add(read)
+        rs.sort()
+        packed_list.append(wmec.pack_problem(rs, [10] * n_cols, ped, False, positions, check_conflicts=False,
+                                             emission_tables=False))
+    return packed_list, ped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ind,trios,lanes", [
+    (1, (), 8), (3, ((0, 1, 2),), 3), (5, ((0, 1, 2), (0, 1, 3), (0, 1, 4)), 3),
+], ids=["single", "trio", "fam5"])
+def test_run_genotyping_batched_on_cuda_matches_per_instance(cuda_device, n_ind, trios, lanes):
+    """run_genotyping_batched on the card equals each instance's own
+    run_genotyping on the card (the same kernels at B = 1): bit for bit
+    inside the cluster kernels' envelope (one sample, a trio); past it
+    (three children, T = 64: rows 15-16) within the likelihood bar of the
+    kernel checks (atol 1e-5), since the wide kernels sum an instance's
+    tiles in the rows of the CTAs that hold them, and how many tiles a CTA
+    holds depends on the grid, so on B."""
+    from whatshap_torch.ops import genotyping, genotyping_cuda
+
+    packed_list, ped = _same_shaped_genotyping(6, 40, n_ind, trios, seed=5 + n_ind, lanes=lanes)
+    shapes = {(p.n_cols, p.K, p.T, p.P) for p in packed_list}
+    assert len(shapes) == 1
+    _C, K, T, P = shapes.pop()
+    got = genotyping.run_genotyping_batched(packed_list, ped, device=cuda_device)
+    assert got.shape == (6, 40, n_ind, 3) and np.isfinite(got).all()
+    for b, packed in enumerate(packed_list):
+        one = genotyping.run_genotyping(packed, ped, device=cuda_device)
+        if genotyping_cuda.kernel_supported(K, T, P):
+            np.testing.assert_array_equal(got[b], one)
+        else:
+            np.testing.assert_allclose(got[b], one, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="one shape"):
+        genotyping.run_genotyping_batched(
+            packed_list + _same_shaped_genotyping(1, 39, n_ind, trios, 1, lanes)[0], ped, device=cuda_device)

@@ -19,12 +19,13 @@ Three parts:
 - forward_backward_plain: the plain torch versions of both passes in one
   call (genotyping_cuda.backward_plain, forward_plain), the float64
   yardstick of the route on any device;
-- the route (run_genotyping, launch_genotyping, forward_backward): through
-  genotyping_cuda's wrappers, so on a CUDA device every instance goes to
-  the float32 kernels (the cluster kernels, or past their envelope the
-  wide kernels with the state in device memory), and what neither can
-  take raises NotImplementedError instead of leaving the card; on the CPU
-  the wrappers run the plain versions in float64.
+- the route (run_genotyping, run_genotyping_batched, launch_genotyping,
+  forward_backward): through genotyping_cuda's wrappers, so on a CUDA
+  device every instance goes to the float32 kernels (the cluster kernels,
+  or past their envelope the wide kernels with the state in device
+  memory), and what neither can take raises NotImplementedError instead
+  of leaving the card; on the CPU the wrappers run the plain versions in
+  float64.
 """
 
 from typing import Optional
@@ -321,12 +322,33 @@ def launch_genotyping(static, stacked, device: torch.device) -> np.ndarray:
     return likelihoods_from_red(red, stacked[7][0])
 
 
+def run_genotyping_batched(packed_list, pedigree: Pedigree, device=None) -> Optional[np.ndarray]:
+    """Genotype likelihoods (B, C, n_ind, 3) float64 of same-shaped packed
+    instances (the same C, K, T and P, one pedigree) on `device` (default
+    "cuda", see wmec.resolve_device), in one batched forward-backward: the
+    reference's run_genotyping_jax_batched
+    (whatshap_tpu/ops/genotyping_jax.py:322) and
+    run_genotyping_pallas_batched (genotyping_pallas.py:340).  The instances
+    are chunked along B under the table budget (forward_backward).  Returns
+    None for an empty list; raises ValueError when the shapes differ."""
+    device = wmec.resolve_device(device)
+    if not packed_list:
+        return None
+    shapes = sorted({(p.n_cols, p.K, p.T, p.P) for p in packed_list})
+    if len(shapes) != 1:
+        raise ValueError(
+            f"run_genotyping_batched: instances must share one shape (C, K, T, P); got {shapes}"
+        )
+    static, stacked = prepare_genotyping_batch(packed_list, pedigree)
+    return launch_genotyping(static, stacked, device)
+
+
 def run_genotyping(
-    packed: "wmec.PackedProblem", pedigree: Pedigree, device: torch.device
+    packed: "wmec.PackedProblem", pedigree: Pedigree, device=None
 ) -> Optional[np.ndarray]:
     """Genotype likelihoods (C, n_ind, 3) float64 of one packed instance on
-    `device`, or None for an instance without columns."""
+    `device`, or None for an instance without columns: run_genotyping_batched
+    of one instance."""
     if packed.n_cols == 0:
         return None
-    static, stacked = prepare_genotyping_batch([packed], pedigree)
-    return launch_genotyping(static, stacked, device)[0]
+    return run_genotyping_batched([packed], pedigree, device)[0]

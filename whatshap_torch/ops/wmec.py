@@ -1365,6 +1365,86 @@ def run_dp_batched(
     return DPResult(total_cost, index_path, np.zeros(C, dtype=np.int64))
 
 
+def bucket_packed_list(
+    packed_list: Sequence[PackedProblem], c_pad: Optional[int] = None
+) -> List[Tuple[int, int, List[int], tuple]]:
+    """Group independent same-(T, P) instances into launch buckets: the
+    reference's bucket_packed_list (whatshap_tpu/ops/wmec.py:1720).
+
+    A bucket holds the instances of one exact K and one padded column count
+    (c_pad, else each instance's n_cols rounded up to a power of two, at
+    least 64; never below n_cols), so that one dense instance does not make
+    every sparse one pay its 2^K states.  Buckets are not merged across K,
+    as _slice_ranges keeps them: the kernels have no lane minimum.  Raises
+    ValueError when the instances do not share (T, P).
+
+    Returns [(k_b, c_pad, instance indices, stacked arrays)], the arrays
+    (parallel/blocks.py stack_blocks) ready for
+    `solve_batched_auto(k_b, T, P, *to_device(arrays, device))`.
+    """
+    from ..parallel.blocks import pad_block, stack_blocks
+
+    if not packed_list:
+        return []
+    T, P = packed_list[0].T, packed_list[0].P
+    buckets: dict = {}  # (k_b, c_pad) -> instance indices
+    for i, p in enumerate(packed_list):
+        if p.T != T or p.P != P:
+            raise ValueError(
+                f"solve_packed_list: all blocks must share (T, P); block {i} has "
+                f"({p.T}, {p.P}), block 0 ({T}, {P})"
+            )
+        cp = c_pad if c_pad is not None else _next_pow2(max(p.n_cols, 1), lo=64)
+        buckets.setdefault((max(p.K, 1), max(cp, p.n_cols)), []).append(i)
+    return [
+        (k_b, cp, idxs, stack_blocks([pad_block(packed_list[i], cp, k_pad=k_b) for i in idxs]))
+        for (k_b, cp), idxs in buckets.items()
+    ]
+
+
+def solve_packed_list(
+    packed_list: Sequence[PackedProblem],
+    c_pad: Optional[int] = None,
+    device=None,
+    solve=solve_batched_auto,
+) -> List[DPResult]:
+    """Solve a list of independent same-(T, P) instances (many samples' or
+    families' blocks) as a few batched launches on `device` (default
+    "cuda", see resolve_device): the reference's solve_packed_list
+    (whatshap_tpu/ops/wmec.py:1623).
+
+    The instances are bucketed by exact K and padded column count
+    (bucket_packed_list); each bucket reaches the device in one copy and is
+    solved by `solve` (solve_batched_auto: sharded over MESH_DEVICES,
+    chunked under each device's table budget; a check can hand in the torch
+    mirror's solve of the same signature).  Every bucket is launched before
+    anything is fetched, and all results come back in one copy.  Returns
+    one DPResult per instance, in input order; [] for an empty list.
+    """
+    from ..parallel.blocks import to_device
+
+    device = resolve_device(device)
+    buckets = bucket_packed_list(packed_list, c_pad)
+    if not buckets:
+        return []
+    T, P = packed_list[0].T, packed_list[0].P
+    pending = []
+    for k_b, _cp, _idxs, stacked in buckets:
+        pending += solve(k_b, T, P, *to_device(stacked, device))
+    fetched = _fetch(pending)  # one copy for every bucket
+
+    results: List[Optional[DPResult]] = [None] * len(packed_list)
+    for (_k, _cp, idxs, _s), costs, ipaths, tpaths in zip(
+        buckets, fetched[0::3], fetched[1::3], fetched[2::3]
+    ):
+        for bi, i in enumerate(idxs):
+            n = packed_list[i].n_cols
+            results[i] = DPResult(
+                int(costs[bi]), ipaths[bi, :n].astype(np.int64), tpaths[bi, :n].astype(np.int64)
+            )
+    return results
+
+
 def _fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     """Bring int32 device tensors to the host in ONE device-to-host copy:
     numpy arrays of the same shapes, in order."""
